@@ -8,24 +8,48 @@ Phases, each printed as a JSON line; any failure raises and exits non-zero
 before the result line:
 
 1. device: the card's ``nvidia-smi`` name and power limit, torch and CUDA;
-2. build: ``nvcc`` compiles every kernel source of the port (timed);
-3. kernels vs plain: the depthwise kernel at every depthwise shape of the
-   flagship ``efficientnet_deepfake_v4`` at a 600² input (batch 1, the main
-   path's, and batch 2; f32, TF32 off), bf16 on a few of them, and edge cases (C = 13, odd H/W, ``'same'``
-   and int padding, act none/relu, identity affine, an unaligned base
-   pointer), each against its plain PyTorch version on the same inputs;
-   the device time of the kernel, the plain version and the library call
-   (a CUDA graph of 20 calls replayed between CUDA events), beside the
-   bound (bytes over the memory rate or operations over the f32 rate);
-4. main path: the flagship at full width and depth (12×600², 55 blocks)
-   with seeded weights and BN calibrated on the CPU by one train-mode
-   pass over the inputs at 600², scoring seeded frames
-   of mixed aspect ratios through ``runners.test.test_img`` on the card,
-   single and ``--clip``; the kernel counts must show 55 launches per
-   forward, scores must be finite, not all 0.5, and match the same weights
-   run on the CPU (plain path); then clips/s at batch 1 and 8, and the
-   device time by kernel kind at batch 8 (torch.profiler);
-5. the ``kernels`` line, the ``nvidia-smi`` line, and last
+2. build: ``nvcc`` compiles every kernel source of the port, one process
+   per source, all started together (timed, with ptxas' register report);
+3. forward kernel vs plain: the depthwise kernel at every depthwise shape
+   of the flagship ``efficientnet_deepfake_v4`` at a 600² input (batch 1,
+   the inference path's, and batch 2; f32, TF32 off), bf16 on a few of them,
+   and edge cases (C = 13, odd H/W, ``'same'`` and int padding, act
+   none/relu, identity affine, an unaligned base pointer), each against its
+   plain PyTorch version on the same inputs; the device time of the kernel,
+   the plain version and the library call (a CUDA graph of 20 calls
+   replayed between CUDA events), beside the bound (bytes over the memory
+   rate or operations over the f32 rate);
+4. dw-gradient kernel vs plain: the same shapes at the training batch (3),
+   f32, bf16 x on a few, and edge cases; two calls must give bitwise-equal
+   dw; kernel, plain, library (cuDNN's weight gradient) and bound times;
+5. backward vs autograd: at every flagship shape at batch 3, for the
+   identity epilogue (the training call) and for affine + SiLU (the path
+   that saves z), the forward the training path launches (y against the
+   plain version, elementwise) and the full ``fused_depthwise`` backward on
+   the card (dx through the forward kernel, dw through the dw-gradient
+   kernel) against ``torch.autograd`` through the plain version; a padding
+   beyond k-1 raises at the forward call; the dx path's device time beside
+   cuDNN's input gradient;
+6. inference path: the flagship at full width and depth (12×600², 55
+   blocks) with seeded weights and BN calibrated on the CPU by one
+   train-mode pass over the inputs at 600², scoring seeded frames of mixed
+   aspect ratios through ``runners.test.test_img`` on the card, single and
+   ``--clip``; 55 forward-kernel launches per forward, scores finite, not
+   all 0.5, and matching the same weights run on the CPU (plain path); then
+   clips/s at batch 1 and 8, and the device time by kernel kind at batch 8
+   (torch.profiler);
+7. training path: ``runners.train`` in-process on the flagship at full width
+   and depth, 12×600², batch 3 (``scripts/train.sh``'s config on synthetic
+   data: 8 steps, validation of the model and its EMA, checkpoints); 110
+   forward-kernel launches (55 forward + 55 dx) and 55 dw-gradient launches
+   per step; loss finite; params, BN stats and EMA moved; the inference
+   path scores a frame with the checkpoint; ms per step, samples/s, peak
+   memory, and the device time per step by kernel kind;
+8. card against CPU: one guarded train step of the full flagship at
+   12×224², batch 2, from the same weights on the card and on the CPU (loss,
+   every parameter's update, BN running stats); then a NaN batch through the
+   card's step must leave the whole state bitwise unchanged;
+9. the ``kernels`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or in a directory that holds only this file, it exits
@@ -34,7 +58,12 @@ non-zero and prints no result.  Its files go to ``build/chip_smoke/``.
 
 from __future__ import annotations
 
+import gc
+import itertools
 import json
+import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -47,10 +76,15 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from deepfake_detection_tpu_torch import losses
 from deepfake_detection_tpu_torch.models import create_deepfake_model_v4
 from deepfake_detection_tpu_torch.ops import depthwise as dw
 from deepfake_detection_tpu_torch.ops.conv import explicit_padding
+from deepfake_detection_tpu_torch.optim import create_optimizer
 from deepfake_detection_tpu_torch.runners import test as runner
+from deepfake_detection_tpu_torch.runners import train as train_runner
+from deepfake_detection_tpu_torch.train.state import create_train_state
+from deepfake_detection_tpu_torch.train.steps import make_train_step
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "chip_smoke"
@@ -58,6 +92,7 @@ OUT = ROOT / "build" / "chip_smoke"
 # H100 SXM data-sheet peaks
 MEM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+EPS32 = float(np.finfo(np.float32).eps)
 
 # the flagship's depthwise stages at 600²: (H in, C, k, stride) → count
 FLAGSHIP_DW = {(300, 256, 3, 1): 1, (300, 32, 3, 1): 3, (300, 192, 3, 2): 1,
@@ -69,10 +104,28 @@ FLAGSHIP_DW = {(300, 256, 3, 1): 1, (300, 32, 3, 1): 3, (300, 192, 3, 2): 1,
 
 MAIN_BATCH = 1                    # test_img: one image or clip a forward
 KERNEL_BATCHES = (MAIN_BATCH, 2)  # batches of the kernel-vs-plain rows
+TRAIN_BATCH = 3                   # scripts/train.sh: -b 3
 
 F32_TOL = (1e-5, 1e-5)            # |kernel - plain| ≤ atol + rtol·|plain|
 BF16_TOL = (1e-6, 2.0 ** -7)      # one bf16 rounding apart, 2^-8 relative
 SCORE_TOL = 1e-3                  # P(fake), card vs CPU, f32 over 55 blocks
+# gradients (dw, dx, dscale, dbias) are sums of up to 270k products taken in
+# other orders than the plain version's: |kernel - plain| ≤ GRAD_TOL ·
+# max|plain| per tensor (1.1e-6 measured); a bf16 dx is one bf16 rounding
+GRAD_TOL = 1e-5
+BF16_GRAD_TOL = 2.0 ** -7
+LOSS_TOL = 1e-4                   # card vs CPU train step, relative
+UPDATE_TOL = 1e-3                 # of each parameter update's own max |·|
+
+# scripts/train.sh's flags that the port has, on synthetic data, one epoch
+# (24 samples: 8 steps); --log-interval 1 reads each step's metrics back,
+# so each step's host time is its device time
+TRAIN_FLAGS = ["--dataset", "synthetic", "--model", "efficientnet_deepfake_v4",
+               "--model-version", "v4", "--input-size-v2", "12,600,600",
+               "-b", str(TRAIN_BATCH), "--opt", "rmsproptf", "--basic-lr",
+               "5e-7", "--sched", "step", "--decay-epochs", "2",
+               "--decay-rate", ".92", "--bn-momentum", "0.001", "--mixup",
+               "0.1", "--model-ema", "--epochs", "1", "--log-interval", "1"]
 
 
 def emit(**kw) -> None:
@@ -260,19 +313,198 @@ def phase_kernels(shapes: Counter) -> dict:
                                  "silu", F32_TOL))
     xb, wb, _, _ = _case((2, 15, 15, 13), 3, torch.bfloat16, 400, True)
     check("bf16 C=13", xb, wb, None, None, 2, "same", "silu", BF16_TOL)
-    # no gradient through a CUDA stage yet: backward must raise
-    xg = torch.randn(1, 8, 8, 16, device="cuda", requires_grad=True)
-    try:
-        dw.fused_depthwise(xg, torch.randn(3, 3, 16, device="cuda")).sum() \
-            .backward()
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("backward through the CUDA stage did not raise")
     for batch, tot in totals.items():
         emit(phase="kernels", batch=batch, rows=len(shapes),
              stages=sum(shapes.values()), max_abs_err=max_err, **tot)
     return dict(max_abs_err=max_err, **totals[MAIN_BATCH])
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want|, in f32."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def _grad_case(shape, k, s, pad, dtype, seed):
+    """x (NHWC, ``dtype``), its pads, and an f32 upstream gradient dz of
+    the stage's output shape."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    pads = explicit_padding(pad, (k, k), 1, s, shape[1], shape[2])
+    ho, wo = dw.output_size(shape[1], shape[2], k, s, pads)
+    dz = torch.randn((shape[0], ho, wo, shape[3]), generator=g, device="cuda")
+    return x, dz, pads
+
+
+def check_dwgrad(name, x, dz, k, s, pads) -> float:
+    """Kernel vs plain dw; two kernel calls must agree bitwise.  Returns
+    the max absolute error."""
+    a = dw.depthwise_dwgrad(x, dz, k, s, pads)
+    b = dw.depthwise_dwgrad(x, dz, k, s, pads)
+    ref = dw.depthwise_dwgrad_reference(x, dz, k, s, pads)
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name}: two dw-gradient calls differ")
+    rel = _rel_err(a, ref)
+    if not torch.isfinite(a).all() or rel > GRAD_TOL:
+        raise AssertionError(f"{name}: dw |kernel - plain| / max|plain| "
+                             f"{rel:.3e} > {GRAD_TOL}")
+    return (a - ref).abs().max().item()
+
+
+def phase_dwgrad(shapes: Counter) -> dict:
+    """The dw-gradient kernel against its plain version at every flagship
+    depthwise shape at the training batch, bf16 x on a few, edge cases;
+    returns the count-weighted sums over the 55 stages."""
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               bytes_ms=0.0, ops_ms=0.0)
+    max_err = 0.0
+    for i, ((h, c, k, s), count) in enumerate(sorted(shapes.items())):
+        x, dz, pads = _grad_case((TRAIN_BATCH, h, h, c), k, s, "",
+                                 torch.float32, 500 + i)
+        err = check_dwgrad(f"f32 {h}x{h}x{c} k{k} s{s}", x, dz, k, s, pads)
+        max_err = max(max_err, err)
+        xc, dzc = x.permute(0, 3, 1, 2), dz.permute(0, 3, 1, 2)
+        ms = device_ms(lambda: dw.depthwise_dwgrad(x, dz, k, s, pads))
+        plain = device_ms(lambda: dw.depthwise_dwgrad_reference(
+            x, dz, k, s, pads))
+        lib = device_ms(lambda: torch.nn.grad.conv2d_weight(
+            xc, (c, 1, k, k), dzc, s, pads[0], 1, c))
+        nbytes = (x.numel() + dz.numel() + k * k * c) * 4
+        ops = 2 * k * k * dz.numel()
+        b_ms = nbytes / MEM_BYTES_PER_S * 1e3
+        o_ms = ops / F32_FLOP_PER_S * 1e3
+        emit(phase="dwgrad_row", h=h, c=c, k=k, stride=s, count=count,
+             batch=TRAIN_BATCH, max_abs_err=err, ms=ms, plain_ms=plain,
+             library_ms=lib, bound_ms=max(b_ms, o_ms),
+             bound_by="bytes" if b_ms >= o_ms else "operations",
+             gbytes_per_s=nbytes / ms / 1e6)
+        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                       ("bound_ms", max(b_ms, o_ms)), ("bytes_ms", b_ms),
+                       ("ops_ms", o_ms)):
+            tot[key] += count * v
+    for j, (h, c, k, s) in enumerate([(300, 256, 3, 1), (150, 288, 5, 2),
+                                      (19, 3840, 3, 1)]):
+        x, dz, pads = _grad_case((TRAIN_BATCH, h, h, c), k, s, "",
+                                 torch.bfloat16, 550 + j)
+        check_dwgrad(f"bf16 x {h}x{h}x{c} k{k} s{s}", x, dz, k, s, pads)
+    edges = [("C=13 odd H/W k3 s1", (3, 37, 29, 13), 3, 1, ""),
+             ("C=13 k5 s2 same", (3, 36, 36, 13), 5, 2, "same"),
+             ("odd H/W k5 s2 int pad", (3, 31, 45, 24), 5, 2, 1),
+             ("same pad k3 s2 even", (3, 40, 40, 64), 3, 2, "same"),
+             ("C=13 bf16 k3 s2 same", (3, 15, 15, 13), 3, 2, "same")]
+    for j, (name, shape, k, s, pad) in enumerate(edges):
+        dtype = torch.bfloat16 if "bf16" in name else torch.float32
+        x, dz, pads = _grad_case(shape, k, s, pad, dtype, 560 + j)
+        max_err = max(max_err, check_dwgrad(name, x, dz, k, s, pads))
+    emit(phase="dwgrad", batch=TRAIN_BATCH, rows=len(shapes),
+         stages=sum(shapes.values()), max_abs_err=max_err, bitwise=True,
+         **tot)
+    return dict(max_abs_err=max_err, **tot)
+
+
+def check_backward(name, shape, k, s, pad, affine, dtype, seed):
+    """``fused_depthwise`` on the card with a gradient wanted (the autograd
+    node's forward, which writes z for the affine + SiLU epilogue) vs the
+    plain version: y elementwise at F32_TOL (BF16_TOL for bf16 x), then dx,
+    dw and, with the affine epilogue, dscale and dbias against autograd.
+    Returns (y's max absolute error, the gradients' largest relative
+    error)."""
+    x, w, scale, bias = _case(shape, k, dtype, seed, identity=not affine)
+    act = "silu" if affine else "none"
+    worst = 0.0
+    ys, grads = [], []
+    for fn in (dw.fused_depthwise, dw.fused_depthwise_reference):
+        ins = [t.clone().requires_grad_() for t in (x, w, scale, bias)
+               if t is not None]
+        y = fn(*ins[:2], *(ins[2:] or [None, None]), s, pad, act)
+        gy = torch.randn(y.shape, device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(seed + 1)).to(y.dtype)
+        grads.append(torch.autograd.grad(y, ins, gy))
+        ys.append(y.detach())
+    torch.cuda.synchronize()
+    got, want = ys
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    diff = (got.float() - want.float()).abs()
+    if (got.shape != want.shape or got.dtype != want.dtype
+            or not torch.isfinite(got).all()
+            or bool((diff > tol[0] + tol[1] * want.float().abs()).any())):
+        raise AssertionError(f"{name}: y {got.shape} {got.dtype}, max "
+                             f"|kernel - plain| {diff.max().item():.3e} over "
+                             f"atol {tol[0]} + rtol {tol[1]}")
+    y_err = diff.max().item()
+    for label, got, want in zip(("dx", "dw", "dscale", "dbias"), *grads):
+        rel = _rel_err(got, want)
+        tol = BF16_GRAD_TOL if label == "dx" and dtype == torch.bfloat16 \
+            else GRAD_TOL
+        if not torch.isfinite(got).all() or rel > tol:
+            raise AssertionError(f"{name}: {label} |card - autograd| / "
+                                 f"max|autograd| {rel:.3e} > {tol}")
+        worst = max(worst, rel)
+    return y_err, worst
+
+
+def phase_backward(shapes: Counter) -> dict:
+    """The forward with a gradient wanted and the full backward against the
+    plain version at every flagship shape at the training batch, identity
+    and affine + SiLU epilogues; a padding the backward cannot take raises
+    at the forward call; the dx path's device time (dilation + forward
+    kernel) beside cuDNN's input gradient; returns the count-weighted sums
+    and the forward's max absolute error."""
+    tot = dict(dx_ms=0.0, dilate_ms=0.0, dx_library_ms=0.0, dx_bound_ms=0.0)
+    worst = y_worst = 0.0
+    for i, ((h, c, k, s), count) in enumerate(sorted(shapes.items())):
+        shape = (TRAIN_BATCH, h, h, c)
+        y_err = row_err = 0.0
+        for affine in (False, True):
+            ye, ge = check_backward(
+                f"{h}x{h}x{c} k{k} s{s} {'affine+silu' if affine else 'id'}",
+                shape, k, s, "", affine, torch.float32, 700 + 2 * i)
+            y_err, row_err = max(y_err, ye), max(row_err, ge)
+        worst, y_worst = max(worst, row_err), max(y_worst, y_err)
+        x, dz, pads = _grad_case(shape, k, s, "", torch.float32, 750 + i)
+        w = torch.randn((k, k, c), device="cuda") * 0.2
+        wf = torch.flip(w, dims=(0, 1)).contiguous()
+        ho = dz.shape[1]
+        pads_dx = dw.dx_padding(h, h, k, s, pads, ho, ho)
+        dx_ms = device_ms(lambda: dw.cuda_conv(dw.dilate(dz, s), wf,
+                                               pads_dx))
+        dil_ms = device_ms(lambda: dw.dilate(dz, s)) if s > 1 else 0.0
+        w_lib = w.permute(2, 0, 1).unsqueeze(1).contiguous()
+        dzc = dz.permute(0, 3, 1, 2)
+        lib = device_ms(lambda: torch.nn.grad.conv2d_input(
+            (TRAIN_BATCH, c, h, h), w_lib, dzc, s, pads[0], 1, c))
+        nbytes = (dz.numel() + x.numel() + k * k * c) * 4
+        bound = max(nbytes / MEM_BYTES_PER_S,
+                    2 * k * k * dz.numel() / F32_FLOP_PER_S) * 1e3
+        emit(phase="backward_row", h=h, c=c, k=k, stride=s, count=count,
+             batch=TRAIN_BATCH, max_rel_err=row_err, y_max_abs_err=y_err,
+             dx_ms=dx_ms, dilate_ms=dil_ms, dx_library_ms=lib,
+             dx_bound_ms=bound)
+        for key, v in (("dx_ms", dx_ms), ("dilate_ms", dil_ms),
+                       ("dx_library_ms", lib), ("dx_bound_ms", bound)):
+            tot[key] += count * v
+    worst = max(worst, check_backward("bf16 x k3 s2 same", (3, 40, 40, 64), 3,
+                                      2, "same", True, torch.bfloat16,
+                                      790)[1])
+    ye, ge = check_backward("C=13 odd H/W k5 s2 int pad", (3, 31, 45, 13), 5,
+                            2, 1, True, torch.float32, 792)
+    worst, y_worst = max(worst, ge), max(y_worst, ye)
+    # the backward takes at most k-1 of padding a side: beyond that the
+    # forward call that wants a gradient raises, before any launch
+    x, w, _, _ = _case((1, 9, 9, 8), 3, torch.float32, 794, identity=True)
+    try:
+        dw.fused_depthwise(x.requires_grad_(), w, None, None, 1, 3, "none")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("padding 3 at k=3 with a gradient wanted did not "
+                             "raise at the forward call")
+    emit(phase="backward", batch=TRAIN_BATCH, rows=len(shapes),
+         max_rel_err=worst, y_max_abs_err=y_worst, **tot)
+    return dict(max_rel_err=worst, y_max_abs_err=y_worst, **tot)
 
 
 def _frames(rng):
@@ -289,7 +521,9 @@ def _frames(rng):
     return out
 
 
-def phase_main_path(device: str = "cuda", size: int = 600) -> int:
+def phase_main_path(device: str = "cuda", size: int = 600):
+    """The inference path; returns its forward-kernel launches and one of
+    the frame files it scored."""
     OUT.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(0)
     files = []
@@ -370,21 +604,47 @@ def phase_main_path(device: str = "cuda", size: int = 600) -> int:
              ms_per_clip=dt / (batch * iters) * 1e3,
              peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     phase_profile(model, x)
-    return launches
+    return launches, files[0]
 
 
 def _kernel_kind(name: str) -> str:
     n = name.lower()
     if "dw_fwd_kernel" in n:
         return "depthwise_fwd"
+    if "dwgrad" in n:
+        return "depthwise_dwgrad"
+    if "multi_tensor_apply" in n:
+        return "foreach (optimizer, EMA, guard copy)"
     if any(t in n for t in ("conv", "cudnn", "gemm", "xmma", "implicit",
-                            "sm90", "cutlass")):
+                            "sm90", "cutlass", "dgrad", "wgrad")):
         return "conv_gemm"
     if "reduce" in n:
         return "reduce"
     if "elementwise" in n or "vectorized" in n:
         return "elementwise"
     return "other"
+
+
+def _emit_kinds(phase: str, prof, n: int, wall_us: float, **extra) -> None:
+    """Device time and launches per iteration by kernel kind, and the
+    device's idle share of the wall time, from a torch.profiler run of
+    ``n`` iterations."""
+    kinds = Counter()
+    launches = Counter()
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            kinds[_kernel_kind(e.key)] += e.self_device_time_total
+            launches[_kernel_kind(e.key)] += e.count
+    busy_us = sum(kinds.values())
+    if busy_us == 0:
+        emit(phase=phase, device_time="not measured", **extra)
+        return
+    emit(phase=phase, iterations=n,
+         ms_per_iteration={k: v / n / 1e3 for k, v in kinds.items()},
+         launches_per_iteration={k: v / n for k, v in launches.items()},
+         busy_ms_per_iteration=busy_us / n / 1e3,
+         wall_ms_per_iteration=wall_us / n / 1e3,
+         idle_share=max(0.0, 1.0 - busy_us / wall_us), **extra)
 
 
 def phase_profile(model, x, iters: int = 3) -> None:
@@ -397,22 +657,206 @@ def phase_profile(model, x, iters: int = 3) -> None:
             model(x)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kinds = Counter()
-    launches = Counter()
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            kinds[_kernel_kind(e.key)] += e.self_device_time_total
-            launches[_kernel_kind(e.key)] += e.count
-    busy_us = sum(kinds.values())
-    if busy_us == 0:
-        emit(phase="profile", batch=x.shape[0], device_time="not measured")
-        return
-    emit(phase="profile", batch=x.shape[0], forwards=iters,
-         ms_per_forward={k: v / iters / 1e3 for k, v in kinds.items()},
-         launches_per_forward={k: v / iters for k, v in launches.items()},
-         busy_ms_per_forward=busy_us / iters / 1e3,
-         wall_ms_per_forward=wall_us / iters / 1e3,
-         idle_share=max(0.0, 1.0 - busy_us / wall_us))
+    _emit_kinds("profile", prof, iters, wall_us, batch=x.shape[0])
+
+
+def _reset_counts() -> None:
+    dw.fused_depthwise.launches = 0
+    dw.depthwise_dwgrad.launches = 0
+
+
+def _counts():
+    return dw.fused_depthwise.launches, dw.depthwise_dwgrad.launches
+
+
+def phase_train(frame: str) -> dict:
+    """``runners.train`` in-process on the flagship at 12×600², batch 3:
+    8 steps, validation of the model and its EMA, checkpoints; then the
+    launch counts of one step and its device time by kernel kind."""
+    out = OUT / "train"
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = train_runner.parse_args(TRAIN_FLAGS + ["--output", str(out)])
+    init = train_runner.build_model(cfg, "cpu").state_dict()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    result = train_runner.main(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, dwg = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(result["train"]["step_s"])
+    n_eval = max(max(TRAIN_BATCH * 8, 16) // 2, 8)    # runners.train.setup
+    eval_batches = math.ceil(n_eval / (2 * TRAIN_BATCH))
+    want_fwd = 110 * steps + 55 * eval_batches * 2     # model + EMA eval
+    if steps != 8 or fwd != want_fwd or dwg != 55 * steps:
+        raise AssertionError(
+            f"train path: {steps} steps, {fwd} forward-kernel and {dwg} "
+            f"dw-gradient launches; expected 8, {want_fwd} and {55 * steps}")
+    if not (np.isfinite(result["train"]["loss"])
+            and np.isfinite(result["eval"]["loss"])):
+        raise AssertionError(f"non-finite loss: {result}")
+    if result["train"]["nonfinite"]:
+        raise AssertionError(f"{result['train']['nonfinite']} guarded steps")
+    last = Path(result["output_dir"]) / "last.pth.tar"
+    ckpt = torch.load(last, map_location="cpu", weights_only=True)
+    moved = {}
+    for part, sd in (("params", ckpt["state_dict"]),
+                     ("ema", ckpt["state_dict_ema"])):
+        moved[part] = sum(not torch.equal(v, init[k]) for k, v in sd.items()
+                          if not k.endswith(("running_mean", "running_var",
+                                             "num_batches_tracked")))
+        moved[part + "_bn"] = sum(
+            not torch.equal(v, init[k]) for k, v in sd.items()
+            if k.endswith(("running_mean", "running_var")))
+    if not all(moved.values()):
+        raise AssertionError(f"state did not move in training: {moved}")
+    score = runner.test_img(str(last), [frame], size=600, device="cuda")
+    if not (len(score) == 1 and 0.0 <= score[0] <= 1.0):
+        raise AssertionError(f"checkpoint scored {score}")
+    step_s = result["train"]["step_s"][1:]        # the first one warms up
+    ms_step = float(np.mean(step_s)) * 1e3
+    emit(phase="train", steps=steps, forward_launches=fwd,
+         dwgrad_launches=dwg, loss=result["train"]["loss"],
+         eval_loss=result["eval"]["loss"], moved_leaves=moved,
+         checkpoint=str(last.relative_to(ROOT)), score=score[0],
+         ms_per_step=ms_step, step_ms=[v * 1e3 for v in step_s],
+         samples_per_s=TRAIN_BATCH / (ms_step / 1e3),
+         peak_mem_gib=peak / 2 ** 30, wall_s=wall)
+    del result, ckpt, init
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    run = train_runner.setup(cfg)
+    batches = list(itertools.islice(iter(run.train_loader), 4))
+    run.train_step(run.state, *batches[0])
+    torch.cuda.synchronize()
+    _reset_counts()
+    run.train_step(run.state, *batches[1])
+    torch.cuda.synchronize()
+    per_step = _counts()
+    if per_step != (110, 55):
+        raise AssertionError(f"one train step launched {per_step} "
+                             f"(forward, dw-gradient); expected (110, 55)")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for x, y in batches[2:]:
+            run.train_step(run.state, x, y)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    _emit_kinds("train_profile", prof, len(batches) - 2, wall_us,
+                batch=TRAIN_BATCH)
+    del run, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(forward_launches=fwd, dwgrad_launches=dwg)
+
+
+def _train_one_step(device: str, x: np.ndarray, y: np.ndarray,
+                    threads: int = 0):
+    """One guarded rmsproptf step of the seeded full flagship on
+    ``device``; returns the loss, the state dict before and after (CPU),
+    and the live state and step for more steps."""
+    if threads:
+        torch.set_num_threads(threads)
+    model = create_deepfake_model_v4(device=device, seed=1, bn_momentum=0.1)
+    state = create_train_state(model, create_optimizer(
+        train_runner.TrainConfig(opt="rmsproptf"), model, 1e-3),
+        with_ema=True)
+    step = make_train_step(losses.soft_target_cross_entropy,
+                           nonfinite_guard=True)
+    before = {k: v.detach().cpu().clone()
+              for k, v in model.state_dict().items()}
+    xd = torch.from_numpy(x).to(device).contiguous(
+        memory_format=torch.channels_last)
+    yd = torch.from_numpy(y).to(device)
+    t0 = time.perf_counter()
+    loss = float(step(state, xd, yd)["loss"])
+    return dict(loss=loss, s=time.perf_counter() - t0, before=before,
+                after={k: v.detach().cpu().clone()
+                       for k, v in model.state_dict().items()},
+                state=state, step=step, x=xd, y=yd)
+
+
+def phase_card_vs_cpu(size: int = 224, batch: int = 2) -> None:
+    """One guarded rmsproptf step of the full flagship from the same
+    weights on the card and on the CPU (all cores, and one core for the
+    CPU's own f32 rounding noise); then a NaN batch on the card."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((batch, 12, size, size)).astype(np.float32)
+    y = np.array([[0.9, 0.1], [0.2, 0.8]], np.float32)[:batch]
+    gpu = _train_one_step("cuda", x, y)
+    cpu = _train_one_step("cpu", x, y, threads=os.cpu_count() or 1)
+    cpu1 = _train_one_step("cpu", x, y, threads=1)
+    del cpu["state"], cpu1["state"]
+    loss_rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    if not np.isfinite(gpu["loss"]) or loss_rel > LOSS_TOL:
+        raise AssertionError(f"card vs CPU loss {gpu['loss']} vs "
+                             f"{cpu['loss']}: {loss_rel:.3e} > {LOSS_TOL}")
+    # Each parameter's update (after - before) against UPDATE_TOL of its own
+    # max, plus: 2 f32 ulps of the weight (the update is a difference of two
+    # rounded f32 weights); a floor of 1e-6 of the largest update (leaves
+    # whose gradient cancels to rounding noise, as a BN bias feeding the
+    # next BN); and twice the CPU's own disagreement on that leaf between
+    # all cores and one core (f32 noise amplified through 55 blocks of
+    # backprop reaches ~1e-3 of the update on the first blocks' weights).
+    upd = {k: (cpu["after"][k] - cpu["before"][k],
+               gpu["after"][k] - gpu["before"][k],
+               cpu1["after"][k] - cpu1["before"][k])
+           for k in cpu["before"] if cpu["before"][k].is_floating_point()
+           and not k.endswith(("running_mean", "running_var"))}
+    floor = 1e-6 * max(u[0].abs().max().item() for u in upd.values())
+    worst_upd = worst_self = usage = 0.0
+    for k, (uc, ug, u1) in upd.items():
+        err = (ug - uc).abs().max().item()
+        noise = (u1 - uc).abs().max().item()
+        scale = uc.abs().max().item()
+        ulps = 2 * EPS32 * cpu["after"][k].abs().max().item()
+        bound = UPDATE_TOL * scale + ulps + floor + 2 * noise
+        if err > bound:
+            raise AssertionError(f"{k}: card vs CPU update differs by "
+                                 f"{err:.3e} > {bound:.3e}")
+        usage = max(usage, err / bound)
+        # the relative figures over updates well above f32 resolution
+        if scale > 1e3 * floor and scale > 500 * ulps:
+            worst_upd = max(worst_upd, err / scale)
+            worst_self = max(worst_self, noise / scale)
+    worst_bn = 0.0
+    for k, v in cpu["after"].items():
+        if k.endswith("running_var"):
+            base = k[:-len("running_var")]
+            spread = float(v.max().sqrt())
+            for leaf, scale in (("running_mean", spread),
+                                ("running_var", spread ** 2)):
+                diff = (gpu["after"][base + leaf]
+                        - cpu["after"][base + leaf]).abs().max().item()
+                if diff > 1e-4 * scale:
+                    raise AssertionError(f"{base + leaf}: card vs CPU "
+                                         f"{diff:.3e} > 1e-4 · {scale:.3e}")
+                worst_bn = max(worst_bn, diff / scale)
+    emit(phase="card_vs_cpu", size=size, batch=batch, loss_gpu=gpu["loss"],
+         loss_cpu=cpu["loss"], loss_cpu_1_thread=cpu1["loss"],
+         loss_rel_diff=loss_rel, max_update_rel_diff=worst_upd,
+         cpu_self_max_update_rel_diff=worst_self, update_floor=floor,
+         max_err_over_bound=usage,
+         max_bn_stat_rel_diff=worst_bn, leaves=len(upd), gpu_s=gpu["s"],
+         cpu_s=cpu["s"], cpu_1_thread_s=cpu1["s"],
+         tol=dict(loss=LOSS_TOL, update=UPDATE_TOL, bn_stats=1e-4))
+    # the guard: a NaN batch through the card's step changes nothing
+    state, step = gpu["state"], gpu["step"]
+    before = [t.clone() for t in state.tensors()]
+    m = step(state, torch.full_like(gpu["x"], float("nan")), gpu["y"])
+    torch.cuda.synchronize()
+    after = state.tensors()
+    same = sum(torch.equal(a, b) for a, b in zip(after, before))
+    if float(m["nonfinite"]) != 1.0 or same != len(before) or \
+            int(state.step) != 1:
+        raise AssertionError(f"NaN batch: nonfinite {float(m['nonfinite'])},"
+                             f" {same}/{len(before)} tensors unchanged, "
+                             f"step {int(state.step)}")
+    emit(phase="guard", nonfinite=float(m["nonfinite"]),
+         tensors_unchanged=same, tensors=len(before), step=int(state.step))
 
 
 def main() -> int:
@@ -426,11 +870,12 @@ def main() -> int:
          count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    lib = dw.build()
-    regs = [ln.strip() for ln in lib.with_suffix(".log").read_text()
-            .splitlines() if "registers" in ln]
-    emit(phase="build", s=time.perf_counter() - t0, library=lib.name,
-         ptxas=regs)
+    libs = dw.build()
+    emit(phase="build", s=time.perf_counter() - t0,
+         ptxas={name: [ln.strip() for ln in path.with_suffix(".log")
+                       .read_text().splitlines() if "registers" in ln]
+                for name, path in libs.items()},
+         libraries=[path.name for path in libs.values()])
 
     model = create_deepfake_model_v4(device="cpu")
     shapes = flagship_dw_shapes(model, 600)
@@ -438,20 +883,50 @@ def main() -> int:
     if dict(shapes) != FLAGSHIP_DW:
         raise AssertionError(f"flagship depthwise shapes {dict(shapes)}")
     k = phase_kernels(shapes)
-    launches = phase_main_path()
+    g = phase_dwgrad(shapes)
+    b = phase_backward(shapes)
 
-    emit(kernels=[dict(
-        name="depthwise_fwd", route="cuda",
-        source="deepfake_detection_tpu_torch/csrc/depthwise_fwd.cu",
-        replaces="deepfake_detection_tpu/ops/depthwise_pallas.py:138",
-        launches=launches, max_abs_err=k["max_abs_err"], ms=k["ms"],
-        kernel_ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
-        bound_by="bytes" if k["bytes_ms"] >= k["ops_ms"] else "operations",
-        library_ms=k["library_ms"],
-        timing="device time (CUDA graph replay between CUDA events) "
-               "summed over the flagship's "
-               f"55 depthwise stages at a 600² input, batch {MAIN_BATCH}, "
-               "f32")])
+    # each path runs with the launch counts set to 0 just before it
+    _reset_counts()
+    infer_launches, frame = phase_main_path()
+    if _counts()[1] != 0:
+        raise AssertionError(f"the inference path launched the dw-gradient "
+                             f"kernel {_counts()[1]} times")
+    t = phase_train(frame)
+    phase_card_vs_cpu()
+
+    emit(kernels=[
+        dict(name="depthwise_fwd", route="cuda",
+             source="deepfake_detection_tpu_torch/csrc/depthwise_fwd.cu",
+             replaces="deepfake_detection_tpu/ops/depthwise_pallas.py:138",
+             launches=infer_launches + t["forward_launches"],
+             launches_by_path={"inference": infer_launches,
+                               "train": t["forward_launches"]},
+             max_abs_err=max(k["max_abs_err"], b["y_max_abs_err"]),
+             ms=k["ms"], kernel_ms=k["ms"],
+             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+             bound_by="bytes" if k["bytes_ms"] >= k["ops_ms"]
+             else "operations",
+             library_ms=k["library_ms"],
+             dx_ms=b["dx_ms"], dx_library_ms=b["dx_library_ms"],
+             dx_bound_ms=b["dx_bound_ms"], dilate_ms=b["dilate_ms"],
+             timing="device time (CUDA graph replay between CUDA events) "
+                    "summed over the flagship's 55 depthwise stages at a "
+                    f"600² input, f32: the forward at batch {MAIN_BATCH}, "
+                    f"dx (dilation + kernel) at batch {TRAIN_BATCH}"),
+        dict(name="depthwise_dwgrad", route="cuda",
+             source="deepfake_detection_tpu_torch/csrc/depthwise_dwgrad.cu",
+             replaces="deepfake_detection_tpu/ops/depthwise_pallas.py:214",
+             launches=t["dwgrad_launches"],
+             launches_by_path={"train": t["dwgrad_launches"]},
+             max_abs_err=g["max_abs_err"], ms=g["ms"], kernel_ms=g["ms"],
+             plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
+             bound_by="bytes" if g["bytes_ms"] >= g["ops_ms"]
+             else "operations",
+             library_ms=g["library_ms"],
+             timing="device time (CUDA graph replay between CUDA events) "
+                    "summed over the flagship's 55 depthwise stages at a "
+                    f"600² input, batch {TRAIN_BATCH}, f32")])
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,12 @@
 //
 // Replaces the Pallas TPU kernel deepfake_detection_tpu/ops/depthwise_pallas.py
 // ::_fwd_kernel (launched by _dw_call): y = act(dwconv(x, w) * scale + bias),
-// f32 accumulation and epilogue, y in x's dtype.
+// f32 accumulation and epilogue, y in x's dtype.  When z is not null it also
+// writes z = dwconv(x, w) in f32, the pre-affine output the backward of a
+// non-identity epilogue needs (the TPU version's want_z); inference and the
+// identity epilogue of training pass null and pay nothing for it.  The
+// backward reuses this kernel for dx (stride 1, act none, flipped kernel,
+// over the upstream gradient dilated by stride-1).
 //
 // What bounds it on an H100: memory.  The stage must read x once and write y
 // once (w, scale and bias are k*k*C + 2*C floats); at the flagship's shapes
@@ -102,8 +107,9 @@ template <typename T, int K, int S, int V>
 __global__ void __launch_bounds__(kThreads)
 dw_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
               const float* __restrict__ scale, const float* __restrict__ bias,
-              T* __restrict__ y, int64_t B, int64_t H, int64_t W, int64_t C,
-              int64_t Ho, int64_t Wo, int pad_top, int pad_left, int act) {
+              T* __restrict__ y, float* __restrict__ z, int64_t B, int64_t H,
+              int64_t W, int64_t C, int64_t Ho, int64_t Wo, int pad_top,
+              int pad_left, int act) {
   constexpr int NCOL = (kTW - 1) * S + K;  // input columns a strip reads
   const int64_t CV = C / V;
   const int64_t n_strip = (Wo + kTW - 1) / kTW;
@@ -170,18 +176,20 @@ dw_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
     for (int t = 0; t < kTW; ++t) {
       const int64_t wo = wo0 + t;
       if (wo >= Wo) break;
+      const int64_t off = ((b * Ho + ho) * Wo + wo) * C + c0;
+      if (z != nullptr) Vec<float, V>::store(z + off, acc[t]);
       float out[V];
 #pragma unroll
       for (int v = 0; v < V; ++v)
         out[v] = apply_act(acc[t][v] * sc[v] + bi[v], act);
-      Vec<T, V>::store(y + ((b * Ho + ho) * Wo + wo) * C + c0, out);
+      Vec<T, V>::store(y + off, out);
     }
   }
 }
 
 struct Args {
   const void* x; const float* w; const float* scale; const float* bias;
-  void* y;
+  void* y; float* z;
   int64_t B, H, W, C, Ho, Wo;
   int pad_top, pad_left, act;
   cudaStream_t stream;
@@ -195,7 +203,7 @@ cudaError_t launch(const Args& a) {
   if (blocks > 2147483647) blocks = 2147483647;  // the loop strides over rest
   dw_fwd_kernel<T, K, S, V><<<(unsigned)blocks, kThreads, 0, a.stream>>>(
       static_cast<const T*>(a.x), a.w, a.scale, a.bias, static_cast<T*>(a.y),
-      a.B, a.H, a.W, a.C, a.Ho, a.Wo, a.pad_top, a.pad_left, a.act);
+      a.z, a.B, a.H, a.W, a.C, a.Ho, a.Wo, a.pad_top, a.pad_left, a.act);
   return cudaGetLastError();
 }
 
@@ -207,7 +215,8 @@ template <typename T, int K, int S>
 cudaError_t launch_vec(const Args& a) {
   const bool vec = a.C % 4 == 0 && aligned(a.x, 4 * sizeof(T)) &&
                    aligned(a.y, 4 * sizeof(T)) && aligned(a.w, 16) &&
-                   aligned(a.scale, 16) && aligned(a.bias, 16);
+                   aligned(a.scale, 16) && aligned(a.bias, 16) &&
+                   aligned(a.z, 16);
   return vec ? launch<T, K, S, 4>(a) : launch<T, K, S, 1>(a);
 }
 
@@ -222,19 +231,23 @@ cudaError_t launch_ks(const Args& a, int k, int stride) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x and y); w, scale, bias are float32,
-// scale and bias may be null (identity).  Returns the cudaError_t of the
-// launch; the caller raises on anything but 0.
+// dtype: 0 = float32, 1 = bfloat16 (x and y); w, scale, bias and z are
+// float32, scale and bias may be null (identity), z may be null (not
+// written).  Pads may exceed k-1 (rows or columns whose taps all fall
+// outside x get 0); Ho and Wo are the caller's.  Returns the cudaError_t of
+// the launch; the caller raises on anything but 0.
 extern "C" int dfd_depthwise_fwd(const void* x, const void* w,
                                  const void* scale, const void* bias, void* y,
-                                 int64_t B, int64_t H, int64_t W, int64_t C,
-                                 int64_t Ho, int64_t Wo, int k, int stride,
+                                 void* z, int64_t B, int64_t H, int64_t W,
+                                 int64_t C, int64_t Ho, int64_t Wo, int k,
+                                 int stride,
                                  int pad_top, int pad_left, int act, int dtype,
                                  void* stream) {
   if (act < 0 || act > 2) return (int)cudaErrorInvalidValue;
   const Args a{x, static_cast<const float*>(w),
                static_cast<const float*>(scale),
-               static_cast<const float*>(bias), y, B, H, W, C, Ho, Wo,
+               static_cast<const float*>(bias), y, static_cast<float*>(z),
+               B, H, W, C, Ho, Wo,
                pad_top, pad_left, act, static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return (int)launch_ks<float>(a, k, stride);
   if (dtype == 1) return (int)launch_ks<__nv_bfloat16>(a, k, stride);

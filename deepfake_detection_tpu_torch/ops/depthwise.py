@@ -1,31 +1,39 @@
-"""Fused depthwise conv → per-channel affine → activation, forward.
+"""Fused depthwise conv → per-channel affine → activation, and its backward.
 
-Replaces the Pallas TPU kernel
-``deepfake_detection_tpu/ops/depthwise_pallas.py::_fwd_kernel`` (launched by
-``_dw_call``, public ``fused_depthwise``) with a CUDA C++ kernel written for
-Hopper, ``csrc/depthwise_fwd.cu``.
+Replaces the Pallas TPU kernels of
+``deepfake_detection_tpu/ops/depthwise_pallas.py`` with CUDA C++ kernels
+written for Hopper:
 
-What bounds it on an H100: memory bytes.  The stage reads x once and writes
-y once; at the flagship's 55 stages that is 1.21 GB per 600² image in f32
-against 4.0 GFLOP, ~3 FLOP per byte, far under the card's f32 ridge.  The
-kernel's design follows from that (see the source's header): coalesced
-16-byte accesses along C, a register strip of output pixels along W that
-reuses each loaded input column across taps, and the halo handled by bounds
-checks instead of the padded copy of x the TPU version makes in XLA.
+* ``_fwd_kernel`` (launched by ``_dw_call``, public ``fused_depthwise``) →
+  ``csrc/depthwise_fwd.cu``, which also writes the f32 pre-affine output z
+  when the backward of a non-identity epilogue needs it, and computes dx in
+  the backward (stride 1, act none, flipped kernel, over the upstream
+  gradient dilated by ``stride - 1``), as the TPU version does;
+* ``_dwgrad_kernel`` (launched by ``_dwgrad_call``) →
+  ``csrc/depthwise_dwgrad.cu``, the weight gradient, reduced in two passes
+  without atomics so that two calls give bitwise-equal dw.
 
-* :func:`fused_depthwise_reference` is the plain PyTorch version: ``F.pad``
-  where the padding is asymmetric, ``F.conv2d(groups=C)`` in f32, affine,
-  act, cast.  The CPU tests run it; ``chip_smoke.py`` holds the kernel
-  against it on the card.
-* :func:`fused_depthwise` sends a CPU tensor to the plain version and a CUDA
-  tensor to the kernel, or raises; there is no fallback.  Its ``launches``
-  attribute counts kernel launches.
+What bounds them on an H100: memory bytes.  The forward reads x once and
+writes y once; at the flagship's 55 stages that is 1.21 GB per 600² image
+in f32 against 4.0 GFLOP, ~3 FLOP per byte, far under the card's f32 ridge.
+The dw gradient reads x and dz once, 2.25-6.25 FLOP per byte.  Both kernels
+put threads along C for coalesced 16-byte accesses and handle the halo with
+bounds checks instead of the padded copy of x the TPU version makes in XLA.
 
-The kernel is compiled at first use by ``nvcc`` into ``build/kernels/`` at
-the repository root and loaded with ``ctypes``; nothing is built or
-imported at module import.  Only the forward exists: a gradient through a
-CUDA stage raises (the backward and the dw-gradient kernel are ROADMAP
-Queue 2 items 1-2).
+* :func:`fused_depthwise_reference` and :func:`depthwise_dwgrad_reference`
+  are the plain PyTorch versions.  The CPU tests run them; ``chip_smoke.py``
+  holds the kernels against them on the card.
+* :func:`fused_depthwise` and :func:`depthwise_dwgrad` send a CPU tensor to
+  the plain version and a CUDA tensor to the kernel, or raise; there is no
+  fallback.  Their ``launches`` attributes count kernel launches.
+* :func:`depthwise_backward` is the backward's glue (the counterpart of
+  ``fused_depthwise::_op_bwd``): epilogue cotangents, the dilation and the
+  padding of dx, with the two device ops passed in.  The CUDA autograd node
+  passes the kernels; the CPU tests pass the plain versions.
+
+The kernels are compiled at first use by ``nvcc`` (one process per source,
+in parallel) into ``build/kernels/`` at the repository root and loaded with
+``ctypes``; nothing is built or imported at module import.
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -45,19 +53,29 @@ import torch.nn.functional as F
 from .conv import explicit_padding
 
 __all__ = ["FUSED_DW_ACTS", "fused_depthwise", "fused_depthwise_reference",
-           "build", "output_size"]
+           "depthwise_dwgrad", "depthwise_dwgrad_reference",
+           "depthwise_backward", "dilate", "dx_padding", "cuda_conv",
+           "plain_conv", "build", "output_size"]
 
 #: epilogue activations the kernel fuses, in the order of its act codes
 FUSED_DW_ACTS = ("none", "silu", "relu")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_SIZES = (3, 5)
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "depthwise_fwd.cu"
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_SOURCES = {name: _CSRC / f"{name}.cu"
+            for name in ("depthwise_fwd", "depthwise_dwgrad")}
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_SIGNATURES = {
+    "dfd_depthwise_fwd": ([_P] * 6 + [_I64] * 6 + [_I] * 6 + [_P], _I),
+    "dfd_depthwise_dwgrad": ([_P] * 4 + [_I64] * 6 + [_I] * 5 + [_P], _I),
+    "dfd_depthwise_dwgrad_workspace": ([_I64] * 4 + [_I], _I64),
+}
 
-_lib = None
+_libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 
 
@@ -69,42 +87,63 @@ def _nvcc() -> str:
     if cand.is_file():
         return str(cand)
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                       "/usr/local/cuda/bin): the depthwise kernel is built "
-                       "from csrc/ at first use")
+                       "/usr/local/cuda/bin): the depthwise kernels are "
+                       "built from csrc/ at first use")
 
 
-def build() -> Path:
-    """Compile ``csrc/depthwise_fwd.cu`` (once per source and flag set) and
-    return the shared library's path; raises with nvcc's stderr on failure.
-    ``-Xptxas -v``'s register report lands in the ``.log`` beside it."""
-    src = _SOURCE.read_bytes()
+def _target(name: str) -> Path:
+    src = _SOURCES[name].read_bytes()
     key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"depthwise_fwd-{key}.so"
-    if out.is_file():
+    return _BUILD_DIR / f"{name}-{key}.so"
+
+
+def build() -> Dict[str, Path]:
+    """Compile every ``csrc/*.cu`` source not built yet (one ``nvcc`` per
+    source, all started together) and return ``{name: library path}``;
+    raises with nvcc's stderr on failure.  ``-Xptxas -v``'s register report
+    lands in the ``.log`` beside each library."""
+    out = {name: _target(name) for name in _SOURCES}
+    todo = {name: path for name, path in out.items() if not path.is_file()}
+    if not todo:
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stderr)
-    os.replace(tmp, out)
+    procs = {}
+    for name, path in todo.items():
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCES[name])]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (cmd, tmp, proc) in procs.items():
+        try:
+            _, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{err}")
+            continue
+        todo[name].with_suffix(".log").write_text(err)
+        os.replace(tmp, todo[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return out
 
 
-def _library():
-    global _lib
+def _fn(name: str, symbol: str):
+    """``symbol`` of the library built from ``csrc/<name>.cu``, with its
+    ctypes signature set (every pointer as ``c_void_p``, so none is cut to
+    32 bits)."""
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.dfd_depthwise_fwd
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6
-                           + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build()[name]))
+            for sym, (args, res) in _SIGNATURES.items():
+                if hasattr(lib, sym):
+                    getattr(lib, sym).argtypes = args
+                    getattr(lib, sym).restype = res
+            _libs[name] = lib
+        return getattr(_libs[name], symbol)
 
 
 def _kernel_3d(w: torch.Tensor) -> torch.Tensor:
@@ -182,10 +221,12 @@ def _check_param(name: str, v: Optional[torch.Tensor], c: int,
                          f"{v.device}")
 
 
-def _launch(x, w, scale, bias, s: int, pads, act: str) -> torch.Tensor:
-    """Validate, allocate y, launch ``dfd_depthwise_fwd`` on the current
-    stream.  Nothing is copied or made contiguous here: a layout the kernel
-    does not take is an error."""
+def _launch(x, w, scale, bias, s: int, pads, act: str,
+            want_z: bool = False):
+    """Validate, allocate y (and z when ``want_z``), launch
+    ``dfd_depthwise_fwd`` on the current stream; returns ``(y, z or
+    None)``.  Nothing is copied or made contiguous here: a layout the
+    kernel does not take is an error."""
     if x.dim() != 4:
         raise ValueError(f"expected NHWC (B, H, W, C), got {tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODE:
@@ -214,12 +255,15 @@ def _launch(x, w, scale, bias, s: int, pads, act: str) -> torch.Tensor:
         raise ValueError(f"empty output for input {tuple(x.shape)}, k={k_h}, "
                          f"stride={s}, padding={pads}")
     y = torch.empty((bsz, ho, wo, c), dtype=x.dtype, device=x.device)
-    fn = _library().dfd_depthwise_fwd
+    z = torch.empty((bsz, ho, wo, c), dtype=torch.float32,
+                    device=x.device) if want_z else None
+    fn = _fn("depthwise_fwd", "dfd_depthwise_fwd")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(),
                  None if scale is None else scale.data_ptr(),
                  None if bias is None else bias.data_ptr(), y.data_ptr(),
+                 None if z is None else z.data_ptr(),
                  bsz, h, wd, c, ho, wo, k_h, s, pads[0], pads[2],
                  FUSED_DW_ACTS.index(act), _DTYPE_CODE[x.dtype], stream)
     if err != 0:
@@ -227,22 +271,207 @@ def _launch(x, w, scale, bias, s: int, pads, act: str) -> torch.Tensor:
                            f"{err} for x {tuple(x.shape)} {x.dtype}, "
                            f"k={k_h}, stride={s}")
     fused_depthwise.launches += 1
-    return y
+    return y, z
+
+
+# ---------------------------------------------------------------------------
+# dw gradient
+# ---------------------------------------------------------------------------
+
+def depthwise_dwgrad_reference(x: torch.Tensor, dz: torch.Tensor, k: int,
+                               stride: int, pads) -> torch.Tensor:
+    """The plain PyTorch version of :func:`depthwise_dwgrad`: an explicit
+    k²-tap loop of shifted (strided) slices of the zero-padded x times dz,
+    each summed over ``(B, Ho, Wo)``.  Returns ``(k, k, C)`` float32."""
+    t, l = pads[0], pads[2]
+    _, h, wd, c = x.shape
+    _, ho, wo, _ = dz.shape
+    span_h, span_w = (ho - 1) * stride + 1, (wo - 1) * stride + 1
+    xp = F.pad(x.float(), (0, 0, l, max(0, span_w + k - 1 - l - wd),
+                           t, max(0, span_h + k - 1 - t - h)))
+    dz = dz.float()
+    rows = []
+    for r in range(k):
+        taps = []
+        for q in range(k):
+            tap = xp[:, r:r + span_h:stride, q:q + span_w:stride]
+            taps.append((tap * dz).sum(dim=(0, 1, 2)))
+        rows.append(torch.stack(taps))
+    return torch.stack(rows)
+
+
+def depthwise_dwgrad(x: torch.Tensor, dz: torch.Tensor, k: int, stride: int,
+                     pads) -> torch.Tensor:
+    """``dw[r, q, c] = Σ_{b,h,w} dz[b,h,w,c] · x[b, h·s+r-top, w·s+q-left,
+    c]`` (x zero outside its bounds), float32 ``(k, k, C)``.
+
+    ``x`` is NHWC f32 or bf16, ``dz`` NHWC f32 ``(B, Ho, Wo, C)``, ``pads``
+    ``(top, bottom, left, right)`` (only top and left are read).  CPU
+    tensors take the plain version, CUDA tensors the kernel."""
+    if x.device.type == "cpu":
+        return depthwise_dwgrad_reference(x, dz, k, stride, pads)
+    if x.device.type != "cuda":
+        raise ValueError(f"depthwise_dwgrad runs on cpu or cuda, got "
+                         f"{x.device}")
+    if x.dim() != 4 or x.dtype not in _DTYPE_CODE or not x.is_contiguous():
+        raise ValueError(f"x must be NHWC-contiguous float32 or bfloat16, got "
+                         f"{x.dtype} {tuple(x.shape)} strides {x.stride()}")
+    bsz, h, wd, c = x.shape
+    if (dz.dim() != 4 or dz.dtype != torch.float32 or dz.device != x.device
+            or not dz.is_contiguous() or dz.shape[0] != bsz
+            or dz.shape[3] != c):
+        raise ValueError(f"dz must be contiguous float32 ({bsz}, Ho, Wo, {c}) "
+                         f"on {x.device}, got {dz.dtype} {tuple(dz.shape)} on "
+                         f"{dz.device}")
+    if k not in _KERNEL_SIZES or stride not in (1, 2) or \
+            min(pads[0], pads[2]) < 0:
+        raise ValueError(f"k={k} stride={stride} pads={pads}: the kernel "
+                         f"takes k in {_KERNEL_SIZES}, stride 1 or 2 and "
+                         f"non-negative padding")
+    ho, wo = dz.shape[1], dz.shape[2]
+    n_ws = _fn("depthwise_dwgrad", "dfd_depthwise_dwgrad_workspace")(
+        bsz, ho, wo, c, k)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=x.device)
+    dw = torch.empty((k, k, c), dtype=torch.float32, device=x.device)
+    fn = _fn("depthwise_dwgrad", "dfd_depthwise_dwgrad")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), dz.data_ptr(), ws.data_ptr(), dw.data_ptr(),
+                 bsz, h, wd, c, ho, wo, k, stride, pads[0], pads[2],
+                 _DTYPE_CODE[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"dfd_depthwise_dwgrad launch failed: cudaError_t "
+                           f"{err} for x {tuple(x.shape)} {x.dtype}, "
+                           f"dz {tuple(dz.shape)}, k={k}, stride={stride}")
+    depthwise_dwgrad.launches += 1
+    return dw
+
+
+depthwise_dwgrad.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# backward glue
+# ---------------------------------------------------------------------------
+
+def _act_grad(u: torch.Tensor, act: str) -> torch.Tensor:
+    """d act(u) / du in f32."""
+    if act == "silu":
+        sig = torch.sigmoid(u)
+        return sig * (1.0 + u * (1.0 - sig))
+    if act == "relu":
+        return (u > 0.0).float()
+    return torch.ones_like(u)
+
+
+def dx_padding(h: int, w: int, k: int, stride: int, pads,
+               ho: int, wo: int) -> Tuple[int, int, int, int]:
+    """Padding of the stride-1 correlation that gives dx from dz dilated by
+    ``stride - 1``: ``k-1-top`` before, and after whatever makes the output
+    exactly ``h × w`` (it exceeds ``k-1`` where rows or columns of x got no
+    tap).  Raises where the forward padding exceeds ``k-1``."""
+    t, _, l, _ = pads
+    out = (k - 1 - t,
+           h + t - 1 - (ho - 1) * stride,
+           k - 1 - l,
+           w + l - 1 - (wo - 1) * stride)
+    if min(out) < 0:
+        raise ValueError(f"padding {tuple(pads)} exceeds k-1={k - 1}: the "
+                         f"depthwise backward takes at most k-1 per side")
+    return out
+
+
+def dilate(dz: torch.Tensor, stride: int) -> torch.Tensor:
+    """NHWC ``dz`` with ``stride - 1`` zero rows and columns between its
+    own (``dz`` itself at stride 1): the plain-torch copy the stride-2
+    stages pay for dx, as ``lax.pad`` in the JAX package."""
+    if stride == 1:
+        return dz
+    bsz, ho, wo, c = dz.shape
+    out = dz.new_zeros((bsz, (ho - 1) * stride + 1, (wo - 1) * stride + 1, c))
+    out[:, ::stride, ::stride] = dz
+    return out
+
+
+def depthwise_backward(grad: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                       scale: Optional[torch.Tensor],
+                       bias: Optional[torch.Tensor],
+                       z: Optional[torch.Tensor], stride: int, pads,
+                       act: str, conv: Callable, dwgrad: Callable):
+    """``(dx, dw, dscale, dbias)`` of :func:`fused_depthwise` at the
+    cotangent ``grad`` of y (NHWC); the counterpart of
+    ``depthwise_pallas.py::fused_depthwise::_op_bwd``.
+
+    ``z`` is the f32 pre-affine conv output, or None for the identity
+    epilogue (no scale, no bias, act ``none``), where dz = grad and nothing
+    was saved.  ``conv(x, w, pads)`` must compute a stride-1 depthwise
+    correlation in f32 with explicit ``(top, bottom, left, right)`` pads
+    and no epilogue; ``dwgrad(x, dz, k, stride, pads)`` the weight
+    gradient (:func:`depthwise_dwgrad`).  dscale/dbias are None where scale/
+    bias are."""
+    g = grad.float()
+    dscale = dbias = None
+    if z is None:
+        dz = g
+    else:
+        u = z
+        if scale is not None:
+            u = u * scale
+        if bias is not None:
+            u = u + bias
+        du = g * _act_grad(u, act) if act != "none" else g
+        if bias is not None:
+            dbias = du.sum(dim=(0, 1, 2))
+        if scale is not None:
+            dscale = (du * z).sum(dim=(0, 1, 2))
+            du = du * scale
+        dz = du
+    dz = dz.contiguous()
+    k = w.shape[0]
+    ho, wo = dz.shape[1], dz.shape[2]
+    h, wd = x.shape[1], x.shape[2]
+    wf = torch.flip(w.float(), dims=(0, 1)).contiguous()
+    dx = conv(dilate(dz, stride), wf,
+              dx_padding(h, wd, k, stride, pads, ho, wo))
+    if dx.shape != x.shape:
+        raise AssertionError(f"dx {tuple(dx.shape)} for x {tuple(x.shape)}")
+    dw = dwgrad(x, dz, k, stride, pads)
+    return dx.to(x.dtype), dw.to(w.dtype), dscale, dbias
+
+
+def cuda_conv(x, w, pads):
+    """The backward's ``conv`` on the card: the forward kernel at stride 1,
+    act none, no affine."""
+    return _launch(x, w, None, None, 1, pads, "none")[0]
+
+
+def plain_conv(x, w, pads):
+    """The plain version of the backward's ``conv`` argument."""
+    t, b, l, r = pads
+    return fused_depthwise_reference(x, w, None, None, 1, [(t, b), (l, r)],
+                                     "none")
 
 
 class _CudaDepthwise(torch.autograd.Function):
-    """The kernel as an autograd node whose backward is not written yet."""
+    """The forward kernel as an autograd node; its backward runs dx through
+    the same kernel and dw through the dw-gradient kernel."""
 
     @staticmethod
     def forward(ctx, x, w, scale, bias, s, pads, act):
-        return _launch(x, w, scale, bias, s, pads, act)
+        needs_z = scale is not None or bias is not None or act != "none"
+        y, z = _launch(x, w, scale, bias, s, pads, act, want_z=needs_z)
+        ctx.save_for_backward(x, w, scale, bias, z)
+        ctx.cfg = (s, pads, act)
+        return y
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "fused_depthwise has no CUDA backward yet: the depthwise "
-            "backward and the dw-gradient kernel are ROADMAP Queue 2 "
-            "items 1-2")
+        x, w, scale, bias, z = ctx.saved_tensors
+        s, pads, act = ctx.cfg
+        dx, dw, dscale, dbias = depthwise_backward(
+            grad, x, w, scale, bias, z, s, pads, act, cuda_conv,
+            depthwise_dwgrad)
+        return dx, dw, dscale, dbias, None, None, None
 
 
 def fused_depthwise(x: torch.Tensor, w: torch.Tensor,
@@ -259,7 +488,12 @@ def fused_depthwise(x: torch.Tensor, w: torch.Tensor,
     values (``''`` static symmetric, ``'same'`` TF SAME, int, or explicit
     ``[(top, bottom), (left, right)]``).  Accumulation and epilogue in f32;
     the result is NHWC in ``x``'s dtype.  CPU tensors take the plain
-    version, CUDA tensors the kernel.
+    version (autograd differentiates it), CUDA tensors the kernel, through
+    an autograd node only where a gradient is wanted: that node saves z
+    only for a non-identity epilogue.  That node's backward takes at most
+    ``k-1`` of padding a side (:func:`dx_padding`), so a CUDA call that wants
+    a gradient with more raises here; the CPU path and a CUDA call without
+    a gradient take any padding.
     """
     if act not in FUSED_DW_ACTS:
         raise ValueError(f"act must be one of {FUSED_DW_ACTS}, got {act!r}")
@@ -273,7 +507,12 @@ def fused_depthwise(x: torch.Tensor, w: torch.Tensor,
     s = _stride(stride)
     pads = explicit_padding(padding, tuple(w.shape[:2]), 1, s, x.shape[1],
                             x.shape[2])
-    return _CudaDepthwise.apply(x, w, scale, bias, s, pads, act)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, scale, bias)):
+        h, wd, k = x.shape[1], x.shape[2], w.shape[0]
+        dx_padding(h, wd, k, s, pads, *output_size(h, wd, k, s, pads))
+        return _CudaDepthwise.apply(x, w, scale, bias, s, pads, act)
+    return _launch(x, w, scale, bias, s, pads, act)[0]
 
 
 fused_depthwise.launches = 0

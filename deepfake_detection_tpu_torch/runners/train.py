@@ -1,0 +1,313 @@
+"""Training runner.
+
+Counterpart of ``deepfake_detection_tpu/runners/train.py`` for one card and
+the synthetic dataset: build the model, optimizer (linear LR scaling),
+schedule, EMA, loaders and steps; then per epoch train, validate (the EMA's
+metrics replace the model's when it is kept), step the schedule on the eval
+metric, and write the epoch's checkpoints.
+
+Usage (the flagship's ``scripts/train.sh`` config on synthetic data)::
+
+    python -m deepfake_detection_tpu_torch.runners.train \\
+        --dataset synthetic --model efficientnet_deepfake_v4 \\
+        --model-version v4 --input-size-v2 12,600,600 -b 3 \\
+        --opt rmsproptf --basic-lr 5e-7 --sched step --decay-epochs 2 \\
+        --decay-rate .92 --bn-momentum 0.001 --mixup 0.1 --model-ema \\
+        --epochs 200 --output ./output [--device cuda]
+
+Compute is f32 with TF32 off.  Training runs on ``--device cuda`` unless
+the caller asks for ``cpu`` (the plain PyTorch path the tests use).  Flags
+of ``scripts/train.sh`` that the port does not have yet raise, naming
+their ROADMAP item; an unknown flag is an argparse error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import logging
+import os
+import sys
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..data.dataset import SyntheticDataset
+from ..data.loader import Loader
+from ..data.mixup import FastCollateMixup
+from ..losses import create_loss_fn, cross_entropy
+from ..models import (create_deepfake_model, create_deepfake_model_v3,
+                      create_deepfake_model_v4, create_model)
+from ..models.efficientnet import default_cfgs
+from ..models.factory import resolve_device
+from ..optim.factory import create_optimizer
+from ..scheduler.factory import create_scheduler
+from ..train.checkpoint import CheckpointSaver
+from ..train.state import TrainState, create_train_state, set_learning_rate
+from ..train.steps import make_eval_step, make_train_step
+from ..train.trainer import train_one_epoch, validate
+
+_logger = logging.getLogger("train")
+
+__all__ = ["TrainConfig", "Run", "parse_args", "setup", "main",
+           "launch_main"]
+
+_MODEL_FACTORIES = {"": create_model, "v1": create_deepfake_model,
+                    "v3": create_deepfake_model_v3,
+                    "v4": create_deepfake_model_v4}
+
+#: flags of scripts/train.sh that are not ported yet → their ROADMAP item
+UNPORTED = {
+    "data": "the clip dataset (ROADMAP Queue 1 item 7)",
+    "amp": "bf16/AMP training (ROADMAP Queue 1 item 6)",
+    "reprob": "RandomErasing (ROADMAP Queue 1 item 7)",
+    "remax": "RandomErasing (ROADMAP Queue 1 item 7)",
+    "flicker": "the augment chain (ROADMAP Queue 1 item 7)",
+    "rotate_range": "the augment chain (ROADMAP Queue 1 item 7)",
+    "blur_prob": "the augment chain (ROADMAP Queue 1 item 7)",
+    "label_balance": "the clip dataset (ROADMAP Queue 1 item 7)",
+    "workers": "the multi-worker loader (ROADMAP Queue 1 item 7)",
+    "auto_resume": "resume and recovery snapshots (ROADMAP Queue 1 item 8)",
+    "recovery_interval": "resume and recovery snapshots "
+                         "(ROADMAP Queue 1 item 8)",
+    "resume": "resume and recovery snapshots (ROADMAP Queue 1 item 8)",
+}
+
+
+@dataclass
+class TrainConfig:
+    """The ported subset of the JAX package's ``TrainConfig``, with its
+    defaults.  Fields without a flag in :func:`parse_args` (num_classes,
+    drop, optimizer and schedule constants, the EMA decay) keep the
+    reference's defaults; the optimizer and schedule factories read them."""
+    dataset: str = "synthetic"
+    model: str = "efficientnet_deepfake_v4"
+    model_version: str = "v4"
+    num_classes: int = 2
+    drop: float = 0.0
+    drop_path: Optional[float] = None
+    bn_momentum: Optional[float] = None
+    bn_eps: Optional[float] = None
+    input_size_v2: Optional[Tuple[int, int, int]] = None
+    batch_size: int = 3
+    opt: str = "rmsproptf"
+    opt_eps: float = 1e-8
+    momentum: float = 0.9
+    weight_decay: float = 1e-5
+    lr: Optional[float] = None
+    basic_lr: float = 5e-7
+    sched: str = "step"
+    epochs: int = 200
+    decay_epochs: float = 2.0
+    decay_rate: float = 0.92
+    warmup_lr: float = 1e-4
+    warmup_epochs: int = 0
+    cooldown_epochs: int = 10
+    patience_epochs: int = 10
+    min_lr: float = 1e-5
+    clip_grad: Optional[float] = None
+    mixup: float = 0.0
+    smoothing: float = 0.1
+    model_ema: bool = False
+    model_ema_decay: float = 0.9998
+    guard_nonfinite: str = "skip"
+    seed: int = 42
+    log_interval: int = 50
+    eval_metric: str = "loss"
+    output: str = "./output"
+    experiment: str = ""
+    device: str = "cuda"
+
+    def resolved_lr(self, world_size: int = 1) -> float:
+        """Linear LR scaling: ``batch × world × basic_lr`` unless ``lr``."""
+        if self.lr is not None:
+            return self.lr
+        return self.batch_size * world_size * self.basic_lr
+
+    def input_size(self) -> Tuple[int, int, int]:
+        """(C, H, W): ``--input-size-v2`` or the model's default."""
+        if self.input_size_v2:
+            return tuple(self.input_size_v2)
+        return tuple(default_cfgs.get(self.model, {}).get(
+            "input_size", (3, 224, 224)))
+
+
+def _ints(s: str) -> Tuple[int, ...]:
+    return tuple(int(v) for v in s.split(","))
+
+
+def parse_args(argv=None) -> TrainConfig:
+    """``argv`` → :class:`TrainConfig`; raises ``NotImplementedError`` for
+    a flag of :data:`UNPORTED` and for ``--dataset`` other than
+    synthetic."""
+    d = TrainConfig()
+    p = argparse.ArgumentParser(
+        description="deepfake training (PyTorch port, one card)")
+    p.add_argument("--dataset", default=d.dataset)
+    p.add_argument("--model", default=d.model)
+    p.add_argument("--model-version", default=d.model_version)
+    p.add_argument("--bn-momentum", type=float, default=d.bn_momentum)
+    p.add_argument("--input-size-v2", type=_ints, default=d.input_size_v2)
+    p.add_argument("-b", "--batch-size", type=int, default=d.batch_size)
+    p.add_argument("--opt", default=d.opt)
+    p.add_argument("--lr", type=float, default=d.lr)
+    p.add_argument("--basic-lr", type=float, default=d.basic_lr)
+    p.add_argument("--sched", default=d.sched)
+    p.add_argument("--epochs", type=int, default=d.epochs)
+    p.add_argument("--decay-epochs", type=float, default=d.decay_epochs)
+    p.add_argument("--decay-rate", type=float, default=d.decay_rate)
+    p.add_argument("--clip-grad", type=float, default=d.clip_grad)
+    p.add_argument("--mixup", type=float, default=d.mixup)
+    p.add_argument("--smoothing", type=float, default=d.smoothing)
+    p.add_argument("--model-ema", action="store_true")
+    p.add_argument("--guard-nonfinite", choices=["off", "skip"],
+                   default=d.guard_nonfinite)
+    p.add_argument("--seed", type=int, default=d.seed)
+    p.add_argument("--log-interval", type=int, default=d.log_interval)
+    p.add_argument("--eval-metric", choices=["loss", "prec1"],
+                   default=d.eval_metric)
+    p.add_argument("--output", default=d.output)
+    p.add_argument("--experiment", default=d.experiment)
+    p.add_argument("--device", default=d.device,
+                   help="torch device; the CPU runs the plain PyTorch path")
+    for name in UNPORTED:
+        flag = "--" + name.replace("_", "-")
+        if name in ("amp", "label_balance", "auto_resume"):
+            p.add_argument(flag, action="store_true", default=None)
+        else:
+            p.add_argument(flag, default=None)
+    ns = vars(p.parse_args(argv))
+    for name, item in UNPORTED.items():
+        if ns.pop(name) is not None:
+            raise NotImplementedError(
+                f"--{name.replace('_', '-')} is not ported yet: {item}")
+    if ns["dataset"] != "synthetic":
+        raise NotImplementedError(
+            f"--dataset {ns['dataset']}: only 'synthetic' is ported; "
+            f"{UNPORTED['data']}")
+    return TrainConfig(**ns)
+
+
+@dataclass
+class Run:
+    """Everything :func:`main` drives, built by :func:`setup`."""
+    cfg: TrainConfig
+    device: torch.device
+    state: TrainState
+    train_step: Any
+    eval_step: Any
+    eval_step_ema: Any
+    train_loader: Loader
+    eval_loader: Loader
+    lr_scheduler: Any
+    num_epochs: int
+
+
+def build_model(cfg: TrainConfig, device) -> torch.nn.Module:
+    factory = _MODEL_FACTORIES.get(cfg.model_version)
+    if factory is None:
+        raise ValueError(f"--model-version {cfg.model_version!r}: one of "
+                         f"{sorted(_MODEL_FACTORIES)}")
+    return factory(cfg.model, num_classes=cfg.num_classes,
+                   in_chans=cfg.input_size()[0], drop_rate=cfg.drop,
+                   drop_path_rate=cfg.drop_path, bn_momentum=cfg.bn_momentum,
+                   bn_eps=cfg.bn_eps, device=device, seed=cfg.seed)
+
+
+def setup(cfg: TrainConfig) -> Run:
+    """Model, state, steps, loaders and schedule for ``cfg``."""
+    device = resolve_device(cfg.device)
+    if device.type == "cuda":
+        # f32 parity: cuDNN convolutions would otherwise run in TF32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    c, h, w = cfg.input_size()
+    model = build_model(cfg, device)
+    _logger.info("Model %s created, param count: %d", cfg.model,
+                 sum(p.numel() for p in model.parameters()))
+    lr = cfg.resolved_lr(world_size=1)
+    state = create_train_state(model, create_optimizer(cfg, model, lr),
+                               with_ema=cfg.model_ema,
+                               ema_decay=cfg.model_ema_decay)
+    lr_scheduler, num_epochs = create_scheduler(cfg, base_lr=lr)
+    n = max(cfg.batch_size * 8, 16)
+    train_ds = SyntheticDataset(n, (h, w, c), cfg.num_classes, cfg.seed)
+    eval_ds = SyntheticDataset(max(n // 2, 8), (h, w, c), cfg.num_classes,
+                               cfg.seed + 1)
+    mixup = FastCollateMixup(cfg.mixup, cfg.smoothing, cfg.num_classes) \
+        if cfg.mixup > 0 else None
+    train_loader = Loader(train_ds, cfg.batch_size, True, device, cfg.seed,
+                          collate_mixup=mixup)
+    eval_loader = Loader(eval_ds, cfg.batch_size * 2, False, device,
+                         cfg.seed)
+    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    train_step = make_train_step(
+        create_loss_fn(cfg), clip_grad=cfg.clip_grad,
+        nonfinite_guard=cfg.guard_nonfinite == "skip", generator=generator)
+    return Run(cfg, device, state, train_step,
+               make_eval_step(cross_entropy),
+               make_eval_step(cross_entropy, use_ema=True)
+               if cfg.model_ema else None,
+               train_loader, eval_loader, lr_scheduler, num_epochs)
+
+
+def _outdir(cfg: TrainConfig) -> str:
+    name = cfg.experiment or "-".join([cfg.model_version or cfg.model,
+                                       cfg.dataset])
+    base = os.path.join(cfg.output, name)
+    path, i = base, 1
+    while os.path.exists(path):
+        path, i = f"{base}-{i}", i + 1
+    os.makedirs(path)
+    return path
+
+
+def main(cfg: TrainConfig) -> Dict[str, Any]:
+    """Train ``cfg.epochs`` epochs; returns the best eval metric and epoch,
+    the last eval and train metrics, and the run's output directory."""
+    run = setup(cfg)
+    state = run.state
+    output_dir = _outdir(cfg)
+    args = dataclasses.asdict(cfg)
+    with open(os.path.join(output_dir, "args.json"), "w") as f:
+        json.dump(args, f, indent=2)
+    saver = CheckpointSaver(output_dir, decreasing=cfg.eval_metric == "loss")
+    best_metric = best_epoch = None
+    eval_metrics: Dict[str, float] = {}
+    train_metrics: Dict[str, Any] = {}
+    for epoch in range(run.num_epochs):
+        run.train_loader.set_epoch(epoch)
+        state, train_metrics = train_one_epoch(
+            epoch, run.train_step, state, run.train_loader, cfg,
+            lr_scheduler=run.lr_scheduler)
+        eval_metrics = validate(run.eval_step, state, run.eval_loader, cfg)
+        if run.eval_step_ema is not None:
+            eval_metrics = validate(run.eval_step_ema, state,
+                                    run.eval_loader, cfg,
+                                    log_suffix=" (EMA)")
+        if run.lr_scheduler is not None:
+            set_learning_rate(state, run.lr_scheduler.step(
+                epoch + 1, eval_metrics[cfg.eval_metric]))
+        best_metric, best_epoch = saver.save_checkpoint(
+            state, args, epoch, metric=eval_metrics[cfg.eval_metric])
+    if best_metric is not None:
+        _logger.info("*** Best metric: %s (epoch %s)", best_metric,
+                     best_epoch)
+    return {"best_metric": best_metric, "best_epoch": best_epoch,
+            "eval": dict(eval_metrics), "train": dict(train_metrics),
+            "output_dir": output_dir}
+
+
+def launch_main(argv=None) -> Dict[str, Any]:
+    """CLI entry: parse, log to stderr, train."""
+    cfg = parse_args(argv)
+    if not logging.getLogger().handlers:
+        logging.basicConfig(level=logging.INFO,
+                            format="%(asctime)s %(name)s %(message)s")
+    return main(cfg)
+
+
+if __name__ == "__main__":
+    launch_main(sys.argv[1:])

@@ -1,0 +1,126 @@
+"""Epoch-level training and validation loops.
+
+Counterparts of ``train_one_epoch`` and ``validate`` in
+``deepfake_detection_tpu/train/trainer.py``, without resilience, telemetry,
+profiler or chaos hooks (ROADMAP Queue 1 item 8).  The train step returns
+device scalars; the loop buffers them and reads them back only at the log
+interval and at the last batch, so the host keeps queueing steps while the
+card works.  A buffered step whose loss or guard flag is not finite is
+counted and logged, and its loss stays out of the average.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from collections import OrderedDict
+from typing import Callable, List
+
+import numpy as np
+
+from ..utils.metrics import AverageMeter
+from .state import TrainState, get_learning_rate, set_learning_rate
+
+_logger = logging.getLogger(__name__)
+
+__all__ = ["train_one_epoch", "validate"]
+
+
+def train_one_epoch(epoch: int, train_step: Callable, state: TrainState,
+                    loader, cfg, lr_scheduler=None):
+    """One epoch over ``loader``; returns ``(state, metrics)`` with the
+    epoch's average ``loss`` and ``prec1``, the ``learning_rate``, the count
+    of ``nonfinite`` steps and the host seconds of each step
+    (``step_s``; a step's time includes the read-back of buffered metrics
+    at its drain, so it is the device's time at ``--log-interval 1``)."""
+    batch_time_m, data_time_m = AverageMeter(), AverageMeter()
+    losses_m, prec1_m = AverageMeter(), AverageMeter()
+    num_batches = len(loader)
+    last_idx = num_batches - 1
+    num_updates = epoch * num_batches
+    nonfinite_total = 0
+    lr = get_learning_rate(state)
+    pending: List = []
+    step_s: List[float] = []
+
+    def drain() -> None:
+        nonlocal nonfinite_total
+        for m, n, step_i in pending:
+            loss_value = float(m["loss"])
+            bad = not np.isfinite(loss_value)
+            if "nonfinite" in m:
+                bad = bad or float(m["nonfinite"]) > 0
+            if bad:
+                nonfinite_total += 1
+                _logger.warning(
+                    "non-finite training step at update %d (loss %r%s)",
+                    step_i, loss_value,
+                    "; update skipped" if "nonfinite" in m else
+                    "; UPDATE APPLIED (guard off)")
+            else:
+                losses_m.update(loss_value, n)
+            prec1_m.update(float(m["prec1"]), n)
+        pending.clear()
+
+    end = time.perf_counter()
+    for batch_idx, batch in enumerate(loader):
+        x, y = batch[0], batch[1]
+        last_batch = batch_idx == last_idx
+        data_time_m.update(time.perf_counter() - end)
+        metrics = train_step(state, x, y)
+        bs = x.shape[0]
+        pending.append((metrics, bs, num_updates))
+        num_updates += 1
+        log_now = last_batch or batch_idx % cfg.log_interval == 0
+        if log_now:
+            drain()
+        batch_time_m.update(time.perf_counter() - end)
+        step_s.append(batch_time_m.val)
+        if log_now:
+            lr = get_learning_rate(state) or 0.0
+            _logger.info(
+                "Train:%d [%4d/%d] Loss:%.5f(%.5f) Prec@1:%7.4f(%7.4f) "
+                "Time:%.3f(%.3f)s/batch %.5f(%.5f)s/image LR:%.3e "
+                "Data:%.3f(%.3f)s/batch",
+                epoch, batch_idx, num_batches, losses_m.val, losses_m.avg,
+                prec1_m.val, prec1_m.avg, batch_time_m.val,
+                batch_time_m.avg, batch_time_m.val / bs,
+                batch_time_m.avg / bs, lr, data_time_m.val,
+                data_time_m.avg)
+        if lr_scheduler is not None:
+            new_lr = lr_scheduler.step_update(num_updates=num_updates)
+            if new_lr is not None and new_lr != lr:
+                set_learning_rate(state, new_lr)
+        end = time.perf_counter()
+    return state, OrderedDict([("loss", losses_m.avg),
+                               ("prec1", prec1_m.avg),
+                               ("learning_rate", lr),
+                               ("nonfinite", nonfinite_total),
+                               ("step_s", step_s)])
+
+
+def validate(eval_step: Callable, state: TrainState, loader, cfg,
+             log_suffix: str = "") -> "OrderedDict[str, float]":
+    """Full pass over the eval loader, exact thanks to its validity mask;
+    returns the average ``loss`` and ``prec1`` over valid samples."""
+    batch_time_m = AverageMeter()
+    losses_m, prec1_m = AverageMeter(), AverageMeter()
+    num_batches = len(loader)
+    end = time.perf_counter()
+    for batch_idx, batch in enumerate(loader):
+        x, y = batch[0], batch[1]
+        valid = batch[2] if len(batch) > 2 else None
+        metrics = eval_step(state, x, y, valid)
+        n = float(metrics["count"])
+        if n > 0:
+            losses_m.update(float(metrics["loss"]), n)
+            prec1_m.update(float(metrics["prec1"]), n)
+        batch_time_m.update(time.perf_counter() - end)
+        if batch_idx == num_batches - 1 or batch_idx % cfg.log_interval == 0:
+            _logger.info("Test%s: [%4d/%d] Time:%.3f(%.3f) Loss:%.4f(%.4f) "
+                         "Prec@1:%7.4f(%7.4f)", log_suffix, batch_idx,
+                         num_batches, batch_time_m.val, batch_time_m.avg,
+                         losses_m.val, losses_m.avg, prec1_m.val,
+                         prec1_m.avg)
+        end = time.perf_counter()
+    return OrderedDict([("loss", losses_m.avg), ("prec1", prec1_m.avg)])

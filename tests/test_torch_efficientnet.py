@@ -31,6 +31,7 @@ from deepfake_detection_tpu_torch.models import create_model, efficientnet
 from deepfake_detection_tpu_torch.models import efficientnet_builder
 from deepfake_detection_tpu_torch.models.factory import resolve_device
 from deepfake_detection_tpu_torch.params import make_score_fn
+from deepfake_detection_tpu_torch.runners import train as train_runner
 from tools.convert_torch_checkpoint import convert_state_dict
 
 torch.set_num_threads(2)
@@ -160,3 +161,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda:0")
     assert resolve_device("cpu").type == "cpu"
+    # the training entry point too: cuda unless --device cpu
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_runner.launch_main(["--model", "efficientnet_b0",
+                                  "--model-version", "", "--epochs", "1"])
