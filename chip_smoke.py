@@ -8,8 +8,9 @@ Phases, each printed as a JSON line; any failure raises and exits non-zero
 before the result line:
 
 1. device: the card's ``nvidia-smi`` name and power limit, torch and CUDA;
-2. build: ``nvcc`` compiles every kernel source of the port, one process
-   per source, all started together (timed, with ptxas' register report);
+2. build: ``nvcc`` compiles every kernel source of the port (the two
+   depthwise and the three flash-attention kernels), one process per
+   source, all started together (timed, with ptxas' register report);
 3. forward kernel vs plain: the depthwise kernel at every depthwise shape
    of the flagship ``efficientnet_deepfake_v4`` at a 600² input (batch 1,
    the inference path's, and batch 2; f32, TF32 off), bf16 on a few of them,
@@ -27,10 +28,18 @@ before the result line:
    that saves z), the forward the training path launches (y against the
    plain version, elementwise) and the full ``fused_depthwise`` backward on
    the card (dx through the forward kernel, dw through the dw-gradient
-   kernel) against ``torch.autograd`` through the plain version; a padding
-   beyond k-1 raises at the forward call; the dx path's device time beside
+   kernel) against ``torch.autograd`` through the plain version, also at a
+   padding of k and k+1 a side (dx cropped); the dx path's device time beside
    cuDNN's input gradient;
-6. inference path: the flagship at full width and depth (12×600², 55
+6. flash kernels vs plain: forward, dQ and dK/dV at the TimeSformer's
+   spatial attention (B·H 384 for a train step at batch 8, 768 for an eval
+   forward at batch 16; L 576, D 64, f32) and at edge cases (L 197 and 200,
+   D 32, 48 and 128, key padding, causal with offsets, rows that see no
+   key, bf16): O, lse and the gradients against the plain versions, two
+   backward calls bitwise equal; device times of kernel, plain, SDPA
+   (library) and bound; ``flash_attention`` forward and backward on the
+   card against ``torch.autograd`` through the plain forward;
+7. inference path: the flagship at full width and depth (12×600², 55
    blocks) with seeded weights and BN calibrated on the CPU by one
    train-mode pass over the inputs at 600², scoring seeded frames of mixed
    aspect ratios through ``runners.test.test_img`` on the card, single and
@@ -38,19 +47,28 @@ before the result line:
    all 0.5, and matching the same weights run on the CPU (plain path); then
    clips/s at batch 1 and 8, and the device time by kernel kind at batch 8
    (torch.profiler);
-7. training path: ``runners.train`` in-process on the flagship at full width
+8. training path: ``runners.train`` in-process on the flagship at full width
    and depth, 12×600², batch 3 (``scripts/train.sh``'s config on synthetic
    data: 8 steps, validation of the model and its EMA, checkpoints); 110
    forward-kernel launches (55 forward + 55 dx) and 55 dw-gradient launches
    per step; loss finite; params, BN stats and EMA moved; the inference
    path scores a frame with the checkpoint; ms per step, samples/s, peak
    memory, and the device time per step by kernel kind;
-8. card against CPU: one guarded train step of the full flagship at
-   12×224², batch 2, from the same weights on the card and on the CPU (loss,
-   every parameter's update, BN running stats); then a NaN batch through the
-   card's step must leave the whole state bitwise unchanged;
-9. the ``kernels`` line, the ``nvidia-smi`` line, and last
-   ``{"ok": true, "device": {...}}``.
+9. TimeSformer training path: ``runners.train`` in-process on
+   ``timesformer_base_patch25_600`` (full width and depth) at 12×600²,
+   batch 8, ``--attn-impl flash``: 8 steps, validation of the model and its
+   EMA, a checkpoint; 12 forward, 12 dQ and 12 dK/dV launches a step and 12
+   forward launches an eval forward; loss finite, params and EMA moved; the
+   EMA reloaded from the checkpoint scores the eval set as the run did; ms
+   per step, samples/s, peak memory, the device time per step by kernel kind
+   and the eval forward's clips/s at batch 16;
+10. card against CPU: one guarded train step of the full flagship at
+   12×224², batch 2, and of the full TimeSformer at 12×300², batch 2, from
+   the same weights on the card and on the CPU (loss, every parameter's
+   update, BN running stats); then a NaN batch through each card step must
+   leave the whole state bitwise unchanged;
+11. the ``kernels`` line (all five kernels), the ``nvidia-smi`` line, and
+   last ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or in a directory that holds only this file, it exits
 non-zero and prints no result.  Its files go to ``build/chip_smoke/``.
@@ -77,14 +95,18 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from deepfake_detection_tpu_torch import losses
-from deepfake_detection_tpu_torch.models import create_deepfake_model_v4
+from deepfake_detection_tpu_torch.csrc.build import build
+from deepfake_detection_tpu_torch.models import (create_deepfake_model_v4,
+                                                 create_model)
 from deepfake_detection_tpu_torch.ops import depthwise as dw
+from deepfake_detection_tpu_torch.ops import flash_attention as fa
 from deepfake_detection_tpu_torch.ops.conv import explicit_padding
 from deepfake_detection_tpu_torch.optim import create_optimizer
 from deepfake_detection_tpu_torch.runners import test as runner
 from deepfake_detection_tpu_torch.runners import train as train_runner
 from deepfake_detection_tpu_torch.train.state import create_train_state
 from deepfake_detection_tpu_torch.train.steps import make_train_step
+from deepfake_detection_tpu_torch.train.trainer import validate
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "chip_smoke"
@@ -126,6 +148,29 @@ TRAIN_FLAGS = ["--dataset", "synthetic", "--model", "efficientnet_deepfake_v4",
                "5e-7", "--sched", "step", "--decay-epochs", "2",
                "--decay-rate", ".92", "--bn-momentum", "0.001", "--mixup",
                "0.1", "--model-ema", "--epochs", "1", "--log-interval", "1"]
+
+
+# the TimeSformer's training path: timesformer_base_patch25_600 on the
+# flagship's 12×600² clips (4 frames, 576 patches of 25² each), batch 8, the
+# flash kernels for the spatial attention of its 12 blocks; 64 synthetic
+# clips make 8 steps, 32 eval clips 2 eval batches of 16
+TSF_MODEL = "timesformer_base_patch25_600"
+TSF_BATCH = 8
+TSF_BLOCKS = 12
+TSF_FLAGS = ["--dataset", "synthetic", "--model", TSF_MODEL,
+             "--model-version", "", "--input-size-v2", "12,600,600",
+             "--attn-impl", "flash", "-b", str(TSF_BATCH), "--opt",
+             "rmsproptf", "--model-ema", "--epochs", "1", "--log-interval",
+             "1"]
+# (B·frames·heads) of the spatial attention: a train step at batch 8 and an
+# eval forward at batch 16; 576 tokens a frame, head dim 64
+FLASH_BH = (TSF_BATCH * 4 * 12, 2 * TSF_BATCH * 4 * 12)
+FLASH_L, FLASH_D = 576, 64
+# kernel vs plain, f32: o and lse elementwise within atol + rtol·|plain|
+# (sums of 576 products in another order, online rescaling against one
+# softmax); gradients within FLASH_GRAD_TOL of each gradient's max |plain|
+FLASH_TOL = (2e-5, 2e-5)
+FLASH_GRAD_TOL = 1e-5
 
 
 def emit(**kw) -> None:
@@ -449,8 +494,8 @@ def check_backward(name, shape, k, s, pad, affine, dtype, seed):
 def phase_backward(shapes: Counter) -> dict:
     """The forward with a gradient wanted and the full backward against the
     plain version at every flagship shape at the training batch, identity
-    and affine + SiLU epilogues; a padding the backward cannot take raises
-    at the forward call; the dx path's device time (dilation + forward
+    and affine + SiLU epilogues, and at paddings beyond k-1; the dx path's
+    device time (dilation + forward
     kernel) beside cuDNN's input gradient; returns the count-weighted sums
     and the forward's max absolute error."""
     tot = dict(dx_ms=0.0, dilate_ms=0.0, dx_library_ms=0.0, dx_bound_ms=0.0)
@@ -492,16 +537,15 @@ def phase_backward(shapes: Counter) -> dict:
     ye, ge = check_backward("C=13 odd H/W k5 s2 int pad", (3, 31, 45, 13), 5,
                             2, 1, True, torch.float32, 792)
     worst, y_worst = max(worst, ge), max(y_worst, ye)
-    # the backward takes at most k-1 of padding a side: beyond that the
-    # forward call that wants a gradient raises, before any launch
-    x, w, _, _ = _case((1, 9, 9, 8), 3, torch.float32, 794, identity=True)
-    try:
-        dw.fused_depthwise(x.requires_grad_(), w, None, None, 1, 3, "none")
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("padding 3 at k=3 with a gradient wanted did not "
-                             "raise at the forward call")
+    # padding beyond k-1 (k and k+1 a side): dx is cropped out of the
+    # correlation padded by at most k-1, as the JAX backward crops
+    for j, (name, shape, kk, s, pad, affine) in enumerate([
+            ("padding k at k=3", (3, 17, 17, 24), 3, 1, 3, True),
+            ("padding k+1 at k=5, stride 2", (3, 19, 21, 24), 5, 2, 6,
+             False)]):
+        ye, ge = check_backward(name, shape, kk, s, pad, affine,
+                                torch.float32, 796 + 2 * j)
+        worst, y_worst = max(worst, ge), max(y_worst, ye)
     emit(phase="backward", batch=TRAIN_BATCH, rows=len(shapes),
          max_rel_err=worst, y_max_abs_err=y_worst, **tot)
     return dict(max_rel_err=worst, y_max_abs_err=y_worst, **tot)
@@ -609,6 +653,13 @@ def phase_main_path(device: str = "cuda", size: int = 600):
 
 def _kernel_kind(name: str) -> str:
     n = name.lower()
+    for kind in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if kind + "_kernel" in n:
+            return kind
+    if "layer_norm" in n or "gammabeta" in n:
+        return "layer_norm"
+    if "softmax" in n:
+        return "softmax"
     if "dw_fwd_kernel" in n:
         return "depthwise_fwd"
     if "dwgrad" in n:
@@ -660,13 +711,24 @@ def phase_profile(model, x, iters: int = 3) -> None:
     _emit_kinds("profile", prof, iters, wall_us, batch=x.shape[0])
 
 
+_COUNTED = (dw.fused_depthwise, dw.depthwise_dwgrad, fa.flash_fwd,
+            fa.flash_bwd_dq, fa.flash_bwd_dkv)
+
+
 def _reset_counts() -> None:
-    dw.fused_depthwise.launches = 0
-    dw.depthwise_dwgrad.launches = 0
+    for fn in _COUNTED:
+        fn.launches = 0
 
 
 def _counts():
+    """Launches of (depthwise forward, dw gradient) since the reset."""
     return dw.fused_depthwise.launches, dw.depthwise_dwgrad.launches
+
+
+def _flash_counts():
+    """Launches of (flash forward, dQ, dK/dV) since the reset."""
+    return (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches)
 
 
 def phase_train(frame: str) -> dict:
@@ -753,14 +815,26 @@ def phase_train(frame: str) -> dict:
     return dict(forward_launches=fwd, dwgrad_launches=dwg)
 
 
-def _train_one_step(device: str, x: np.ndarray, y: np.ndarray,
+def _flagship(device: str):
+    return create_deepfake_model_v4(device=device, seed=1, bn_momentum=0.1)
+
+
+def _timesformer(size: int):
+    def build(device: str):
+        return create_model(TSF_MODEL, num_classes=2, in_chans=12,
+                            img_size=size, attn_impl="flash", device=device,
+                            seed=1)
+    return build
+
+
+def _train_one_step(build, device: str, x: np.ndarray, y: np.ndarray,
                     threads: int = 0):
-    """One guarded rmsproptf step of the seeded full flagship on
-    ``device``; returns the loss, the state dict before and after (CPU),
-    and the live state and step for more steps."""
+    """One guarded rmsproptf step of the seeded model ``build(device)``;
+    returns the loss, the state dict before and after (CPU), and the live
+    state and step for more steps."""
     if threads:
         torch.set_num_threads(threads)
-    model = create_deepfake_model_v4(device=device, seed=1, bn_momentum=0.1)
+    model = build(device)
     state = create_train_state(model, create_optimizer(
         train_runner.TrainConfig(opt="rmsproptf"), model, 1e-3),
         with_ema=True)
@@ -779,16 +853,17 @@ def _train_one_step(device: str, x: np.ndarray, y: np.ndarray,
                 state=state, step=step, x=xd, y=yd)
 
 
-def phase_card_vs_cpu(size: int = 224, batch: int = 2) -> None:
-    """One guarded rmsproptf step of the full flagship from the same
-    weights on the card and on the CPU (all cores, and one core for the
+def phase_card_vs_cpu(name: str = "flagship", build=_flagship,
+                      size: int = 224, batch: int = 2) -> None:
+    """One guarded rmsproptf step of a full-width, full-depth model from the
+    same weights on the card and on the CPU (all cores, and one core for the
     CPU's own f32 rounding noise); then a NaN batch on the card."""
     rng = np.random.default_rng(7)
     x = rng.standard_normal((batch, 12, size, size)).astype(np.float32)
     y = np.array([[0.9, 0.1], [0.2, 0.8]], np.float32)[:batch]
-    gpu = _train_one_step("cuda", x, y)
-    cpu = _train_one_step("cpu", x, y, threads=os.cpu_count() or 1)
-    cpu1 = _train_one_step("cpu", x, y, threads=1)
+    gpu = _train_one_step(build, "cuda", x, y)
+    cpu = _train_one_step(build, "cpu", x, y, threads=os.cpu_count() or 1)
+    cpu1 = _train_one_step(build, "cpu", x, y, threads=1)
     del cpu["state"], cpu1["state"]
     loss_rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
     if not np.isfinite(gpu["loss"]) or loss_rel > LOSS_TOL:
@@ -835,7 +910,8 @@ def phase_card_vs_cpu(size: int = 224, batch: int = 2) -> None:
                     raise AssertionError(f"{base + leaf}: card vs CPU "
                                          f"{diff:.3e} > 1e-4 · {scale:.3e}")
                 worst_bn = max(worst_bn, diff / scale)
-    emit(phase="card_vs_cpu", size=size, batch=batch, loss_gpu=gpu["loss"],
+    emit(phase="card_vs_cpu", model=name, size=size, batch=batch,
+         loss_gpu=gpu["loss"],
          loss_cpu=cpu["loss"], loss_cpu_1_thread=cpu1["loss"],
          loss_rel_diff=loss_rel, max_update_rel_diff=worst_upd,
          cpu_self_max_update_rel_diff=worst_self, update_floor=floor,
@@ -855,8 +931,367 @@ def phase_card_vs_cpu(size: int = 224, batch: int = 2) -> None:
         raise AssertionError(f"NaN batch: nonfinite {float(m['nonfinite'])},"
                              f" {same}/{len(before)} tensors unchanged, "
                              f"step {int(state.step)}")
-    emit(phase="guard", nonfinite=float(m["nonfinite"]),
+    emit(phase="guard", model=name, nonfinite=float(m["nonfinite"]),
          tensors_unchanged=same, tensors=len(before), step=int(state.step))
+
+
+def _flash_inputs(bh, l, d, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((bh, l, d), generator=g, device="cuda").to(dtype)
+            for _ in range(4)]
+
+
+def _close(name, got, want, tol) -> float:
+    """Elementwise |got - want| ≤ atol + rtol·|want|; returns the max
+    absolute error."""
+    diff = (got.float() - want.float()).abs()
+    if (got.shape != want.shape or not torch.isfinite(got).all()
+            or bool((diff > tol[0] + tol[1] * want.float().abs()).any())):
+        raise AssertionError(f"{name}: {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}, max |kernel - plain| "
+                             f"{diff.max().item():.3e} over atol {tol[0]} + "
+                             f"rtol {tol[1]}")
+    return diff.max().item()
+
+
+def check_flash(name, bh, l, d, seq_len, causal=False, q_off=0, kv_off=0,
+                dtype=torch.float32, seed=0) -> dict:
+    """The three flash kernels against their plain versions on the same
+    inputs: O elementwise (BF16_TOL for bf16), lse elementwise, dQ, dK and
+    dV within FLASH_GRAD_TOL of their max; two backward calls must agree
+    bitwise; rows that the causal offsets hide must give o = 0 and
+    lse = log(1e-30).  Returns the max absolute error of each kernel."""
+    q, k, v, do = _flash_inputs(bh, l, d, dtype, seed)
+    args = (d ** -0.5, seq_len, causal, q_off, kv_off)
+    o, lse = fa.flash_fwd(q, k, v, *args)
+    ro, rlse = fa.flash_fwd_reference(q, k, v, *args)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = [fa.flash_bwd_dq(q, k, v, do, lse, delta, *args) for _ in range(2)]
+    dkv = [fa.flash_bwd_dkv(q, k, v, do, lse, delta, *args)
+           for _ in range(2)]
+    rdq = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, *args)
+    rdk, rdv = fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, *args)
+    torch.cuda.synchronize()
+    if o.dtype != dtype or lse.dtype != torch.float32:
+        raise AssertionError(f"{name}: o {o.dtype}, lse {lse.dtype}")
+    err = dict(fwd=max(_close(f"{name} o", o, ro, BF16_TOL if dtype ==
+                              torch.bfloat16 else FLASH_TOL),
+                       _close(f"{name} lse", lse, rlse, FLASH_TOL)))
+    if causal and kv_off > q_off:          # rows that see no key
+        hidden = min(kv_off - q_off, l)
+        if not (torch.equal(o[:, :hidden].float(),
+                            torch.zeros_like(o[:, :hidden].float()))
+                and torch.allclose(lse[:, :hidden], torch.full_like(
+                    lse[:, :hidden], math.log(np.float32(1e-30))),
+                    rtol=1e-6, atol=0)):
+            raise AssertionError(f"{name}: hidden rows give o != 0 or lse "
+                                 f"!= log(1e-30)")
+    if not (torch.equal(dq[0], dq[1]) and torch.equal(dkv[0][0], dkv[1][0])
+            and torch.equal(dkv[0][1], dkv[1][1])):
+        raise AssertionError(f"{name}: two backward calls differ")
+    for label, got, want in (("dq", dq[0], rdq), ("dk", dkv[0][0], rdk),
+                             ("dv", dkv[0][1], rdv)):
+        rel = _rel_err(got, want)
+        if not torch.isfinite(got).all() or rel > FLASH_GRAD_TOL:
+            raise AssertionError(f"{name}: {label} |kernel - plain| / "
+                                 f"max|plain| {rel:.3e} > {FLASH_GRAD_TOL}")
+    err["dq"] = (dq[0] - rdq).abs().max().item()
+    err["dkv"] = max((dkv[0][0] - rdk).abs().max().item(),
+                     (dkv[0][1] - rdv).abs().max().item())
+    return err
+
+
+def flash_costs(bh, l, d, itemsize=4):
+    """(bytes, operations) each flash kernel must move and do at a
+    non-causal (BH, L, D) call: every input read once and every output
+    written once; the matrix products' multiply-adds as 2 operations each
+    (S = QKᵀ, PV, dP = dO Vᵀ, dS K, Pᵀ dO, dSᵀ Q are 2·L²·D a row of BH;
+    the L² exponentials are left out, under 2% of the count)."""
+    x = bh * l * d * itemsize
+    row = bh * l * 4                               # lse, delta (f32)
+    mm = 2 * bh * l * l * d
+    return dict(fwd=(4 * x + row, 2 * mm),         # q k v → o, lse
+                dq=(4 * x + 2 * row + bh * l * d * 4, 3 * mm),
+                dkv=(4 * x + 2 * row + 2 * bh * l * d * 4, 4 * mm))
+
+
+def phase_flash() -> dict:
+    """The flash kernels against their plain versions at the TimeSformer's
+    shapes (a train step's spatial attention, BH 384, and an eval forward's
+    at batch 16, BH 768; L 576, D 64, f32) and at edge cases; then device
+    times at both path shapes: kernel, plain, SDPA (library) and bound;
+    returns the BH-384 row and the max errors."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = Counter()
+
+    def fold(e):
+        for key, v in e.items():
+            errs[key] = max(errs[key], v)
+
+    rows = {}
+    for i, bh in enumerate(FLASH_BH):
+        fold(check_flash(f"path BH {bh}", bh, FLASH_L, FLASH_D, FLASH_L,
+                         seed=900 + i))
+        q, k, v, do = _flash_inputs(bh, FLASH_L, FLASH_D, torch.float32,
+                                    910 + i)
+        scale, lq = FLASH_D ** -0.5, FLASH_L
+        o, lse = fa.flash_fwd(q, k, v, scale, lq)
+        delta = (do * o).sum(-1)
+        bw = (q, k, v, do, lse, delta, scale, lq)
+        row = dict(
+            fwd_ms=device_ms(lambda: fa.flash_fwd(q, k, v, scale, lq)),
+            fwd_plain_ms=device_ms(lambda: fa.flash_fwd_reference(
+                q, k, v, scale, lq)),
+            fwd_library_ms=device_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v)),
+            dq_ms=device_ms(lambda: fa.flash_bwd_dq(*bw)),
+            dq_plain_ms=device_ms(lambda: fa.flash_bwd_dq_reference(*bw)),
+            dkv_ms=device_ms(lambda: fa.flash_bwd_dkv(*bw)),
+            dkv_plain_ms=device_ms(lambda: fa.flash_bwd_dkv_reference(*bw)))
+        # forward + backward: the port's autograd node against SDPA's, both
+        # issued back to back between CUDA events (the backward's autograd
+        # is not captured in a graph)
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+
+        def fwd_bwd(attend):
+            out = attend(*ins)
+            torch.autograd.grad(out, ins, do)
+        row["fwd_bwd_ms"] = call_ms(lambda: fwd_bwd(
+            lambda a, b, c: fa.FlashAttentionFunction.apply(a, b, c, scale,
+                                                            False)), iters=10)
+        row["library_fwd_bwd_ms"] = call_ms(lambda: fwd_bwd(
+            F.scaled_dot_product_attention), iters=10)
+        row["library_bwd_ms"] = row["library_fwd_bwd_ms"] \
+            - row["fwd_library_ms"]
+        for kind, (nbytes, ops) in flash_costs(bh, FLASH_L, FLASH_D).items():
+            b_ms = nbytes / MEM_BYTES_PER_S * 1e3
+            o_ms = ops / F32_FLOP_PER_S * 1e3
+            row[f"{kind}_bound_ms"] = max(b_ms, o_ms)
+            row[f"{kind}_bound_by"] = "bytes" if b_ms >= o_ms \
+                else "operations"
+            row[f"{kind}_tflop_per_s"] = ops / row[f"{kind}_ms"] / 1e9
+        rows[bh] = row
+        emit(phase="flash_row", bh=bh, l=FLASH_L, d=FLASH_D, dtype="float32",
+             **row)
+        del q, k, v, do, o, lse, delta, bw, ins
+    edges = [("L 197", 48, 197, 64, 197),
+             ("L 200", 48, 200, 64, 200),
+             ("D 32", 24, 200, 32, 200),
+             ("D 48 L 197", 24, 197, 48, 197),
+             ("D 128 L 130", 12, 130, 128, 130),
+             ("key padding 150/200", 24, 200, 64, 150)]
+    for j, (name, bh, l, d, seq_len) in enumerate(edges):
+        fold(check_flash(name, bh, l, d, seq_len, seed=920 + j))
+    causal = [("causal", 24, 200, 64, 200, 0, 0),
+              ("causal kv_off 16: 16 rows see no key", 24, 200, 64, 200, 0,
+               16),
+              ("causal q_off 64 (a later ring shard)", 24, 192, 48, 192, 64,
+               0),
+              ("causal, padding, offsets 7/40", 24, 200, 64, 150, 7, 40),
+              ("causal kv_off 300: every row hidden", 6, 130, 64, 130, 0,
+               300)]
+    for j, (name, bh, l, d, seq_len, q_off, kv_off) in enumerate(causal):
+        fold(check_flash(name, bh, l, d, seq_len, True, q_off, kv_off,
+                         seed=940 + j))
+    bf16 = Counter()
+    for j, (name, bh, l, d) in enumerate([("bf16 path", FLASH_BH[0], 576, 64),
+                                          ("bf16 D 48 L 197", 24, 197, 48)]):
+        for key, v in check_flash(name, bh, l, d, l, dtype=torch.bfloat16,
+                                  seed=960 + j).items():
+            bf16[key] = max(bf16[key], v)
+    emit(phase="flash", cases=2 + len(edges) + len(causal) + 2,
+         max_abs_err=dict(errs), bf16_max_abs_err=dict(bf16), bitwise=True,
+         tol=dict(f32=FLASH_TOL, bf16_o=BF16_TOL, grad=FLASH_GRAD_TOL))
+    return dict(row=rows[FLASH_BH[0]], eval_row=rows[FLASH_BH[1]],
+                max_abs_err=dict(errs))
+
+
+def phase_flash_autograd() -> float:
+    """``flash_attention`` on the card, forward and backward through the
+    kernels, against ``torch.autograd`` through the plain forward, in the
+    JAX layout (B, L, H, D): a path shape and a ragged one.  Returns the
+    largest relative error of O and the three gradients."""
+    worst = 0.0
+    for j, (b, l, h, d, causal) in enumerate([(TSF_BATCH * 4, FLASH_L, 12,
+                                               FLASH_D, False),
+                                              (2, 197, 3, 64, True)]):
+        g = torch.Generator(device="cuda").manual_seed(980 + j)
+        q, k, v, gy = (torch.randn((b, l, h, d), generator=g, device="cuda")
+                       for _ in range(4))
+        outs, grads = [], []
+        for attend in ("kernel", "plain"):
+            ins = [t.clone().requires_grad_() for t in (q, k, v)]
+            if attend == "kernel":
+                y = fa.flash_attention(*ins, causal=causal)
+            else:
+                bh = [t.permute(0, 2, 1, 3).reshape(b * h, l, d) for t in ins]
+                y = fa.flash_fwd_reference(*bh, d ** -0.5, l, causal)[0]
+                y = y.view(b, h, l, d).permute(0, 2, 1, 3)
+            grads.append(torch.autograd.grad(y, ins, gy))
+            outs.append(y.detach())
+        torch.cuda.synchronize()
+        for label, got, want in zip(("o", "dq", "dk", "dv"),
+                                    (outs[0], *grads[0]),
+                                    (outs[1], *grads[1])):
+            rel = _rel_err(got, want)
+            if not torch.isfinite(got).all() or rel > FLASH_GRAD_TOL:
+                raise AssertionError(f"flash_attention ({b}, {l}, {h}, {d}) "
+                                     f"causal={causal}: {label} |card - "
+                                     f"autograd| / max {rel:.3e} > "
+                                     f"{FLASH_GRAD_TOL}")
+            worst = max(worst, rel)
+    emit(phase="flash_autograd", max_rel_err=worst, tol=FLASH_GRAD_TOL)
+    return worst
+
+
+def phase_tsf_train() -> dict:
+    """``runners.train`` in-process on ``timesformer_base_patch25_600`` at
+    12×600², batch 8, ``--attn-impl flash``: 8 steps, validation of the
+    model and its EMA, a checkpoint; 12 forward, 12 dQ and 12 dK/dV kernel
+    launches a step and 12 forward launches an eval forward; the EMA
+    reloaded from the checkpoint scores the eval set as the run did; then
+    one step's device time by kernel kind and the eval forward's clips/s
+    at batch 16."""
+    out = OUT / "tsf_train"
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = train_runner.parse_args(TSF_FLAGS + ["--output", str(out)])
+    init = train_runner.build_model(cfg, "cpu").state_dict()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    result = train_runner.main(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, dq, dkv = _flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(result["train"]["step_s"])
+    n_eval = max(max(TSF_BATCH * 8, 16) // 2, 8)      # runners.train.setup
+    eval_forwards = 2 * math.ceil(n_eval / (2 * TSF_BATCH))  # model + EMA
+    want = (TSF_BLOCKS * (steps + eval_forwards), TSF_BLOCKS * steps,
+            TSF_BLOCKS * steps)
+    if steps != 8 or (fwd, dq, dkv) != want or _counts() != (0, 0):
+        raise AssertionError(
+            f"TimeSformer train path: {steps} steps, (forward, dQ, dK/dV) "
+            f"launches {(fwd, dq, dkv)}, depthwise {_counts()}; expected 8, "
+            f"{want}, (0, 0)")
+    if not (np.isfinite(result["train"]["loss"])
+            and np.isfinite(result["eval"]["loss"])):
+        raise AssertionError(f"non-finite loss: {result}")
+    if result["train"]["nonfinite"]:
+        raise AssertionError(f"{result['train']['nonfinite']} guarded steps")
+    last = Path(result["output_dir"]) / "last.pth.tar"
+    ckpt = torch.load(last, map_location="cpu", weights_only=True)
+    moved = {part: sum(not torch.equal(v, init[k]) for k, v in sd.items())
+             for part, sd in (("params", ckpt["state_dict"]),
+                              ("ema", ckpt["state_dict_ema"]))}
+    if not all(moved.values()):
+        raise AssertionError(f"state did not move in training: {moved}")
+    step_s = result["train"]["step_s"][1:]        # the first one warms up
+    ms_step = float(np.mean(step_s)) * 1e3
+    del init
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the checkpoint's EMA, loaded into a fresh run, scores the eval set as
+    # the run's last validation (the EMA's) did
+    run = train_runner.setup(cfg)
+    run.state.model.load_state_dict(ckpt["state_dict_ema"])
+    again = validate(run.eval_step, run.state, run.eval_loader, cfg)
+    rel = abs(again["loss"] - result["eval"]["loss"]) / abs(
+        result["eval"]["loss"])
+    if rel > 1e-5:
+        raise AssertionError(f"reloaded EMA eval loss {again['loss']} vs "
+                             f"{result['eval']['loss']} in the run")
+    emit(phase="tsf_train", steps=steps, forward_launches=fwd,
+         dq_launches=dq, dkv_launches=dkv, loss=result["train"]["loss"],
+         eval_loss=result["eval"]["loss"], reloaded_eval_loss=again["loss"],
+         moved_leaves=moved, checkpoint=str(last.relative_to(ROOT)),
+         ms_per_step=ms_step, step_ms=[v * 1e3 for v in step_s],
+         samples_per_s=TSF_BATCH / (ms_step / 1e3),
+         peak_mem_gib=peak / 2 ** 30, wall_s=wall)
+    del result, ckpt
+
+    batches = list(itertools.islice(iter(run.train_loader), 4))
+    run.train_step(run.state, *batches[0])
+    torch.cuda.synchronize()
+    _reset_counts()
+    run.train_step(run.state, *batches[1])
+    torch.cuda.synchronize()
+    if _flash_counts() != (TSF_BLOCKS,) * 3:
+        raise AssertionError(f"one train step launched {_flash_counts()} "
+                             f"(forward, dQ, dK/dV); expected 12 each")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for x, y in batches[2:]:
+            run.train_step(run.state, x, y)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    _emit_kinds("tsf_train_profile", prof, len(batches) - 2, wall_us,
+                batch=TSF_BATCH)
+    del batches
+
+    model = run.state.model.eval()
+    x = torch.randn(2 * TSF_BATCH, 12, 600, 600, device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    with torch.inference_mode():
+        for _ in range(2):
+            model(x)
+        torch.cuda.synchronize()
+        _reset_counts()
+        iters = 5
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            model(x)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    if _flash_counts() != (TSF_BLOCKS * iters, 0, 0):
+        raise AssertionError(f"{iters} eval forwards launched "
+                             f"{_flash_counts()}")
+    emit(phase="tsf_eval_throughput", batch=2 * TSF_BATCH,
+         clips_per_s=2 * TSF_BATCH * iters / dt,
+         ms_per_forward=dt / iters * 1e3)
+    del run, model, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(forward_launches=fwd, dq_launches=dq, dkv_launches=dkv)
+
+
+def flash_entries(fl: dict, autograd_err: float, tsf: dict) -> list:
+    """The ``kernels`` line's entries of the three flash kernels: launches
+    from the TimeSformer's training path, times per call at its train
+    step's shape."""
+    row, ev = fl["row"], fl["eval_row"]
+    out = []
+    for kind, line, launches in (("fwd", 106, tsf["forward_launches"]),
+                                 ("dq", 272, tsf["dq_launches"]),
+                                 ("dkv", 216, tsf["dkv_launches"])):
+        name = {"fwd": "flash_fwd", "dq": "flash_bwd_dq",
+                "dkv": "flash_bwd_dkv"}[kind]
+        out.append(dict(
+            name=name, route="cuda",
+            source=f"deepfake_detection_tpu_torch/csrc/{name}.cu",
+            replaces=f"deepfake_detection_tpu/ops/flash_attention.py:{line}",
+            launches=launches, launches_by_path={"tsf_train": launches},
+            max_abs_err=fl["max_abs_err"][kind], ms=row[f"{kind}_ms"],
+            plain_ms=row[f"{kind}_plain_ms"],
+            bound_ms=row[f"{kind}_bound_ms"],
+            bound_by=row[f"{kind}_bound_by"],
+            library_ms=row["fwd_library_ms"] if kind == "fwd" else None,
+            eval_ms=ev[f"{kind}_ms"], eval_bound_ms=ev[f"{kind}_bound_ms"],
+            timing="device time per call (CUDA graph replay between CUDA "
+                   f"events) at (B·H, L, D) = ({FLASH_BH[0]}, {FLASH_L}, "
+                   f"{FLASH_D}) f32, a train step's spatial attention; "
+                   f"eval_*: ({FLASH_BH[1]}, ...), an eval forward at batch "
+                   f"{2 * TSF_BATCH}"))
+    out[1]["library_bwd_ms"] = out[2]["library_bwd_ms"] = \
+        row["library_bwd_ms"]
+    out[1]["fwd_bwd_ms"] = out[2]["fwd_bwd_ms"] = row["fwd_bwd_ms"]
+    out[1]["library_fwd_bwd_ms"] = out[2]["library_fwd_bwd_ms"] = \
+        row["library_fwd_bwd_ms"]
+    out[0]["autograd_max_rel_err"] = autograd_err
+    return out
 
 
 def main() -> int:
@@ -870,7 +1305,7 @@ def main() -> int:
          count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    libs = dw.build()
+    libs = build()
     emit(phase="build", s=time.perf_counter() - t0,
          ptxas={name: [ln.strip() for ln in path.with_suffix(".log")
                        .read_text().splitlines() if "registers" in ln]
@@ -885,15 +1320,20 @@ def main() -> int:
     k = phase_kernels(shapes)
     g = phase_dwgrad(shapes)
     b = phase_backward(shapes)
+    fl = phase_flash()
+    fl_autograd = phase_flash_autograd()
 
     # each path runs with the launch counts set to 0 just before it
     _reset_counts()
     infer_launches, frame = phase_main_path()
-    if _counts()[1] != 0:
+    if _counts()[1] != 0 or _flash_counts() != (0, 0, 0):
         raise AssertionError(f"the inference path launched the dw-gradient "
-                             f"kernel {_counts()[1]} times")
+                             f"and flash kernels {_counts()[1]}, "
+                             f"{_flash_counts()} times")
     t = phase_train(frame)
+    tsf = phase_tsf_train()
     phase_card_vs_cpu()
+    phase_card_vs_cpu(TSF_MODEL, _timesformer(300), size=300, batch=2)
 
     emit(kernels=[
         dict(name="depthwise_fwd", route="cuda",
@@ -926,7 +1366,8 @@ def main() -> int:
              library_ms=g["library_ms"],
              timing="device time (CUDA graph replay between CUDA events) "
                     "summed over the flagship's 55 depthwise stages at a "
-                    f"600² input, batch {TRAIN_BATCH}, f32")])
+                    f"600² input, batch {TRAIN_BATCH}, f32"),
+        *flash_entries(fl, fl_autograd, tsf)])
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

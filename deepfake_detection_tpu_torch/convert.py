@@ -1,9 +1,13 @@
 """JAX variables → the port's state dict.
 
-The inverse of ``tools/convert_torch_checkpoint.py::convert_state_dict`` for
-the EfficientNet family, written here so the port needs neither the tool nor
-msgpack: the JAX package's ``{'params', 'batch_stats'}`` tree (numpy arrays)
-becomes a ``{timm name: torch.Tensor}`` state dict.
+The inverse of ``tools/convert_torch_checkpoint.py::convert_state_dict``,
+written here so the port needs neither the tool nor msgpack: the JAX
+package's ``{'params', 'batch_stats'}`` tree (numpy arrays) becomes a
+``{timm name: torch.Tensor}`` state dict.  The family follows from the
+tree: a ``patch_embed`` means ViT or TimeSformer, anything else the
+EfficientNet family.
+
+EfficientNet:
 
 * conv kernels HWIO → OIHW (depthwise ``(kh, kw, 1, C)`` → ``(C, 1, kh,
   kw)`` falls out of the same transpose), dense ``(in, out)`` → ``(out,
@@ -15,11 +19,23 @@ becomes a ``{timm name: torch.Tensor}`` state dict.
   ``blocks_{s}_{b}.<conv>.conv.kernel`` → ``blocks.{s}.{b}.<conv>.weight``,
   ``blocks_{s}_{b}.se.conv_reduce.conv.bias`` →
   ``blocks.{s}.{b}.se.conv_reduce.bias``, ``bn2.bn.*`` → ``bn2.*``.
+
+ViT and TimeSformer:
+
+* dense kernels ``(in, out)`` → ``(out, in)``, the patch conv HWIO → OIHW
+  (``patch_embed.proj``), LayerNorm ``scale`` → ``weight``;
+* the fused qkv kernel's and bias's 3C columns go from the JAX model's
+  head-major (H, 3, D) to timm's (3, H, D), which needs ``num_heads``;
+* ``blocks_{i}.<module>`` → ``blocks.{i}.<module>`` with ``mlp_fc1`` →
+  ``mlp.fc1``; ViT's ``norm1``/``attn``/``norm2`` are timm's names,
+  TimeSformer's ``norm_t``/``attn_t``/``norm_s``/``attn_s``/``norm_mlp``
+  the port's own (it has no timm counterpart); ``cls_token``,
+  ``pos_embed``, ``time_embed``, ``norm`` and ``head`` keep theirs.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,9 +92,48 @@ def _to_torch_layout(v: np.ndarray) -> np.ndarray:
     return v
 
 
-def state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """``{'params': ..., 'batch_stats': ...}`` of an EfficientNet → the
-    port's state dict (float32 tensors that own their memory)."""
+def _map_transformer(parts: Tuple[str, ...]) -> str:
+    """flax path of a ViT/TimeSformer parameter → the port's name."""
+    head, leaf = parts[0], parts[-1]
+    if len(parts) == 1:                           # cls_token, embeddings
+        return head
+    name = {"kernel": "weight", "scale": "weight", "bias": "bias"}[leaf]
+    if head == "patch_embed":
+        return f"patch_embed.proj.{name}"
+    if head.startswith("blocks_"):
+        sub = parts[1].replace("mlp_fc", "mlp.fc")
+        return ".".join(("blocks", head.split("_")[1], sub, *parts[2:-1],
+                         name))
+    return f"{head}.{name}"
+
+
+def _qkv_to_timm(v: np.ndarray, num_heads: Optional[int]) -> np.ndarray:
+    """Last axis (H, 3, D) → (3, H, D)."""
+    if not num_heads:
+        raise ValueError("a fused qkv needs num_heads for its column order")
+    d = v.shape[-1] // (3 * num_heads)
+    v = v.reshape(v.shape[:-1] + (num_heads, 3, d))
+    return np.swapaxes(v, -3, -2).reshape(v.shape[:-3] + (3 * num_heads * d,))
+
+
+def state_dict_from_flax(variables: Dict[str, Any],
+                         num_heads: Optional[int] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """``{'params': ..., 'batch_stats': ...}`` of an EfficientNet, or
+    ``{'params': ...}`` of a ViT or TimeSformer with ``num_heads`` heads →
+    the port's state dict (float32 tensors that own their memory)."""
+    params = variables.get("params", {})
+    if "patch_embed" in params:
+        sd = {}
+        for parts, v in _flatten(params).items():
+            arr = np.asarray(v, np.float32)
+            if parts[-2:-1] == ("qkv",):
+                arr = _qkv_to_timm(arr, num_heads)
+            name = _map_transformer(parts)
+            arr = _to_torch_layout(arr) if arr.ndim in (2, 4) and \
+                parts[-1] == "kernel" else arr
+            sd[name] = torch.from_numpy(np.ascontiguousarray(arr).copy())
+        return sd
     sd: Dict[str, torch.Tensor] = {}
     bn_bases = set()
     for collection in ("params", "batch_stats"):

@@ -31,43 +31,33 @@ bounds checks instead of the padded copy of x the TPU version makes in XLA.
   padding of dx, with the two device ops passed in.  The CUDA autograd node
   passes the kernels; the CPU tests pass the plain versions.
 
-The kernels are compiled at first use by ``nvcc`` (one process per source,
-in parallel) into ``build/kernels/`` at the repository root and loaded with
-``ctypes``; nothing is built or imported at module import.
+The kernels are compiled at first use by ``csrc/build.py`` (``nvcc``, one
+process per source, in parallel) into ``build/kernels/`` at the repository
+root and loaded with ``ctypes``; nothing is built or imported at module
+import.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
-from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
+from ..csrc.build import kernel
 from .conv import explicit_padding
 
 __all__ = ["FUSED_DW_ACTS", "fused_depthwise", "fused_depthwise_reference",
            "depthwise_dwgrad", "depthwise_dwgrad_reference",
            "depthwise_backward", "dilate", "dx_padding", "cuda_conv",
-           "plain_conv", "build", "output_size"]
+           "plain_conv", "output_size"]
 
 #: epilogue activations the kernel fuses, in the order of its act codes
 FUSED_DW_ACTS = ("none", "silu", "relu")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_SIZES = (3, 5)
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = {name: _CSRC / f"{name}.cu"
-            for name in ("depthwise_fwd", "depthwise_dwgrad")}
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
     "dfd_depthwise_fwd": ([_P] * 6 + [_I64] * 6 + [_I] * 6 + [_P], _I),
@@ -75,75 +65,10 @@ _SIGNATURES = {
     "dfd_depthwise_dwgrad_workspace": ([_I64] * 4 + [_I], _I64),
 }
 
-_libs: Dict[str, ctypes.CDLL] = {}
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.is_file():
-        return str(cand)
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                       "/usr/local/cuda/bin): the depthwise kernels are "
-                       "built from csrc/ at first use")
-
-
-def _target(name: str) -> Path:
-    src = _SOURCES[name].read_bytes()
-    key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD_DIR / f"{name}-{key}.so"
-
-
-def build() -> Dict[str, Path]:
-    """Compile every ``csrc/*.cu`` source not built yet (one ``nvcc`` per
-    source, all started together) and return ``{name: library path}``;
-    raises with nvcc's stderr on failure.  ``-Xptxas -v``'s register report
-    lands in the ``.log`` beside each library."""
-    out = {name: _target(name) for name in _SOURCES}
-    todo = {name: path for name, path in out.items() if not path.is_file()}
-    if not todo:
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, path in todo.items():
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCES[name])]
-        procs[name] = (cmd, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    failed = []
-    for name, (cmd, tmp, proc) in procs.items():
-        try:
-            _, err = proc.communicate(timeout=600)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            _, err = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                          f"\n{err}")
-            continue
-        todo[name].with_suffix(".log").write_text(err)
-        os.replace(tmp, todo[name])
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return out
-
 
 def _fn(name: str, symbol: str):
-    """``symbol`` of the library built from ``csrc/<name>.cu``, with its
-    ctypes signature set (every pointer as ``c_void_p``, so none is cut to
-    32 bits)."""
-    with _lib_lock:
-        if name not in _libs:
-            lib = ctypes.CDLL(str(build()[name]))
-            for sym, (args, res) in _SIGNATURES.items():
-                if hasattr(lib, sym):
-                    getattr(lib, sym).argtypes = args
-                    getattr(lib, sym).restype = res
-            _libs[name] = lib
-        return getattr(_libs[name], symbol)
+    """``symbol`` of the library built from ``csrc/<name>.cu``."""
+    return kernel(name, symbol, *_SIGNATURES[symbol])
 
 
 def _kernel_3d(w: torch.Tensor) -> torch.Tensor:
@@ -364,20 +289,30 @@ def _act_grad(u: torch.Tensor, act: str) -> torch.Tensor:
     return torch.ones_like(u)
 
 
+def _dx_pads(h: int, w: int, k: int, stride: int, pads, ho: int,
+             wo: int) -> Tuple[int, int, int, int]:
+    """Signed padding of the stride-1 correlation that gives dx from dz
+    dilated by ``stride - 1``: ``k-1-top`` before, and after whatever makes
+    the output exactly ``h × w``.  A negative side means the forward padded
+    beyond ``k-1`` there: that many leading (or trailing) rows of the
+    correlation's output lie in the padding and are cropped."""
+    t, _, l, _ = pads
+    return (k - 1 - t,
+            h + t - 1 - (ho - 1) * stride,
+            k - 1 - l,
+            w + l - 1 - (wo - 1) * stride)
+
+
 def dx_padding(h: int, w: int, k: int, stride: int, pads,
                ho: int, wo: int) -> Tuple[int, int, int, int]:
-    """Padding of the stride-1 correlation that gives dx from dz dilated by
-    ``stride - 1``: ``k-1-top`` before, and after whatever makes the output
-    exactly ``h × w`` (it exceeds ``k-1`` where rows or columns of x got no
-    tap).  Raises where the forward padding exceeds ``k-1``."""
-    t, _, l, _ = pads
-    out = (k - 1 - t,
-           h + t - 1 - (ho - 1) * stride,
-           k - 1 - l,
-           w + l - 1 - (wo - 1) * stride)
+    """The non-negative padding of dx's correlation (:func:`_dx_pads`; it
+    exceeds ``k-1`` after where rows or columns of x got no tap).  Raises
+    where the forward padding exceeds ``k-1``: there
+    :func:`depthwise_backward` pads by 0 and crops instead."""
+    out = _dx_pads(h, w, k, stride, pads, ho, wo)
     if min(out) < 0:
         raise ValueError(f"padding {tuple(pads)} exceeds k-1={k - 1}: the "
-                         f"depthwise backward takes at most k-1 per side")
+                         f"correlation takes at most k-1 per side")
     return out
 
 
@@ -431,8 +366,12 @@ def depthwise_backward(grad: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     ho, wo = dz.shape[1], dz.shape[2]
     h, wd = x.shape[1], x.shape[2]
     wf = torch.flip(w.float(), dims=(0, 1)).contiguous()
-    dx = conv(dilate(dz, stride), wf,
-              dx_padding(h, wd, k, stride, pads, ho, wo))
+    signed = _dx_pads(h, wd, k, stride, pads, ho, wo)
+    dx = conv(dilate(dz, stride), wf, tuple(max(p, 0) for p in signed))
+    # beyond k-1 of forward padding, crop the rows and columns that lie in
+    # the padding (the JAX _op_bwd pads by k-1 and crops the same way)
+    top, left = max(-signed[0], 0), max(-signed[2], 0)
+    dx = dx[:, top:top + h, left:left + wd]
     if dx.shape != x.shape:
         raise AssertionError(f"dx {tuple(dx.shape)} for x {tuple(x.shape)}")
     dw = dwgrad(x, dz, k, stride, pads)
@@ -490,10 +429,7 @@ def fused_depthwise(x: torch.Tensor, w: torch.Tensor,
     the result is NHWC in ``x``'s dtype.  CPU tensors take the plain
     version (autograd differentiates it), CUDA tensors the kernel, through
     an autograd node only where a gradient is wanted: that node saves z
-    only for a non-identity epilogue.  That node's backward takes at most
-    ``k-1`` of padding a side (:func:`dx_padding`), so a CUDA call that wants
-    a gradient with more raises here; the CPU path and a CUDA call without
-    a gradient take any padding.
+    only for a non-identity epilogue.  Any non-negative padding.
     """
     if act not in FUSED_DW_ACTS:
         raise ValueError(f"act must be one of {FUSED_DW_ACTS}, got {act!r}")
@@ -509,8 +445,6 @@ def fused_depthwise(x: torch.Tensor, w: torch.Tensor,
                             x.shape[2])
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, w, scale, bias)):
-        h, wd, k = x.shape[1], x.shape[2], w.shape[0]
-        dx_padding(h, wd, k, s, pads, *output_size(h, wd, k, s, pads))
         return _CudaDepthwise.apply(x, w, scale, bias, s, pads, act)
     return _launch(x, w, scale, bias, s, pads, act)[0]
 

@@ -15,6 +15,13 @@ Usage (the flagship's ``scripts/train.sh`` config on synthetic data)::
         --decay-rate .92 --bn-momentum 0.001 --mixup 0.1 --model-ema \\
         --epochs 200 --output ./output [--device cuda]
 
+and the TimeSformer on the same clips with the flash-attention kernels::
+
+    python -m deepfake_detection_tpu_torch.runners.train \\
+        --dataset synthetic --model timesformer_base_patch25_600 \\
+        --model-version "" --input-size-v2 12,600,600 --attn-impl flash \\
+        -b 8 --opt rmsproptf --model-ema --epochs 1 --log-interval 1
+
 Compute is f32 with TF32 off.  Training runs on ``--device cuda`` unless
 the caller asks for ``cpu`` (the plain PyTorch path the tests use).  Flags
 of ``scripts/train.sh`` that the port does not have yet raise, naming
@@ -40,8 +47,7 @@ from ..data.mixup import FastCollateMixup
 from ..losses import create_loss_fn, cross_entropy
 from ..models import (create_deepfake_model, create_deepfake_model_v3,
                       create_deepfake_model_v4, create_model)
-from ..models.efficientnet import default_cfgs
-from ..models.factory import resolve_device
+from ..models.factory import default_cfg, resolve_device
 from ..optim.factory import create_optimizer
 from ..scheduler.factory import create_scheduler
 from ..train.checkpoint import CheckpointSaver
@@ -119,6 +125,7 @@ class TrainConfig:
     output: str = "./output"
     experiment: str = ""
     device: str = "cuda"
+    attn_impl: str = ""
 
     def resolved_lr(self, world_size: int = 1) -> float:
         """Linear LR scaling: ``batch × world × basic_lr`` unless ``lr``."""
@@ -127,11 +134,11 @@ class TrainConfig:
         return self.batch_size * world_size * self.basic_lr
 
     def input_size(self) -> Tuple[int, int, int]:
-        """(C, H, W): ``--input-size-v2`` or the model's default."""
+        """(C, H, W): ``--input-size-v2`` or the registered model's
+        default."""
         if self.input_size_v2:
             return tuple(self.input_size_v2)
-        return tuple(default_cfgs.get(self.model, {}).get(
-            "input_size", (3, 224, 224)))
+        return tuple(default_cfg(self.model)["input_size"])
 
 
 def _ints(s: str) -> Tuple[int, ...]:
@@ -172,6 +179,8 @@ def parse_args(argv=None) -> TrainConfig:
     p.add_argument("--experiment", default=d.experiment)
     p.add_argument("--device", default=d.device,
                    help="torch device; the CPU runs the plain PyTorch path")
+    p.add_argument("--attn-impl", default=d.attn_impl,
+                   help="ViT/TimeSformer attention: full | flash")
     for name in UNPORTED:
         flag = "--" + name.replace("_", "-")
         if name in ("amp", "label_balance", "auto_resume"):
@@ -206,14 +215,28 @@ class Run:
 
 
 def build_model(cfg: TrainConfig, device) -> torch.nn.Module:
+    """The model through the factory's family rules: BN arguments reach
+    only EfficientNets, ``attn_impl`` and the input size only the
+    transformers."""
     factory = _MODEL_FACTORIES.get(cfg.model_version)
     if factory is None:
         raise ValueError(f"--model-version {cfg.model_version!r}: one of "
                          f"{sorted(_MODEL_FACTORIES)}")
-    return factory(cfg.model, num_classes=cfg.num_classes,
-                   in_chans=cfg.input_size()[0], drop_rate=cfg.drop,
-                   drop_path_rate=cfg.drop_path, bn_momentum=cfg.bn_momentum,
-                   bn_eps=cfg.bn_eps, device=device, seed=cfg.seed)
+    c, h, w = cfg.input_size()
+    kwargs = {}
+    if cfg.attn_impl:
+        if cfg.attn_impl in ("ring", "ring_flash", "ulysses"):
+            raise ValueError(
+                f"--attn-impl {cfg.attn_impl}: sequence-parallel attention "
+                f"needs a mesh and token-sharded inputs (not ported: ROADMAP "
+                f"Queue 1 item 13); the CLI supports 'full' and 'flash'")
+        kwargs["attn_impl"] = cfg.attn_impl
+    # global_pool: the JAX runner's --gp default
+    return factory(cfg.model, num_classes=cfg.num_classes, in_chans=c,
+                   drop_rate=cfg.drop, drop_path_rate=cfg.drop_path,
+                   global_pool="avg", bn_momentum=cfg.bn_momentum,
+                   bn_eps=cfg.bn_eps, img_size=(h, w), device=device,
+                   seed=cfg.seed, **kwargs)
 
 
 def setup(cfg: TrainConfig) -> Run:

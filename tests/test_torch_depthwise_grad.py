@@ -173,3 +173,39 @@ def test_dx_padding_gives_the_input_size(h, k, stride, pads):
 def test_dx_padding_rejects_padding_beyond_k_minus_1():
     with pytest.raises(ValueError, match="exceeds k-1"):
         tdw.dx_padding(10, 10, 3, 1, (3, 3, 3, 3), 12, 12)
+
+
+@pytest.mark.parametrize("pads", [(3, 3, 3, 3), (4, 4, 4, 4), (3, 4, 4, 3),
+                                  (0, 4, 4, 1)])
+@pytest.mark.parametrize("epilogue", ["identity", "affine_silu"])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_backward_glue_beyond_k_minus_1_matches_jax_vjp(stride, epilogue,
+                                                        pads):
+    """Padding k and k+1 a side at k = 3 (and mixed sides): the glue with
+    the plain device ops, which crops dx out of a correlation padded by at
+    most k-1, against ``jax.vjp`` of the XLA composition, whose backward
+    pads by k-1 and crops."""
+    k, shape = 3, SHAPES[0]
+    seed = 97 * stride + sum(pads) + len(epilogue)
+    x, w, scale, bias = _inputs(k, shape, seed)
+    affine = epilogue == "affine_silu"
+    act = "silu" if affine else "none"
+    if not affine:
+        scale, bias = np.ones_like(scale), np.zeros_like(bias)
+    y, vjp = jax.vjp(_xla(k, stride, pads, act), *map(jnp.asarray,
+                                                      (x, w, scale, bias)))
+    g = np.random.default_rng(seed).standard_normal(y.shape).astype(
+        np.float32)
+    want = vjp(jnp.asarray(g))
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    st = torch.from_numpy(scale) if affine else None
+    bt = torch.from_numpy(bias) if affine else None
+    padding = [(pads[0], pads[1]), (pads[2], pads[3])]
+    z = None if not affine else tdw.fused_depthwise_reference(
+        xt, wt, None, None, stride, padding, "none")
+    got = tdw.depthwise_backward(torch.from_numpy(g), xt, wt, st, bt, z,
+                                 stride, pads, act, tdw.plain_conv,
+                                 tdw.depthwise_dwgrad_reference)
+    names = ("dx", "dw", "dscale", "dbias") if affine else ("dx", "dw")
+    for name, a, b in zip(names, got, want):
+        _close(a.numpy(), b, name)

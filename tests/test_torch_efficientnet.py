@@ -165,3 +165,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_runner.launch_main(["--model", "efficientnet_b0",
                                   "--model-version", "", "--epochs", "1"])
+    # and the transformer families, through the factory and the runner
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_model("timesformer_tiny_patch16_224", in_chans=12,
+                     attn_impl="flash")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_runner.launch_main(["--model", "timesformer_tiny_patch16_224",
+                                  "--model-version", "", "--attn-impl",
+                                  "flash", "--input-size-v2", "12,32,32",
+                                  "--epochs", "1"])

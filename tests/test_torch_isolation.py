@@ -40,7 +40,9 @@ def test_import_loads_no_jax_and_no_jax_package():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "deepfake_detection_tpu_torch.runners.test" in out["imported"]
     assert "deepfake_detection_tpu_torch.ops.depthwise" in out["imported"]
-    for name in ("runners.train", "train.steps", "optim.rmsprop_tf"):
+    for name in ("runners.train", "train.steps", "optim.rmsprop_tf",
+                 "ops.flash_attention", "models.vit", "models.timesformer",
+                 "parallel.ring_attention", "csrc.build"):
         assert f"deepfake_detection_tpu_torch.{name}" in out["imported"]
     assert out["loaded"] == [], out["loaded"]
 
