@@ -34,11 +34,15 @@ before the result line:
 6. flash kernels vs plain: forward, dQ and dK/dV at the TimeSformer's
    spatial attention (B·H 384 for a train step at batch 8, 768 for an eval
    forward at batch 16; L 576, D 64, f32) and at edge cases (L 197 and 200,
-   D 32, 48 and 128, key padding, causal with offsets, rows that see no
-   key, bf16): O, lse and the gradients against the plain versions, two
-   backward calls bitwise equal; device times of kernel, plain, SDPA
-   (library) and bound; ``flash_attention`` forward and backward on the
-   card against ``torch.autograd`` through the plain forward;
+   D 32, 48 and 128 (at L 130 and 576), key padding, causal with offsets,
+   rows that see no key, bf16): O, lse and the gradients against the plain
+   versions, two backward calls bitwise equal; device times of kernel,
+   plain, SDPA pinned to its memory-efficient backend (library; its
+   backward timed alone on the device, as the port's autograd backward),
+   and both bounds (f32 SIMT and three TF32 products on the tensor cores);
+   the backward kernels' registers, spills, shared memory, resident blocks
+   per SM and SASS HMMA count; ``flash_attention`` forward and backward on
+   the card against ``torch.autograd`` through the plain forward;
 7. inference path: the flagship at full width and depth (12×600², 55
    blocks) with seeded weights and BN calibrated on the CPU by one
    train-mode pass over the inputs at 600², scoring seeded frames of mixed
@@ -76,11 +80,13 @@ non-zero and prints no result.  Its files go to ``build/chip_smoke/``.
 
 from __future__ import annotations
 
+import ctypes
 import gc
 import itertools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -92,10 +98,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
+from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.profiler import ProfilerActivity, profile
 
 from deepfake_detection_tpu_torch import losses
-from deepfake_detection_tpu_torch.csrc.build import build
+from deepfake_detection_tpu_torch.csrc.build import build, kernel
 from deepfake_detection_tpu_torch.models import (create_deepfake_model_v4,
                                                  create_model)
 from deepfake_detection_tpu_torch.ops import depthwise as dw
@@ -114,6 +121,7 @@ OUT = ROOT / "build" / "chip_smoke"
 # H100 SXM data-sheet peaks
 MEM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12          # dense tensor cores; f32 as 3 TF32 products
 EPS32 = float(np.finfo(np.float32).eps)
 
 # the flagship's depthwise stages at 600²: (H in, C, k, stride) → count
@@ -169,6 +177,8 @@ FLASH_L, FLASH_D = 576, 64
 # kernel vs plain, f32: o and lse elementwise within atol + rtol·|plain|
 # (sums of 576 products in another order, online rescaling against one
 # softmax); gradients within FLASH_GRAD_TOL of each gradient's max |plain|
+# (the backward kernels take every product as three TF32 products, the
+# plain version as one f32 matmul)
 FLASH_TOL = (2e-5, 2e-5)
 FLASH_GRAD_TOL = 1e-5
 
@@ -185,14 +195,16 @@ def nvidia_smi_line() -> str:
     return out[0]
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 3) -> float:
+def device_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 3,
+              stream=None) -> float:
     """Device time of one ``fn()`` in ms: ``iters`` calls captured in one
-    CUDA graph after ``warmup`` calls on a side stream, the graph replayed
-    ``reps`` times between CUDA events, mean per call.  The replay issues
-    every kernel from the device, so the host's cost of issuing them does
-    not count; gaps between the graph's kernels do.  The L2 is not flushed
+    CUDA graph after ``warmup`` calls on a side stream (``stream``, which
+    the capture then uses too, where given), the graph replayed ``reps``
+    times between CUDA events, mean per call.  The replay issues every
+    kernel from the device, so the host's cost of issuing them does not
+    count; gaps between the graph's kernels do.  The L2 is not flushed
     between calls."""
-    side = torch.cuda.Stream()
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(warmup):
@@ -200,7 +212,7 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 3) -> float:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -960,7 +972,8 @@ def check_flash(name, bh, l, d, seq_len, causal=False, q_off=0, kv_off=0,
     inputs: O elementwise (BF16_TOL for bf16), lse elementwise, dQ, dK and
     dV within FLASH_GRAD_TOL of their max; two backward calls must agree
     bitwise; rows that the causal offsets hide must give o = 0 and
-    lse = log(1e-30).  Returns the max absolute error of each kernel."""
+    lse = log(1e-30).  Returns the max absolute error of each kernel and
+    the largest gradient error relative to its max (grad_rel)."""
     q, k, v, do = _flash_inputs(bh, l, d, dtype, seed)
     args = (d ** -0.5, seq_len, causal, q_off, kv_off)
     o, lse = fa.flash_fwd(q, k, v, *args)
@@ -989,12 +1002,14 @@ def check_flash(name, bh, l, d, seq_len, causal=False, q_off=0, kv_off=0,
     if not (torch.equal(dq[0], dq[1]) and torch.equal(dkv[0][0], dkv[1][0])
             and torch.equal(dkv[0][1], dkv[1][1])):
         raise AssertionError(f"{name}: two backward calls differ")
+    err["grad_rel"] = 0.0
     for label, got, want in (("dq", dq[0], rdq), ("dk", dkv[0][0], rdk),
                              ("dv", dkv[0][1], rdv)):
         rel = _rel_err(got, want)
         if not torch.isfinite(got).all() or rel > FLASH_GRAD_TOL:
             raise AssertionError(f"{name}: {label} |kernel - plain| / "
                                  f"max|plain| {rel:.3e} > {FLASH_GRAD_TOL}")
+        err["grad_rel"] = max(err["grad_rel"], rel)
     err["dq"] = (dq[0] - rdq).abs().max().item()
     err["dkv"] = max((dkv[0][0] - rdk).abs().max().item(),
                      (dkv[0][1] - rdv).abs().max().item())
@@ -1015,12 +1030,73 @@ def flash_costs(bh, l, d, itemsize=4):
                 dkv=(4 * x + 2 * row + 2 * bh * l * d * 4, 4 * mm))
 
 
+def flash_bounds(nbytes, ops) -> dict:
+    """The least time of an f32 flash kernel: the larger of its bytes over
+    the memory rate and its operations over the faster f32-accurate rate,
+    the f32 SIMT units (67 TFLOP/s) or the tensor cores taking each product
+    as three TF32 products (3 × ops at 495 TFLOP/s)."""
+    bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    simt_ms = ops / F32_FLOP_PER_S * 1e3
+    tf32x3_ms = 3 * ops / TF32_FLOP_PER_S * 1e3
+    ops_ms = min(simt_ms, tf32x3_ms)
+    return dict(bytes_ms=bytes_ms, simt_bound_ms=simt_ms,
+                tf32x3_bound_ms=tf32x3_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bound_rate="3xTF32 tensor cores" if tf32x3_ms <= simt_ms
+                else "f32 SIMT")
+
+
+def sdpa(q, k, v):
+    """The library yardstick: SDPA pinned to its memory-efficient backend
+    (PyTorch's f32 attention kernel, forward and backward) on (B·H, L, D)
+    as (1, B·H, L, D): its fused kernels take 4-D inputs only, and a 3-D
+    call falls back to the unfused math path."""
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        return F.scaled_dot_product_attention(q[None], k[None], v[None])[0]
+
+
+def backward_device_ms(attend, q, k, v, do):
+    """Device time of one backward of ``attend(q, k, v)`` alone, timed as
+    the kernels are (:func:`device_ms`): the forward runs once on a side
+    stream and is kept, and the graph captures ``torch.autograd.grad``
+    over it on that stream (autograd runs a backward op on its forward's
+    stream).  Returns (ms, the attention's autograd node, {backward
+    kernel: device ms a call} from torch.profiler over 3 more calls)."""
+    ins = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = attend(*ins)
+
+    def grad():
+        torch.autograd.grad(out, ins, do, retain_graph=True)
+    ms = device_ms(grad, stream=side)
+    with torch.cuda.stream(side), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            grad()
+        torch.cuda.synchronize()
+    kernels = {e.key[:100]: e.self_device_time_total / 3 / 1e3
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    nodes, todo = [], [out.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is not None:
+            nodes.append(fn.name())
+            todo += [nxt for nxt, _ in fn.next_functions]
+    node = next((n for n in nodes if "Attention" in n), nodes[0])
+    return ms, node, kernels or "not measured"
+
+
 def phase_flash() -> dict:
     """The flash kernels against their plain versions at the TimeSformer's
     shapes (a train step's spatial attention, BH 384, and an eval forward's
     at batch 16, BH 768; L 576, D 64, f32) and at edge cases; then device
-    times at both path shapes: kernel, plain, SDPA (library) and bound;
-    returns the BH-384 row and the max errors."""
+    times at both path shapes: kernel, plain, SDPA (library, pinned to its
+    memory-efficient backend; its backward alone, as the port's autograd
+    backward) and both bounds; returns the BH-384 row and the max
+    errors."""
     torch.backends.cuda.matmul.allow_tf32 = False
     errs = Counter()
 
@@ -1042,43 +1118,39 @@ def phase_flash() -> dict:
             fwd_ms=device_ms(lambda: fa.flash_fwd(q, k, v, scale, lq)),
             fwd_plain_ms=device_ms(lambda: fa.flash_fwd_reference(
                 q, k, v, scale, lq)),
-            fwd_library_ms=device_ms(
-                lambda: F.scaled_dot_product_attention(q, k, v)),
+            fwd_library_ms=device_ms(lambda: sdpa(q, k, v)),
             dq_ms=device_ms(lambda: fa.flash_bwd_dq(*bw)),
             dq_plain_ms=device_ms(lambda: fa.flash_bwd_dq_reference(*bw)),
             dkv_ms=device_ms(lambda: fa.flash_bwd_dkv(*bw)),
             dkv_plain_ms=device_ms(lambda: fa.flash_bwd_dkv_reference(*bw)))
-        # forward + backward: the port's autograd node against SDPA's, both
-        # issued back to back between CUDA events (the backward's autograd
-        # is not captured in a graph)
-        ins = [t.clone().requires_grad_() for t in (q, k, v)]
-
-        def fwd_bwd(attend):
-            out = attend(*ins)
-            torch.autograd.grad(out, ins, do)
-        row["fwd_bwd_ms"] = call_ms(lambda: fwd_bwd(
+        # the whole backward of one attention, the port's autograd node
+        # (delta, dK/dV, dQ, casts) against SDPA's, each alone on the device
+        row["bwd_ms"], _, row["bwd_kernels"] = backward_device_ms(
             lambda a, b, c: fa.FlashAttentionFunction.apply(a, b, c, scale,
-                                                            False)), iters=10)
-        row["library_fwd_bwd_ms"] = call_ms(lambda: fwd_bwd(
-            F.scaled_dot_product_attention), iters=10)
-        row["library_bwd_ms"] = row["library_fwd_bwd_ms"] \
-            - row["fwd_library_ms"]
+                                                            False),
+            q, k, v, do)
+        (row["library_bwd_ms"], row["library_backend"],
+         row["library_bwd_kernels"]) = backward_device_ms(sdpa, q, k, v, do)
+        if "Efficient" not in row["library_backend"]:
+            raise AssertionError(f"SDPA ran {row['library_backend']}, not "
+                                 f"its memory-efficient backend")
+        row["bwd_pair_ms"] = row["dq_ms"] + row["dkv_ms"]
         for kind, (nbytes, ops) in flash_costs(bh, FLASH_L, FLASH_D).items():
-            b_ms = nbytes / MEM_BYTES_PER_S * 1e3
-            o_ms = ops / F32_FLOP_PER_S * 1e3
-            row[f"{kind}_bound_ms"] = max(b_ms, o_ms)
-            row[f"{kind}_bound_by"] = "bytes" if b_ms >= o_ms \
-                else "operations"
+            for key, val in flash_bounds(nbytes, ops).items():
+                row[f"{kind}_{key}"] = val
+            row[f"{kind}_bound_share"] = row[f"{kind}_bound_ms"] \
+                / row[f"{kind}_ms"]
             row[f"{kind}_tflop_per_s"] = ops / row[f"{kind}_ms"] / 1e9
         rows[bh] = row
         emit(phase="flash_row", bh=bh, l=FLASH_L, d=FLASH_D, dtype="float32",
              **row)
-        del q, k, v, do, o, lse, delta, bw, ins
+        del q, k, v, do, o, lse, delta, bw
     edges = [("L 197", 48, 197, 64, 197),
              ("L 200", 48, 200, 64, 200),
              ("D 32", 24, 200, 32, 200),
              ("D 48 L 197", 24, 197, 48, 197),
              ("D 128 L 130", 12, 130, 128, 130),
+             ("D 128 L 576", 24, 576, 128, 576),
              ("key padding 150/200", 24, 200, 64, 150)]
     for j, (name, bh, l, d, seq_len) in enumerate(edges):
         fold(check_flash(name, bh, l, d, seq_len, seed=920 + j))
@@ -1104,6 +1176,75 @@ def phase_flash() -> dict:
          tol=dict(f32=FLASH_TOL, bf16_o=BF16_TOL, grad=FLASH_GRAD_TOL))
     return dict(row=rows[FLASH_BH[0]], eval_row=rows[FLASH_BH[1]],
                 max_abs_err=dict(errs))
+
+
+_BWD_KERNEL = re.compile(r"(flash_bwd_(?:dq|dkv))_kernelI(f|13__nv_bfloat16)"
+                         r"Li(\d+)E")
+
+
+def _bwd_kernel_key(mangled: str):
+    m = _BWD_KERNEL.search(mangled)
+    return m and f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'},{m[3]}>"
+
+
+def phase_flash_bwd_kernels(libs: dict) -> dict:
+    """For every instantiation of the two backward kernels: ptxas'
+    registers, stack and spills (the build's ``-Xptxas -v`` report), what
+    the card gives it (registers, local bytes, dynamic shared memory,
+    resident blocks per SM: cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor), and, where the toolkit
+    has ``cuobjdump``, the HMMA (tensor-core) instructions in its SASS.
+    Fails unless dK/dV at f32, D = 64 keeps two blocks on an SM, and (with
+    cuobjdump) every instantiation runs on the tensor cores."""
+    out = {}
+    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        key = None
+        for line in libs[name].with_suffix(".log").read_text().splitlines():
+            if "Compiling entry function" in line:
+                key = _bwd_kernel_key(line)
+                if key:
+                    out[key] = {}
+            elif key and "bytes stack frame" in line:
+                n = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+                out[key].update(stack_bytes=n[0], spill_store_bytes=n[1],
+                                spill_load_bytes=n[2])
+            elif key and "registers" in line:
+                out[key]["ptxas_registers"] = int(
+                    re.search(r"Used (\d+) registers", line)[1])
+        info = kernel(name, f"dfd_{name}_info",
+                      [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        for dtype, tname in ((0, "f32"), (1, "bf16")):
+            for d in (32, 64, 128):
+                got = (ctypes.c_int * 4)()
+                err = info(d, dtype, ctypes.addressof(got))
+                if err != 0:
+                    raise RuntimeError(f"{name} info D {d} {tname}: "
+                                       f"cudaError_t {err}")
+                out.setdefault(f"{name}<{tname},{d}>", {}).update(
+                    registers=got[0], local_bytes=got[1], smem_bytes=got[2],
+                    blocks_per_sm=got[3])
+        cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        if Path(cuobjdump).is_file():
+            sass = subprocess.run([cuobjdump, "-sass", str(libs[name])],
+                                  capture_output=True, text=True, timeout=300,
+                                  check=True).stdout
+            key = None
+            for line in sass.splitlines():
+                if "Function :" in line:
+                    key = _bwd_kernel_key(line)
+                    if key:
+                        out[key]["hmma"] = 0
+                elif key and "HMMA" in line:
+                    out[key]["hmma"] += 1
+    emit(phase="flash_bwd_kernels", kernels=out)
+    if out["flash_bwd_dkv<f32,64>"]["blocks_per_sm"] < 2:
+        raise AssertionError(f"dK/dV at D 64 keeps "
+                             f"{out['flash_bwd_dkv<f32,64>']['blocks_per_sm']}"
+                             f" blocks on an SM, expected 2")
+    no_tc = [k for k, v in out.items() if v.get("hmma") == 0]
+    if no_tc:
+        raise AssertionError(f"no HMMA in the SASS of {no_tc}")
+    return out
 
 
 def phase_flash_autograd() -> float:
@@ -1278,18 +1419,23 @@ def flash_entries(fl: dict, autograd_err: float, tsf: dict) -> list:
             plain_ms=row[f"{kind}_plain_ms"],
             bound_ms=row[f"{kind}_bound_ms"],
             bound_by=row[f"{kind}_bound_by"],
+            bound_rate=row[f"{kind}_bound_rate"],
+            simt_bound_ms=row[f"{kind}_simt_bound_ms"],
+            tf32x3_bound_ms=row[f"{kind}_tf32x3_bound_ms"],
+            bound_share=row[f"{kind}_bound_share"],
             library_ms=row["fwd_library_ms"] if kind == "fwd" else None,
             eval_ms=ev[f"{kind}_ms"], eval_bound_ms=ev[f"{kind}_bound_ms"],
             timing="device time per call (CUDA graph replay between CUDA "
                    f"events) at (B·H, L, D) = ({FLASH_BH[0]}, {FLASH_L}, "
                    f"{FLASH_D}) f32, a train step's spatial attention; "
                    f"eval_*: ({FLASH_BH[1]}, ...), an eval forward at batch "
-                   f"{2 * TSF_BATCH}"))
-    out[1]["library_bwd_ms"] = out[2]["library_bwd_ms"] = \
-        row["library_bwd_ms"]
-    out[1]["fwd_bwd_ms"] = out[2]["fwd_bwd_ms"] = row["fwd_bwd_ms"]
-    out[1]["library_fwd_bwd_ms"] = out[2]["library_fwd_bwd_ms"] = \
-        row["library_fwd_bwd_ms"]
+                   f"{2 * TSF_BATCH}; library: SDPA, memory-efficient "
+                   f"backend"))
+    for entry in out[1:]:
+        entry.update(library_bwd_ms=row["library_bwd_ms"],
+                     library_backend=row["library_backend"],
+                     bwd_pair_ms=row["bwd_pair_ms"], bwd_ms=row["bwd_ms"],
+                     eval_library_bwd_ms=ev["library_bwd_ms"])
     out[0]["autograd_max_rel_err"] = autograd_err
     return out
 
@@ -1311,6 +1457,7 @@ def main() -> int:
                        .read_text().splitlines() if "registers" in ln]
                 for name, path in libs.items()},
          libraries=[path.name for path in libs.values()])
+    phase_flash_bwd_kernels(libs)
 
     model = create_deepfake_model_v4(device="cpu")
     shapes = flagship_dw_shapes(model, 600)

@@ -7,155 +7,162 @@
 // same masks, offsets and tile skipping as the forward; dK and dV are
 // written in float32 and the caller casts them to the input's type.
 //
-// What bounds it on an H100: operations, 8 BH L^2 D flops (S, dP, P^T dO,
-// dS^T q) against 0.97 ms at the TimeSformer's spatial shape in f32.  One
-// block per (bh, 64 keys), looping over query tiles (the TPU's sequential
-// q-tile grid axis): k and v stay in transposed tiles for the block's
-// life; each query tile of q and dO is staged once in two layouts
-// (permuted transposed for the transposed scores S^T and dP^T, rows for the
-// two products) and reused by the block's 64 keys.  P^T and then dS^T pass
-// through one shared score tile.  Each block owns its rows of dK and dV, so
-// there are no atomics and two calls give bitwise-equal results.  The
-// tiles take 117 KB of shared memory at D = 64, one block per SM.
+// What bounds it on an H100: operations, 8 BH L^2 D flops (S, dP, P^T dO, dS^T
+// q): at the TimeSformer's spatial shape in f32 65 GFLOP, 0.97 ms at the f32
+// SIMT rate and 0.40 ms as three TF32 products at the tensor cores' 495
+// TFLOP/s.  So the products run on the tensor cores at f32 accuracy
+// (flash_tf32.cuh: mma.sync m16n8k8 TF32, each product as three).  On the card
+// the kernel is bound by instruction issue (~10 a HMMA: splits, exp, fragment
+// loads), at 34% of the 3xTF32 bound.  One block of 4 warps per (bh, 64 keys)
+// loops over the query tiles (the TPU's sequential q-tile grid axis); warp w
+// owns keys [16 w, 16 w + 16).  k and v are staged once for the block's life;
+// each relevant query tile of q, dO, lse and delta is staged once, by cp.async
+// into a two-stage ring, so the next tile arrives while this one is
+// multiplied.  Per tile, in passes of kSub queries: S^T = k q^T and dP^T = v
+// dO^T from ldmatrix fragments, then P^T and dS^T in the registers, which are
+// the A fragments of dV += P^T dO and dK += dS^T q (no score tile in shared
+// memory).  103 KB of shared memory at D = 64, two blocks per SM.  Each block
+// owns its rows of dK and dV, so there are no atomics and two calls give
+// bitwise-equal results.
 
-#include "flash_common.cuh"
+#include "flash_tf32.cuh"
 
 namespace flash {
 namespace {
 
 template <int DT>
 constexpr size_t dkv_smem() {
-  return sizeof(float) * (4 * DT * kTS + 2 * kTile * DT + kTile * kTS);
+  return sizeof(float) * (6 * kTileFloats<DT> + 4 * kTile);
 }
 
 template <typename T, int DT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          float* __restrict__ dk, float* __restrict__ dv,
                          int Lq, int Lk, int D, int seq_len, int causal,
-                         int q_off, int kv_off, float scale) {
-  constexpr int NC = DT / 16;
-  extern __shared__ float4 smem4[];
-  float* Kt = reinterpret_cast<float*>(smem4);  // T: k
-  float* Vt = Kt + DT * kTS;                    // T: v
-  float* Qp = Vt + DT * kTS;                    // P: q * scale
-  float* dOp = Qp + DT * kTS;                   // P: dO
-  float* Qr = dOp + DT * kTS;                   // R: q
-  float* dOr = Qr + kTile * DT;                 // R: dO
-  float* Ss = dOr + kTile * DT;                 // [q row][key]: P, then dS
+                         int q_off, int kv_off, float scale, int vec) {
+  constexpr bool kX = kExact<T>;
+  constexpr int TS = kTileFloats<DT>;
+  constexpr int NS = kSub / 8, ND = DT / 8;
+  static_assert(kBwdThreads == 2 * kTile, "one lse or delta a thread");
+  float* Ks = sm90::dyn_smem();
+  float* Vs = Ks + TS;
+  float* Qs = Vs + TS;        // [2 stages][TS]
+  float* dOs = Qs + 2 * TS;   // [2 stages][TS]
+  float* Rs = dOs + 2 * TS;   // [2 stages][lse 64, delta 64]
 
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int64_t krow0 = (int64_t)bh * Lk + k0;
-  const T* qb = q + (int64_t)bh * Lq * D;
-  const T* ob = dout + (int64_t)bh * Lq * D;
-
-  load_tile<Layout::kT, DT>(Kt, k + krow0 * D, Lk - k0, D, 1.f);
-  load_tile<Layout::kT, DT>(Vt, v + krow0 * D, Lk - k0, D, 1.f);
-
-  float adk[4][NC], adv[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) adk[i][c] = adv[i][c] = 0.f;
-
+  const int bh = blockIdx.y, k0 = blockIdx.x * kTile;
+  const int lane = threadIdx.x % 32, m0 = 16 * (threadIdx.x / 32);
+  const int g = lane / 4, t = lane % 4;
+  const int64_t krow0 = (int64_t)bh * Lk + k0, qrow0 = (int64_t)bh * Lq;
   const int nq = (Lq + kTile - 1) / kTile;
-  for (int it = 0; it < nq; ++it) {
+  const float scale_log2 = scale * kLog2e;
+
+  // later query tiles may become relevant (causal): skip, do not stop
+  auto relevant_from = [&](int it) {
+    while (it < nq &&
+           !tile_relevant(it * kTile, k0, seq_len, causal, q_off, kv_off))
+      ++it;
+    return it;
+  };
+  auto stage_q = [&](int it, int s) {
+    const int q0 = it * kTile, i = threadIdx.x % kTile;
+    const int64_t row0 = qrow0 + q0;
+    stage_tile<DT>(Qs + s * TS, q + row0 * D, Lq - q0, D, vec);
+    stage_tile<DT>(dOs + s * TS, dout + row0 * D, Lq - q0, D, vec);
+    const float* src = (threadIdx.x < kTile ? lse : delta) + row0;
+    sm90::cp_async4(Rs + s * 2 * kTile + threadIdx.x,
+                    q0 + i < Lq ? src + i : src, q0 + i < Lq ? 4 : 0);
+  };
+
+  float adk[ND][4] = {}, adv[ND][4] = {};
+  int it = relevant_from(0);
+  if (it < nq) {
+    stage_tile<DT>(Ks, k + krow0 * D, Lk - k0, D, vec);
+    stage_tile<DT>(Vs, v + krow0 * D, Lk - k0, D, vec);
+    stage_q(it, 0);
+  }
+  sm90::cp_async_commit();
+  for (int s = 0; it < nq; s ^= 1) {
+    const int next = relevant_from(it + 1);
+    if (next < nq) stage_q(next, s ^ 1);
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<1>();
+    __syncthreads();
+
     const int q0 = it * kTile;
-    // later query tiles may become relevant (causal): skip, do not stop
-    if (!tile_relevant(q0, k0, seq_len, causal, q_off, kv_off)) continue;
-    __syncthreads();
-    const T* qt = qb + (int64_t)q0 * D;
-    const T* ot = ob + (int64_t)q0 * D;
-    load_tile<Layout::kP, DT>(Qp, qt, Lq - q0, D, scale);
-    load_tile<Layout::kP, DT>(dOp, ot, Lq - q0, D, 1.f);
-    load_tile<Layout::kR, DT>(Qr, qt, Lq - q0, D, 1.f);
-    load_tile<Layout::kR, DT>(dOr, ot, Lq - q0, D, 1.f);
-    float q_lse[4], q_delta[4];
+    const float* Qt = Qs + s * TS;
+    const float* Ot = dOs + s * TS;
+    const float* Rt = Rs + s * 2 * kTile;
+    const bool visible =
+        tile_visible(q0, k0, Lq, seq_len, causal, q_off, kv_off);
+#pragma unroll 1
+    for (int h = 0; h < kTile; h += kSub) {
+      // transposed scores: rows are the warp's 16 keys, columns queries
+      // [h, h + kSub) of the tile
+      float st[NS][4], dpt[NS][4];
+      tile_scores<DT, kX, NS>(st, Ks, m0, Qt, h, lane);
+      tile_scores<DT, kX, NS>(dpt, Vs, m0, Ot, h, lane);
+      auto grads = [&](auto mask) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int qg = q0 + tx + 16 * j;
-      const bool in = qg < Lq;
-      q_lse[j] = in ? lse[(int64_t)bh * Lq + qg] : 0.f;
-      q_delta[j] = in ? delta[(int64_t)bh * Lq + qg] : 0.f;
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + m0 + g + 8 * (e >> 1);
+            const int qi = h + 8 * j + 2 * t + (e & 1), qg = q0 + qi;
+            const bool hide =
+                decltype(mask)::value &&
+                (qg >= Lq || masked(qg, key, seq_len, causal, q_off, kv_off));
+            const float p =
+                hide ? 0.f
+                     : sm90::ex2(st[j][e] * scale_log2 - Rt[qi] * kLog2e);
+            dpt[j][e] = p * (dpt[j][e] - Rt[kTile + qi]) * scale;  // dS^T
+            st[j][e] = p;                                          // P^T
+          }
+      };
+      if (visible)
+        grads(std::false_type());
+      else
+        grads(std::true_type());
+      // the scores are the A fragments of dV += P^T dO and dK += dS^T q
+      scores_times_tile<DT, kX, ND>(adv, st, Ot, h, lane);
+      scores_times_tile<DT, kX, ND>(adk, dpt, Qt, h, lane);
     }
-    __syncthreads();
-
-    // transposed scores: rows are this thread's 4 keys, columns its 4
-    // queries tx, tx+16, tx+32, tx+48
-    float s[4][4] = {}, dp[4][4] = {};
-#pragma unroll 4
-    for (int d = 0; d < DT; ++d) {
-      const float4 a = ld4(Kt + d * kTS + 4 * ty);
-      const float4 b = ld4(Qp + d * kTS + 4 * tx);
-      const float4 g = ld4(Vt + d * kTS + 4 * ty);
-      const float4 h = ld4(dOp + d * kTS + 4 * tx);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-      const float gv[4] = {g.x, g.y, g.z, g.w}, hv[4] = {h.x, h.y, h.z, h.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-          dp[i][j] = fmaf(gv[i], hv[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int qg = q0 + tx + 16 * j;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bool hide = qg >= Lq || masked(qg, k0 + 4 * ty + i, seq_len,
-                                             causal, q_off, kv_off);
-        s[i][j] = hide ? 0.f : expf(s[i][j] - q_lse[j]);           // P^T
-        dp[i][j] = s[i][j] * (dp[i][j] - q_delta[j]) * scale;      // dS^T
-      }
-      st4(Ss + (tx + 16 * j) * kTS + 4 * ty, s[0][j], s[1][j], s[2][j],
-          s[3][j]);
-    }
-    __syncthreads();
-    scores_times_rows<DT>(adv, Ss, ty, dOr, tx);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      st4(Ss + (tx + 16 * j) * kTS + 4 * ty, dp[0][j], dp[1][j], dp[2][j],
-          dp[3][j]);
-    __syncthreads();
-    scores_times_rows<DT>(adk, Ss, ty, Qr, tx);
+    __syncthreads();  // this stage's readers are done before it refills
+    it = next;
   }
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (k0 + 4 * ty + i >= Lk) continue;
-    float* krow = dk + (krow0 + 4 * ty + i) * D;
-    float* vrow = dv + (krow0 + 4 * ty + i) * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = NC * tx + c;
-      if (d < D) {
-        krow[d] = adk[i][c];
-        vrow[d] = adv[i][c];
-      }
-    }
-  }
+  store_c<ND>(dk + krow0 * D, adk, m0, Lk - k0, D, lane);
+  store_c<ND>(dv + krow0 * D, adv, m0, Lk - k0, D, lane);
+}
+
+// One flag per instantiation: its shared-memory limit is raised.
+template <typename T, int DT>
+bool& configured() {
+  static bool flag = false;
+  return flag;
 }
 
 template <typename T, int DT>
 cudaError_t run(const Args& a) {
   const dim3 grid((a.Lk + kTile - 1) / kTile, a.BH);
-  static bool configured = false;
-  return launch(flash_bwd_dkv_kernel<T, DT>, configured, grid, dkv_smem<DT>(),
-                a.stream,
+  return launch(flash_bwd_dkv_kernel<T, DT>, configured<T, DT>(), grid,
+                kBwdThreads, dkv_smem<DT>(), a.stream,
                 static_cast<const T*>(a.q), static_cast<const T*>(a.k),
                 static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
                 a.lse, a.delta, static_cast<float*>(a.out0),
                 static_cast<float*>(a.out1), a.Lq, a.Lk, a.D, a.seq_len,
-                a.causal, a.q_off, a.kv_off, a.scale);
+                a.causal, a.q_off, a.kv_off, a.scale,
+                (int)copies16<T>(a));
+}
+
+template <typename T, int DT>
+cudaError_t info(int* out) {
+  return kernel_info(flash_bwd_dkv_kernel<T, DT>, configured<T, DT>(),
+                     kBwdThreads, dkv_smem<DT>(), out);
 }
 
 template <typename T>
@@ -164,6 +171,16 @@ cudaError_t run_d(const Args& a) {
     case 32: return run<T, 32>(a);
     case 64: return run<T, 64>(a);
     case 128: return run<T, 128>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t info_d(int D, int* out) {
+  switch (head_tile(D)) {
+    case 32: return info<T, 32>(out);
+    case 64: return info<T, 64>(out);
+    case 128: return info<T, 128>(out);
   }
   return cudaErrorInvalidValue;
 }
@@ -187,5 +204,13 @@ extern "C" int dfd_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (!flash::valid(a)) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)flash::run_d<float>(a);
   if (dtype == 1) return (int)flash::run_d<__nv_bfloat16>(a);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The kernel's registers, local bytes, dynamic shared bytes and resident
+// blocks per SM for head dim D and dtype, into out[0..4).
+extern "C" int dfd_flash_bwd_dkv_info(int D, int dtype, int* out) {
+  if (dtype == 0) return (int)flash::info_d<float>(D, out);
+  if (dtype == 1) return (int)flash::info_d<__nv_bfloat16>(D, out);
   return (int)cudaErrorInvalidValue;
 }

@@ -7,132 +7,156 @@
 // same masks, offsets and tile skipping as the forward; dQ is written in
 // float32 and the caller casts it to the input's type.
 //
-// What bounds it on an H100: operations, 6 BH L^2 D flops (S, dP and dS K)
-// against 0.73 ms at the TimeSformer's spatial shape in f32; bytes are a
-// tenth of that.  One block per (bh, 64 query rows), looping over key
-// tiles: q (scaled) and dO stay in transposed tiles; each key tile of K and
-// V is staged once (K twice: permuted transposed for the scores, rows for
-// dS K) and reused by the block's 64 rows.  S and dP share one pass over d
-// (four float4 loads per 32 FMAs).  Each block owns its rows of dQ, so
-// there are no atomics and two calls give bitwise-equal dQ.
+// What bounds it on an H100: operations, 6 BH L^2 D flops (S, dP and dS K): at
+// the TimeSformer's spatial shape in f32 49 GFLOP, 0.73 ms at the f32 SIMT
+// rate and 0.30 ms as three TF32 products at the tensor cores' 495 TFLOP/s;
+// bytes are a tenth of that.  So the products run on the tensor cores at f32
+// accuracy (flash_tf32.cuh: mma.sync m16n8k8 TF32, each product as three).  On
+// the card the kernel is bound by instruction issue (~10 a HMMA: splits, exp,
+// fragment loads), at 31% of the 3xTF32 bound.  One block of 4 warps per (bh,
+// 64 query rows) loops over the key tiles; warp w owns rows [16 w, 16 w +
+// 16).  q and dO are staged once for the block's life; each key tile of k and v
+// is staged once, by cp.async into a two-stage ring, so the next tile arrives
+// while this one is multiplied.  Per tile, in passes of kSub keys: S = q k^T
+// and dP = dO v^T from ldmatrix fragments, then dS in the registers, which is
+// the A fragment of dQ += dS k (no score tile in shared memory).  102 KB of
+// shared memory at D = 64, two blocks per SM.  Each block owns its rows of dQ,
+// so there are no atomics and two calls give bitwise-equal dQ.
 
-#include "flash_common.cuh"
+#include "flash_tf32.cuh"
 
 namespace flash {
 namespace {
 
 template <int DT>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * DT * kTS + kTile * DT + kTile * kTS);
+  return sizeof(float) * 6 * kTileFloats<DT>;
 }
 
 template <typename T, int DT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         float* __restrict__ dq, int Lq, int Lk, int D,
                         int seq_len, int causal, int q_off, int kv_off,
-                        float scale) {
-  constexpr int NC = DT / 16;
-  extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);  // T: q * scale
-  float* dOt = Qt + DT * kTS;                   // T: dO
-  float* Kp = dOt + DT * kTS;                   // P: k
-  float* Vp = Kp + DT * kTS;                    // P: v
-  float* Kr = Vp + DT * kTS;                    // R: k
-  float* dSs = Kr + kTile * DT;                 // [key][q row]: dS
+                        float scale, int vec) {
+  constexpr bool kX = kExact<T>;
+  constexpr int TS = kTileFloats<DT>;
+  constexpr int NS = kSub / 8, ND = DT / 8;
+  float* Qs = sm90::dyn_smem();
+  float* dOs = Qs + TS;
+  float* Ks = dOs + TS;       // [2 stages][TS]
+  float* Vs = Ks + 2 * TS;    // [2 stages][TS]
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int64_t qrow0 = (int64_t)bh * Lq + q0;
-  const T* kb = k + (int64_t)bh * Lk * D;
-  const T* vb = v + (int64_t)bh * Lk * D;
+  const int bh = blockIdx.y, q0 = blockIdx.x * kTile;
+  const int lane = threadIdx.x % 32, m0 = 16 * (threadIdx.x / 32);
+  const int g = lane / 4, t = lane % 4;
+  const int64_t qrow0 = (int64_t)bh * Lq + q0, krow0 = (int64_t)bh * Lk;
 
-  load_tile<Layout::kT, DT>(Qt, q + qrow0 * D, Lq - q0, D, scale);
-  load_tile<Layout::kT, DT>(dOt, dout + qrow0 * D, Lq - q0, D, 1.f);
-
-  float row_lse[4], row_delta[4], acc[4][NC];
+  // lse (times log2 e) and delta of the thread's rows m0 + g and m0 + g + 8
+  const float scale_log2 = scale * kLog2e;
+  float row_lse[2], row_delta[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const bool in = q0 + 4 * ty + i < Lq;
-    row_lse[i] = in ? lse[qrow0 + 4 * ty + i] : 0.f;
-    row_delta[i] = in ? delta[qrow0 + 4 * ty + i] : 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  for (int i = 0; i < 2; ++i) {
+    const int r = m0 + g + 8 * i;
+    const bool in = q0 + r < Lq;
+    row_lse[i] = in ? lse[qrow0 + r] * kLog2e : 0.f;
+    row_delta[i] = in ? delta[qrow0 + r] : 0.f;
   }
 
-  const int nk = (Lk + kTile - 1) / kTile;
-  for (int jt = 0; jt < nk; ++jt) {
+  // tiles only grow less relevant with the key tile: the relevant ones
+  // are a prefix
+  const int nkt = (Lk + kTile - 1) / kTile;
+  int nk = 0;
+  while (nk < nkt &&
+         tile_relevant(q0, nk * kTile, seq_len, causal, q_off, kv_off))
+    ++nk;
+  auto stage_kv = [&](int jt, int s) {
     const int k0 = jt * kTile;
-    if (!tile_relevant(q0, k0, seq_len, causal, q_off, kv_off)) break;
-    __syncthreads();
-    load_tile<Layout::kP, DT>(Kp, kb + (int64_t)k0 * D, Lk - k0, D, 1.f);
-    load_tile<Layout::kP, DT>(Vp, vb + (int64_t)k0 * D, Lk - k0, D, 1.f);
-    load_tile<Layout::kR, DT>(Kr, kb + (int64_t)k0 * D, Lk - k0, D, 1.f);
+    stage_tile<DT>(Ks + s * TS, k + (krow0 + k0) * D, Lk - k0, D, vec);
+    stage_tile<DT>(Vs + s * TS, v + (krow0 + k0) * D, Lk - k0, D, vec);
+  };
+
+  float acc[ND][4] = {};
+  if (nk > 0) {
+    stage_tile<DT>(Qs, q + qrow0 * D, Lq - q0, D, vec);
+    stage_tile<DT>(dOs, dout + qrow0 * D, Lq - q0, D, vec);
+    stage_kv(0, 0);
+  }
+  sm90::cp_async_commit();
+  for (int jt = 0; jt < nk; ++jt) {
+    const int s = jt & 1;
+    if (jt + 1 < nk) stage_kv(jt + 1, s ^ 1);
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<1>();
     __syncthreads();
 
-    float s[4][4] = {}, dp[4][4] = {};
-#pragma unroll 4
-    for (int d = 0; d < DT; ++d) {
-      const float4 a = ld4(Qt + d * kTS + 4 * ty);
-      const float4 b = ld4(Kp + d * kTS + 4 * tx);
-      const float4 g = ld4(dOt + d * kTS + 4 * ty);
-      const float4 h = ld4(Vp + d * kTS + 4 * tx);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-      const float gv[4] = {g.x, g.y, g.z, g.w}, hv[4] = {h.x, h.y, h.z, h.w};
+    const int k0 = jt * kTile;
+    const float* Kt = Ks + s * TS;
+    const float* Vt = Vs + s * TS;
+    const bool visible =
+        tile_visible(q0, k0, Lq, seq_len, causal, q_off, kv_off);
+#pragma unroll 1
+    for (int h = 0; h < kTile; h += kSub) {
+      // scores: rows are the warp's 16 queries, columns keys
+      // [h, h + kSub) of the tile
+      float sc[NS][4], dp[NS][4];
+      tile_scores<DT, kX, NS>(sc, Qs, m0, Kt, h, lane);
+      tile_scores<DT, kX, NS>(dp, dOs, m0, Vt, h, lane);
+      auto grads = [&](auto mask) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < NS; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-          dp[i][j] = fmaf(gv[i], hv[j], dp[i][j]);
-        }
+          for (int e = 0; e < 4; ++e) {
+            const int qg = q0 + m0 + g + 8 * (e >> 1);
+            const int key = k0 + h + 8 * j + 2 * t + (e & 1);
+            const bool hide =
+                decltype(mask)::value &&
+                (qg >= Lq || masked(qg, key, seq_len, causal, q_off, kv_off));
+            const float p =
+                hide ? 0.f
+                     : sm90::ex2(sc[j][e] * scale_log2 - row_lse[e >> 1]);
+            sc[j][e] = p * (dp[j][e] - row_delta[e >> 1]) * scale;  // dS
+          }
+      };
+      if (visible)
+        grads(std::false_type());
+      else
+        grads(std::true_type());
+      // dS is the A fragment of dQ += dS k
+      scores_times_tile<DT, kX, ND>(acc, sc, Kt, h, lane);
     }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qg = q0 + 4 * ty + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool hide = qg >= Lq || masked(qg, k0 + tx + 16 * j, seq_len,
-                                             causal, q_off, kv_off);
-        const float p = hide ? 0.f : expf(s[i][j] - row_lse[i]);
-        s[i][j] = p * (dp[i][j] - row_delta[i]) * scale;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      st4(dSs + (tx + 16 * j) * kTS + 4 * ty, s[0][j], s[1][j], s[2][j],
-          s[3][j]);
-    __syncthreads();
-    scores_times_rows<DT>(acc, dSs, ty, Kr, tx);
+    __syncthreads();  // this stage's readers are done before it refills
   }
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (q0 + 4 * ty + i >= Lq) continue;
-    float* row = dq + (qrow0 + 4 * ty + i) * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = NC * tx + c;
-      if (d < D) row[d] = acc[i][c];
-    }
-  }
+  store_c<ND>(dq + qrow0 * D, acc, m0, Lq - q0, D, lane);
+}
+
+// One flag per instantiation: its shared-memory limit is raised.
+template <typename T, int DT>
+bool& configured() {
+  static bool flag = false;
+  return flag;
 }
 
 template <typename T, int DT>
 cudaError_t run(const Args& a) {
   const dim3 grid((a.Lq + kTile - 1) / kTile, a.BH);
-  static bool configured = false;
-  return launch(flash_bwd_dq_kernel<T, DT>, configured, grid, dq_smem<DT>(),
-                a.stream,
+  return launch(flash_bwd_dq_kernel<T, DT>, configured<T, DT>(), grid,
+                kBwdThreads, dq_smem<DT>(), a.stream,
                 static_cast<const T*>(a.q), static_cast<const T*>(a.k),
                 static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
                 a.lse, a.delta, static_cast<float*>(a.out0), a.Lq, a.Lk, a.D,
-                a.seq_len, a.causal, a.q_off, a.kv_off, a.scale);
+                a.seq_len, a.causal, a.q_off, a.kv_off, a.scale,
+                (int)copies16<T>(a));
+}
+
+template <typename T, int DT>
+cudaError_t info(int* out) {
+  return kernel_info(flash_bwd_dq_kernel<T, DT>, configured<T, DT>(),
+                     kBwdThreads, dq_smem<DT>(), out);
 }
 
 template <typename T>
@@ -141,6 +165,16 @@ cudaError_t run_d(const Args& a) {
     case 32: return run<T, 32>(a);
     case 64: return run<T, 64>(a);
     case 128: return run<T, 128>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t info_d(int D, int* out) {
+  switch (head_tile(D)) {
+    case 32: return info<T, 32>(out);
+    case 64: return info<T, 64>(out);
+    case 128: return info<T, 128>(out);
   }
   return cudaErrorInvalidValue;
 }
@@ -164,5 +198,13 @@ extern "C" int dfd_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (!flash::valid(a)) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)flash::run_d<float>(a);
   if (dtype == 1) return (int)flash::run_d<__nv_bfloat16>(a);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The kernel's registers, local bytes, dynamic shared bytes and resident
+// blocks per SM for head dim D and dtype, into out[0..4).
+extern "C" int dfd_flash_bwd_dq_info(int D, int dtype, int* out) {
+  if (dtype == 0) return (int)flash::info_d<float>(D, out);
+  if (dtype == 1) return (int)flash::info_d<__nv_bfloat16>(D, out);
   return (int)cudaErrorInvalidValue;
 }

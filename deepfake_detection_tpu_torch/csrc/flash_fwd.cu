@@ -29,6 +29,121 @@
 namespace flash {
 namespace {
 
+// A block owns one (bh, 64-row tile) and runs 256 threads as a 16 x 16
+// grid: ty = tid / 16 owns 4 consecutive rows of its 64-row tile, tx =
+// tid % 16 owns 4 columns of a 64-column score tile (columns tx, tx+16,
+// tx+32, tx+48) and D/16 consecutive columns of a (64, D) product.  The 16
+// threads of one ty are one half-warp, so a row's max and sum are 4
+// shuffles.
+//
+// Shared-memory tiles, all float32 (bf16 is widened at the load, as the TPU
+// kernel casts every tile to f32):
+//   T  "transposed"  [DT][68]: tile[d][r] = x[r][d]; a thread reads its 4
+//                    rows as one float4 (a broadcast within the half-warp);
+//   P  "permuted"    [DT][68]: tile[d][(r % 16) * 4 + r / 16] = x[r][d];
+//                    thread tx reads rows tx, tx+16, tx+32, tx+48 as one
+//                    float4 at [d][4 tx];
+//   R  "rows"        [64][DT]: tile[r][d] = x[r][d], read as float4 along d.
+// The row stride 68 = 64 + 4 keeps float4 alignment and spreads the
+// transposed stores over the banks.  Rows past the end of the buffer and
+// columns past D read as 0.
+constexpr int kThreads = 256;
+constexpr int kTS = kTile + 4;  // row stride of the T and P tiles
+
+enum class Layout { kT, kP, kR };
+
+// Loads rows [0, min(rows, 64)) of the (rows, D) matrix at src into dst in
+// the given layout, each value times mul (the scale of q), zero-filled.
+template <Layout L, int DT, typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+                                          int rows, int D, float mul) {
+  for (int i = threadIdx.x; i < kTile * DT; i += kThreads) {
+    const int r = i / DT, d = i % DT;
+    float v = 0.f;
+    if (r < rows && d < D) v = to_f32(src[(int64_t)r * D + d]) * mul;
+    if (L == Layout::kT) dst[d * kTS + r] = v;
+    if (L == Layout::kP) dst[d * kTS + (r % 16) * 4 + r / 16] = v;
+    if (L == Layout::kR) dst[r * DT + d] = v;
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, float a, float b, float c,
+                                    float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+
+// Loads NC consecutive floats of a row (NC = DT / 16: 2, 4 or 8).
+template <int NC>
+__device__ __forceinline__ void ld_row(const float* p, float (&out)[NC]) {
+  if constexpr (NC == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    out[0] = v.x; out[1] = v.y;
+  } else {
+#pragma unroll
+    for (int c = 0; c < NC; c += 4) {
+      const float4 v = ld4(p + c);
+      out[c] = v.x; out[c + 1] = v.y; out[c + 2] = v.z; out[c + 3] = v.w;
+    }
+  }
+}
+
+// acc[a][b] += sum_d A[d][a-th of 4] * B[d][b-th of 4] over d < DT, with A
+// and B two T/P tiles read at the thread's float4 offsets.
+template <int DT>
+__device__ __forceinline__ void outer_4x4(float (&acc)[4][4], const float* A,
+                                          int a_off, const float* B,
+                                          int b_off) {
+#pragma unroll 8
+  for (int d = 0; d < DT; ++d) {
+    const float4 a = ld4(A + d * kTS + a_off);
+    const float4 b = ld4(B + d * kTS + b_off);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+    const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// acc[i][c] += sum_j S[j][4 ty + i] * R[j][NC tx + c] over the 64 rows j:
+// S a [64][68] score tile stored row-of-R-major, R a [64][DT] rows tile.
+template <int DT>
+__device__ __forceinline__ void scores_times_rows(float (&acc)[4][DT / 16],
+                                                  const float* S, int ty,
+                                                  const float* R, int tx) {
+  constexpr int NC = DT / 16;
+#pragma unroll 4
+  for (int j = 0; j < kTile; ++j) {
+    const float4 s = ld4(S + j * kTS + 4 * ty);
+    const float sv[4] = {s.x, s.y, s.z, s.w};
+    float r[NC];
+    ld_row<NC>(R + j * DT + NC * tx, r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(sv[i], r[c], acc[i][c]);
+  }
+}
+
+// Max and sum over the 16 threads of a half-warp (one row group).
+__device__ __forceinline__ float half_warp_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 template <int DT>
 constexpr size_t fwd_smem() {
   return sizeof(float) * (2 * DT * kTS + kTile * DT + kTile * kTS);
@@ -134,8 +249,8 @@ template <typename T, int DT>
 cudaError_t run(const Args& a) {
   const dim3 grid((a.Lq + kTile - 1) / kTile, a.BH);
   static bool configured = false;
-  return launch(flash_fwd_kernel<T, DT>, configured, grid, fwd_smem<DT>(),
-                a.stream,
+  return launch(flash_fwd_kernel<T, DT>, configured, grid, kThreads,
+                fwd_smem<DT>(), a.stream,
                 static_cast<const T*>(a.q), static_cast<const T*>(a.k),
                 static_cast<const T*>(a.v), static_cast<T*>(a.out0),
                 static_cast<float*>(a.out1), a.Lq, a.Lk, a.D, a.seq_len,

@@ -13,7 +13,13 @@ which take the plain PyTorch versions of its three CUDA kernels.
   JAX ``_fwd``, ``_bwd_dq`` and ``_bwd_dkv`` with the same arguments: O, lse
   (the JAX lane copy cropped), dQ, dK, dV;
 * gradients through the port's ``autograd.Function`` against ``jax.vjp`` of
-  the JAX op.
+  the JAX op;
+* the card's backward arithmetic, emulated in numpy: every product of the
+  CUDA backward kernels is taken as three TF32 products (``cvt.rna.tf32``
+  splits of each f32 operand), accumulated as the tensor core does
+  (truncating toward zero) in the kernels' order, and dQ, dK and dV so
+  computed must stay within 1e-5 of each gradient's max against the
+  port's plain f32 versions and within 5e-5 against the JAX kernels.
 
 Inputs are seeded numpy.  Tolerances: atol = rtol = 2e-5 in f32 for the
 forward (sums of up to 320 f32 products, blocked differently: 64-row tiles
@@ -159,3 +165,125 @@ def test_wrappers_reject_other_devices_and_shapes():
     x = torch.zeros(1, 8, 2, 16)
     with pytest.raises(ValueError, match="self-attention"):
         tfa.flash_attention(x, x[:, :4], x[:, :4])
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: f32 rounded to a 10-bit mantissa, to nearest
+    with ties away from zero (0x1000 added to the bit pattern, the low 13
+    bits cleared)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _tc_read(x):
+    """What the tensor core reads of an f32 register: its top 19 bits."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _toward_zero(x):
+    """float64 to f32, truncated toward zero, as the tensor core
+    accumulates."""
+    y = x.astype(np.float32)
+    over = np.abs(y.astype(np.float64)) > np.abs(x)
+    y[over] = np.nextafter(y[over], np.float32(0))
+    return y
+
+
+def _split_matmul(a, b, small_apart=False, pass_rows=None):
+    """``a @ b`` (batched) as the CUDA backward takes it: each operand split
+    into big = tf32(x) and small = x - big; per k-block of 8, the terms
+    small·big, big·small and big·big each one mma that adds 8 exact
+    products to its f32 accumulator and truncates toward zero; the small
+    terms in an accumulator of their own (``small_apart``, the scores), or
+    the k-rows in passes of ``pass_rows``, each in a fresh accumulator
+    added to the sum in f32 (the second products)."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = _tc_read(a - a_big), _tc_read(b - b_big)
+    shape = (*a.shape[:-1], b.shape[-1])
+    total = np.zeros(shape, np.float32)
+    acc, acc_small = np.zeros(shape, np.float32), np.zeros(shape, np.float32)
+    for k0 in range(0, a.shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+        for x, y, small in ((a_small, b_big, True), (a_big, b_small, True),
+                            (a_big, b_big, False)):
+            into = acc_small if small and small_apart else acc
+            into[...] = _toward_zero(
+                into + np.matmul(x[..., ks].astype(np.float64),
+                                 y[..., ks, :].astype(np.float64)))
+        if pass_rows and (k0 + 8) % pass_rows == 0:
+            total += acc
+            acc[...] = 0
+    return total + acc + acc_small
+
+
+def _split_backward(q, k, v, do, lse, delta, scale, seq_len, causal, q_off,
+                    kv_off):
+    """dQ, dK, dV of the CUDA backward kernels' arithmetic, in numpy f32:
+    S = (q kᵀ) scale and dP = dO vᵀ, P = exp(S − lse) (0 where masked),
+    dS = P (dP − δ) scale, then dS k, dSᵀ q and Pᵀ dO in passes of 32
+    rows, every product split."""
+    hide = tfa._hidden(q.shape[1], k.shape[1], seq_len, causal, q_off, kv_off,
+                       "cpu").numpy()
+    s = _split_matmul(q, k.transpose(0, 2, 1), small_apart=True)
+    p = np.where(hide, np.float32(0),
+                 np.exp(s * np.float32(scale) - lse[..., None]))
+    dp = _split_matmul(do, v.transpose(0, 2, 1), small_apart=True)
+    ds = p * (dp - delta[..., None]) * np.float32(scale)
+    return (_split_matmul(ds, k, pass_rows=32),
+            _split_matmul(ds.transpose(0, 2, 1), q, pass_rows=32),
+            _split_matmul(p.transpose(0, 2, 1), do, pass_rows=32))
+
+
+def _jax_backward(q, k, v, do, lse, delta, scale, seq_len, causal, q_off,
+                  kv_off):
+    """The JAX ``_bwd_dq`` and ``_bwd_dkv`` (interpret mode) on the same
+    lse and δ: L zero-padded to the 64-row blocks (padded keys sit past
+    ``seq_len``), lse and δ copied across the TPU's 128 lanes, the
+    outputs cropped."""
+    l = q.shape[1]
+    pad = ((0, 0), (0, -l % 64), (0, 0))
+    q, k, v, do = (jnp.asarray(np.pad(a, pad)) for a in (q, k, v, do))
+    lse, delta = (jnp.asarray(np.broadcast_to(
+        np.pad(a, pad[:2])[..., None], (*q.shape[:2], 128)))
+        for a in (lse, delta))
+    args = (scale, 64, 64, causal, seq_len, True, q_off, kv_off)
+    dq = jfa._bwd_dq(q, k, v, do, lse, delta, *args)
+    dk, dv = jfa._bwd_dkv(q, k, v, do, lse, delta, *args)
+    return [np.asarray(g)[:, :l] for g in (dq, dk, dv)]
+
+
+# (B·H, L, D, seq_len, causal, q_off, kv_off): a train step's spatial
+# attention at 4 heads, a ragged ViT-like length and head dim, and the
+# masks with offsets
+SPLIT_CASES = [(4, 576, 64, 576, False, 0, 0),
+               (4, 197, 48, 197, False, 0, 0),
+               (3, 200, 64, 150, True, 7, 40)]
+
+
+@pytest.mark.parametrize("bh,l,d,seq_len,causal,q_off,kv_off", SPLIT_CASES)
+def test_split_tf32_backward_matches_plain_and_jax(bh, l, d, seq_len, causal,
+                                                  q_off, kv_off):
+    q, k, v, do = _qkv((bh, l, d), seed=l + d, n=4)
+    scale = d ** -0.5
+    args = (scale, seq_len, causal, q_off, kv_off)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = tfa.flash_fwd_reference(tq, tk, tv, *args)
+    delta = (tdo * o).sum(-1)
+    plain = (tfa.flash_bwd_dq_reference(tq, tk, tv, tdo, lse, delta, *args),
+             *tfa.flash_bwd_dkv_reference(tq, tk, tv, tdo, lse, delta, *args))
+    lse, delta = lse.numpy(), delta.numpy()
+    split = _split_backward(q, k, v, do, lse, delta, *args)
+    jax_grads = _jax_backward(q, k, v, do, lse, delta, *args)
+    # the split is not the plain f32 product: it must differ somewhere
+    assert any(not np.array_equal(a, b.numpy())
+               for a, b in zip(split, plain))
+    for name, got, want, jwant in zip(("dq", "dk", "dv"), split, plain,
+                                      jax_grads):
+        assert got.dtype == np.float32 and np.isfinite(got).all()
+        want = want.numpy()
+        err = np.abs(got - want).max() / np.abs(want).max()
+        assert err <= 1e-5, f"{name}: split vs plain f32 {err:.3e} of max"
+        jerr = np.abs(got - jwant).max() / np.abs(jwant).max()
+        assert jerr <= 5e-5, f"{name}: split vs JAX kernel {jerr:.3e} of max"
