@@ -22,7 +22,9 @@ before the result line:
    rate or operations over the f32 rate);
 4. dw-gradient kernel vs plain: the same shapes at the training batch (3),
    f32, bf16 x on a few, and edge cases; two calls must give bitwise-equal
-   dw; kernel, plain, library (cuDNN's weight gradient) and bound times;
+   dw; kernel, plain, library (cuDNN's weight gradient) and bound times,
+   and each stage's workspace bytes and the kernels one call launches
+   (counted by torch.profiler);
 5. backward vs autograd: at every flagship shape at batch 3, for the
    identity epilogue (the training call) and for affine + SiLU (the path
    that saves z), the forward the training path launches (y against the
@@ -36,13 +38,14 @@ before the result line:
    forward at batch 16; L 576, D 64, f32) and at edge cases (L 197 and 200,
    D 32, 48 and 128 (at L 130 and 576), key padding, causal with offsets,
    rows that see no key, bf16): O, lse and the gradients against the plain
-   versions, two backward calls bitwise equal; device times of kernel,
-   plain, SDPA pinned to its memory-efficient backend (library; its
-   backward timed alone on the device, as the port's autograd backward),
-   and both bounds (f32 SIMT and three TF32 products on the tensor cores);
-   the backward kernels' registers, spills, shared memory, resident blocks
-   per SM and SASS HMMA count; ``flash_attention`` forward and backward on
-   the card against ``torch.autograd`` through the plain forward;
+   versions, two forward and two backward calls bitwise equal; device
+   times of kernel, plain, SDPA pinned to its memory-efficient backend
+   (library; its backward timed alone on the device, as the port's autograd
+   backward), and both bounds (f32 SIMT and three TF32 products on the
+   tensor cores); the three kernels' registers, spills, shared memory,
+   resident blocks per SM and SASS HMMA count (every instantiation must have
+   HMMA); ``flash_attention`` forward and backward on the card against
+   ``torch.autograd`` through the plain forward;
 7. inference path: the flagship at full width and depth (12×600², 55
    blocks) with seeded weights and BN calibrated on the CPU by one
    train-mode pass over the inputs at 600², scoring seeded frames of mixed
@@ -114,6 +117,7 @@ from deepfake_detection_tpu_torch.runners import train as train_runner
 from deepfake_detection_tpu_torch.train.state import create_train_state
 from deepfake_detection_tpu_torch.train.steps import make_train_step
 from deepfake_detection_tpu_torch.train.trainer import validate
+from flash_bench import FLAGSHIP_DW, TRAIN_BATCH, device_ms
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "chip_smoke"
@@ -124,17 +128,8 @@ F32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12          # dense tensor cores; f32 as 3 TF32 products
 EPS32 = float(np.finfo(np.float32).eps)
 
-# the flagship's depthwise stages at 600²: (H in, C, k, stride) → count
-FLAGSHIP_DW = {(300, 256, 3, 1): 1, (300, 32, 3, 1): 3, (300, 192, 3, 2): 1,
-               (150, 288, 3, 1): 6, (150, 288, 5, 2): 1, (75, 480, 5, 1): 6,
-               (75, 480, 3, 2): 1, (38, 960, 3, 1): 9, (38, 960, 5, 1): 1,
-               (38, 1344, 5, 1): 9, (38, 1344, 5, 2): 1,
-               (19, 2304, 5, 1): 12, (19, 2304, 3, 1): 1,
-               (19, 3840, 3, 1): 3}
-
 MAIN_BATCH = 1                    # test_img: one image or clip a forward
 KERNEL_BATCHES = (MAIN_BATCH, 2)  # batches of the kernel-vs-plain rows
-TRAIN_BATCH = 3                   # scripts/train.sh: -b 3
 
 F32_TOL = (1e-5, 1e-5)            # |kernel - plain| ≤ atol + rtol·|plain|
 BF16_TOL = (1e-6, 2.0 ** -7)      # one bf16 rounding apart, 2^-8 relative
@@ -193,37 +188,6 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0]
-
-
-def device_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 3,
-              stream=None) -> float:
-    """Device time of one ``fn()`` in ms: ``iters`` calls captured in one
-    CUDA graph after ``warmup`` calls on a side stream (``stream``, which
-    the capture then uses too, where given), the graph replayed ``reps``
-    times between CUDA events, mean per call.  The replay issues every
-    kernel from the device, so the host's cost of issuing them does not
-    count; gaps between the graph's kernels do.  The L2 is not flushed
-    between calls."""
-    side = stream or torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(warmup):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=stream):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    start, end = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * iters)
 
 
 def call_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -410,12 +374,23 @@ def check_dwgrad(name, x, dz, k, s, pads) -> float:
     return (a - ref).abs().max().item()
 
 
+def _device_kernels(fn) -> Counter:
+    """Launches of each kernel in one ``fn()`` on the card, by name
+    (torch.profiler); empty where the profiler sees no device activity."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return Counter({e.key: e.count for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA})
+
+
 def phase_dwgrad(shapes: Counter) -> dict:
     """The dw-gradient kernel against its plain version at every flagship
     depthwise shape at the training batch, bf16 x on a few, edge cases;
-    returns the count-weighted sums over the 55 stages."""
+    each stage's row also gives its workspace bytes and kernel launches a
+    call; returns the count-weighted sums over the 55 stages."""
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-               bytes_ms=0.0, ops_ms=0.0)
+               bytes_ms=0.0, ops_ms=0.0, workspace_bytes=0)
     max_err = 0.0
     for i, ((h, c, k, s), count) in enumerate(sorted(shapes.items())):
         x, dz, pads = _grad_case((TRAIN_BATCH, h, h, c), k, s, "",
@@ -432,14 +407,22 @@ def phase_dwgrad(shapes: Counter) -> dict:
         ops = 2 * k * k * dz.numel()
         b_ms = nbytes / MEM_BYTES_PER_S * 1e3
         o_ms = ops / F32_FLOP_PER_S * 1e3
+        # the workspace of per-tile partials, and the kernels one call
+        # launches as the profiler sees them
+        ws = 4 * dw._fn("depthwise_dwgrad", "dfd_depthwise_dwgrad_workspace")(
+            TRAIN_BATCH, dz.shape[1], dz.shape[2], c, k)
+        launched = _device_kernels(
+            lambda: dw.depthwise_dwgrad(x, dz, k, s, pads))
         emit(phase="dwgrad_row", h=h, c=c, k=k, stride=s, count=count,
              batch=TRAIN_BATCH, max_abs_err=err, ms=ms, plain_ms=plain,
              library_ms=lib, bound_ms=max(b_ms, o_ms),
              bound_by="bytes" if b_ms >= o_ms else "operations",
-             gbytes_per_s=nbytes / ms / 1e6)
+             gbytes_per_s=nbytes / ms / 1e6, workspace_bytes=ws,
+             kernel_launches_per_call=sum(launched.values()) or
+             "not measured", bound_share=max(b_ms, o_ms) / ms)
         for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                        ("bound_ms", max(b_ms, o_ms)), ("bytes_ms", b_ms),
-                       ("ops_ms", o_ms)):
+                       ("ops_ms", o_ms), ("workspace_bytes", ws)):
             tot[key] += count * v
     for j, (h, c, k, s) in enumerate([(300, 256, 3, 1), (150, 288, 5, 2),
                                       (19, 3840, 3, 1)]):
@@ -450,7 +433,8 @@ def phase_dwgrad(shapes: Counter) -> dict:
              ("C=13 k5 s2 same", (3, 36, 36, 13), 5, 2, "same"),
              ("odd H/W k5 s2 int pad", (3, 31, 45, 24), 5, 2, 1),
              ("same pad k3 s2 even", (3, 40, 40, 64), 3, 2, "same"),
-             ("C=13 bf16 k3 s2 same", (3, 15, 15, 13), 3, 2, "same")]
+             ("C=13 bf16 k3 s2 same", (3, 15, 15, 13), 3, 2, "same"),
+             ("one tile B=1 k5 s1", (1, 7, 9, 13), 5, 1, "")]
     for j, (name, shape, k, s, pad) in enumerate(edges):
         dtype = torch.bfloat16 if "bf16" in name else torch.float32
         x, dz, pads = _grad_case(shape, k, s, pad, dtype, 560 + j)
@@ -970,13 +954,15 @@ def check_flash(name, bh, l, d, seq_len, causal=False, q_off=0, kv_off=0,
                 dtype=torch.float32, seed=0) -> dict:
     """The three flash kernels against their plain versions on the same
     inputs: O elementwise (BF16_TOL for bf16), lse elementwise, dQ, dK and
-    dV within FLASH_GRAD_TOL of their max; two backward calls must agree
-    bitwise; rows that the causal offsets hide must give o = 0 and
-    lse = log(1e-30).  Returns the max absolute error of each kernel and
-    the largest gradient error relative to its max (grad_rel)."""
+    dV within FLASH_GRAD_TOL of their max; two forward and two backward
+    calls must agree bitwise; rows that the causal offsets hide must give
+    o = 0 and lse = log(1e-30).  Returns the max absolute error of each
+    kernel and the largest gradient error relative to its max
+    (grad_rel)."""
     q, k, v, do = _flash_inputs(bh, l, d, dtype, seed)
     args = (d ** -0.5, seq_len, causal, q_off, kv_off)
     o, lse = fa.flash_fwd(q, k, v, *args)
+    o2, lse2 = fa.flash_fwd(q, k, v, *args)
     ro, rlse = fa.flash_fwd_reference(q, k, v, *args)
     delta = (do.float() * o.float()).sum(-1)
     dq = [fa.flash_bwd_dq(q, k, v, do, lse, delta, *args) for _ in range(2)]
@@ -999,6 +985,8 @@ def check_flash(name, bh, l, d, seq_len, causal=False, q_off=0, kv_off=0,
                     rtol=1e-6, atol=0)):
             raise AssertionError(f"{name}: hidden rows give o != 0 or lse "
                                  f"!= log(1e-30)")
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"{name}: two forward calls differ")
     if not (torch.equal(dq[0], dq[1]) and torch.equal(dkv[0][0], dkv[1][0])
             and torch.equal(dkv[0][1], dkv[1][1])):
         raise AssertionError(f"{name}: two backward calls differ")
@@ -1178,30 +1166,31 @@ def phase_flash() -> dict:
                 max_abs_err=dict(errs))
 
 
-_BWD_KERNEL = re.compile(r"(flash_bwd_(?:dq|dkv))_kernelI(f|13__nv_bfloat16)"
-                         r"Li(\d+)E")
+_FLASH_KERNEL = re.compile(r"(flash_(?:fwd|bwd_dq|bwd_dkv))_kernelI"
+                           r"(f|13__nv_bfloat16)Li(\d+)E")
 
 
-def _bwd_kernel_key(mangled: str):
-    m = _BWD_KERNEL.search(mangled)
+def _flash_kernel_key(mangled: str):
+    m = _FLASH_KERNEL.search(mangled)
     return m and f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'},{m[3]}>"
 
 
-def phase_flash_bwd_kernels(libs: dict) -> dict:
-    """For every instantiation of the two backward kernels: ptxas'
-    registers, stack and spills (the build's ``-Xptxas -v`` report), what
-    the card gives it (registers, local bytes, dynamic shared memory,
-    resident blocks per SM: cudaFuncGetAttributes and
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor), and, where the toolkit
-    has ``cuobjdump``, the HMMA (tensor-core) instructions in its SASS.
-    Fails unless dK/dV at f32, D = 64 keeps two blocks on an SM, and (with
-    cuobjdump) every instantiation runs on the tensor cores."""
+def phase_flash_kernels(libs: dict) -> dict:
+    """For every instantiation of the three flash kernels (the forward and
+    the two backward kernels): ptxas' registers, stack and spills (the
+    build's ``-Xptxas -v`` report), what the card gives it (registers, local
+    bytes, dynamic shared memory, resident blocks per SM:
+    cudaFuncGetAttributes and cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    and, where the toolkit has ``cuobjdump``, the HMMA (tensor-core)
+    instructions in its SASS.  Fails unless dK/dV at f32, D = 64 keeps two
+    blocks on an SM, and (with cuobjdump) every instantiation runs on the
+    tensor cores."""
     out = {}
-    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
         key = None
         for line in libs[name].with_suffix(".log").read_text().splitlines():
             if "Compiling entry function" in line:
-                key = _bwd_kernel_key(line)
+                key = _flash_kernel_key(line)
                 if key:
                     out[key] = {}
             elif key and "bytes stack frame" in line:
@@ -1231,12 +1220,12 @@ def phase_flash_bwd_kernels(libs: dict) -> dict:
             key = None
             for line in sass.splitlines():
                 if "Function :" in line:
-                    key = _bwd_kernel_key(line)
+                    key = _flash_kernel_key(line)
                     if key:
                         out[key]["hmma"] = 0
                 elif key and "HMMA" in line:
                     out[key]["hmma"] += 1
-    emit(phase="flash_bwd_kernels", kernels=out)
+    emit(phase="flash_kernels", kernels=out)
     if out["flash_bwd_dkv<f32,64>"]["blocks_per_sm"] < 2:
         raise AssertionError(f"dK/dV at D 64 keeps "
                              f"{out['flash_bwd_dkv<f32,64>']['blocks_per_sm']}"
@@ -1457,7 +1446,7 @@ def main() -> int:
                        .read_text().splitlines() if "registers" in ln]
                 for name, path in libs.items()},
          libraries=[path.name for path in libs.values()])
-    phase_flash_bwd_kernels(libs)
+    phase_flash_kernels(libs)
 
     model = create_deepfake_model_v4(device="cpu")
     shapes = flagship_dw_shapes(model, 600)

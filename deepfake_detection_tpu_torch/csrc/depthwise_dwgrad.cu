@@ -5,28 +5,36 @@
 // Replaces the Pallas TPU kernel deepfake_detection_tpu/ops/depthwise_pallas.py
 // ::_dwgrad_kernel (launched by _dwgrad_call), which carries the k*k x C sum
 // in VMEM scratch across a sequential (batch, row-tile) grid.  Blocks on the
-// card run in no order, so the sum is split in two passes instead:
-//
-// 1. dwgrad_partial: block (c-chunk, pixel tile) walks a contiguous range of
-//    the B*Ho*Wo output pixels.  Threads run along C (threadIdx.x, 4 channels
-//    a thread when C % 4 == 0 and the pointers align, so a warp reads whole
-//    sectors of a pixel's channels), along pixels (threadIdx.y, strided) and
-//    along the k tap rows (threadIdx.z): each thread keeps only the k x V
-//    sums of its tap row in registers (32-56 registers), so several blocks
-//    share an SM even at k = 5.  The block then reduces them over
-//    threadIdx.y with a fixed tree in shared memory, one tap column at a
-//    time, and writes its (k*k, C) partial to the workspace (tiles, k*k, C).
-// 2. dwgrad_sum: one thread per (tap, c) adds the tiles in order.
-//
-// No atomics: the order of every sum depends only on the shapes, so two
-// calls give bitwise-equal dw.  The halo is handled by bounds checks on x;
-// no padded copy of x is made.  All offsets are 64-bit.
+// card run in no order, so the sum is split in two passes instead.
 //
 // What bounds it on an H100: memory.  It must read x and dz once each:
 // 2*k*k FLOP per dz element against 8 bytes (f32 x and dz at stride 1),
 // 2.25 FLOP per byte at k = 3 and 6.25 at k = 5, under the card's f32 ratio
-// of 67 TFLOP/s to 3.35 TB/s = 20.  Reuse of x across taps comes from L1/L2;
-// shared-memory halo tiles are later work.
+// of 67 TFLOP/s to 3.35 TB/s = 20.  So the design reads each value of x and
+// dz from device memory about once and keeps the reuse on the SM:
+//
+// 1. dwgrad_partial: block (channel strip, tile) owns 32 channels of one
+//    image's band of output rows and one segment of at most 32 output
+//    columns.  It walks the band's rows in order; for each row it stages
+//    the dz row segment and the x rows the row's taps read (the segment's
+//    columns with their halo, zero past the edges of x) in shared memory by
+//    cp.async, kAhead rows ahead, x in a ring of k + kAhead*S rows, so each
+//    x row arrives once for the band.  A thread owns 4 channels, one tap row
+//    r (threadIdx.z) and a contiguous run of the segment's output columns
+//    (threadIdx.y): it slides a window of the k x vectors of its tap row
+//    along the run, so each output pixel costs one dz load and S x loads
+//    from shared memory for k vector FMAs, and keeps its k x 4 sums in
+//    registers for the whole band.  At the end the block adds its threads'
+//    sums over the column runs in a fixed order and writes its (k*k, 32)
+//    partial to the workspace (tiles, k*k, C).
+// 2. dwgrad_sum: 32 threads per (tap, c) add the tiles in a fixed order.
+//
+// The tiles (image, band, segment) are planned from the shapes to fill
+// about two waves of the card's SMs.  No atomics: the order of every sum
+// depends only on the shapes, so two calls give bitwise-equal dw.  All
+// offsets into x and dz are 64-bit.  On an H100 80GB HBM3 (700 W) the
+// flagship's 55 stages at batch 3 take 2.59 ms against a 1.08 ms bytes
+// bound; the k = 5 stages at 19^2-75^2 (8-10-row bands) lag most.
 //
 // Built with nvcc into a shared library with a plain C interface and loaded
 // through ctypes by deepfake_detection_tpu_torch/ops/depthwise.py.
@@ -34,148 +42,231 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <string.h>
+
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;            // the second pass
-constexpr int kPixelThreads = 128;       // threadIdx.x * threadIdx.y
-constexpr int kMaxThreads = 5 * kPixelThreads;   // times k tap rows
-constexpr int64_t kTargetBlocks = 1024;   // blocks of the first pass
-constexpr int64_t kMinTilePixels = 32;
+constexpr int kSumLanes = 32;           // the second pass: threads a sum
+constexpr int kCW = 32;                 // channels a block
+constexpr int kTX = kCW / 4;            // threads along the channels
+constexpr int kRuns = 4;                // threads along a segment's columns
+constexpr int kSeg = 32;                // most output columns a segment
+constexpr int kAhead = 2;               // rows staged ahead
+constexpr int64_t kTargetBlocks = 2 * 132 * 3;  // ~2 waves, 3 blocks an SM
+constexpr int64_t kMinBandRows = 8;
 
-template <typename T, int V> struct Load;
-
-template <> struct Load<float, 1> {
-  static __device__ __forceinline__ void run(const float* p, float (&o)[1]) {
-    o[0] = __ldg(p);
-  }
+// The tiling depends on the shapes only (not on the stride or the vector
+// path), so the workspace query and the launch agree.
+struct Plan {
+  int64_t strips, segs, seg_cols, bands, band_rows;
+  // tiles per image
+  __host__ __device__ int64_t tiles() const { return segs * bands; }
 };
 
-template <> struct Load<float, 4> {
-  static __device__ __forceinline__ void run(const float* p, float (&o)[4]) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-  }
-};
-
-template <> struct Load<__nv_bfloat16, 1> {
-  static __device__ __forceinline__ void run(const __nv_bfloat16* p,
-                                             float (&o)[1]) {
-    o[0] = __bfloat162float(p[0]);
-  }
-};
-
-template <> struct Load<__nv_bfloat16, 4> {
-  static __device__ __forceinline__ void run(const __nv_bfloat16* p,
-                                             float (&o)[4]) {
-    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-    __nv_bfloat162 lo, hi;
-    memcpy(&lo, &raw.x, sizeof(lo));
-    memcpy(&hi, &raw.y, sizeof(hi));
-    const float2 a = __bfloat1622float2(lo);
-    const float2 b = __bfloat1622float2(hi);
-    o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
-  }
-};
-
-// The tiling depends on the shapes only (not on the vector width), so the
-// workspace query and the launch agree.
-struct Tiles {
-  int64_t count;
-  int64_t pixels;  // output pixels per tile
-};
-
-Tiles plan_tiles(int64_t B, int64_t Ho, int64_t Wo, int64_t C) {
-  const int64_t P = B * Ho * Wo;
-  int64_t chunks = C / 128;
-  if (chunks < 1) chunks = 1;
-  int64_t count = kTargetBlocks / chunks;
-  const int64_t most = P / kMinTilePixels;
-  if (count > most) count = most;
-  if (count < 1) count = 1;
-  const int64_t pixels = (P + count - 1) / count;
-  return Tiles{pixels > 0 ? (P + pixels - 1) / pixels : 1,
-               pixels > 0 ? pixels : 1};
+Plan plan(int64_t B, int64_t Ho, int64_t Wo, int64_t C) {
+  Plan p;
+  p.strips = (C + kCW - 1) / kCW;
+  p.segs = (Wo + kSeg - 1) / kSeg;
+  p.seg_cols = (Wo + p.segs - 1) / p.segs;
+  int64_t bands = (kTargetBlocks + p.strips * B * p.segs - 1) /
+                  (p.strips * B * p.segs);
+  int64_t rows = (Ho + bands - 1) / bands;
+  if (rows < kMinBandRows) rows = kMinBandRows;
+  if (rows > Ho) rows = Ho;
+  p.band_rows = rows;
+  p.bands = (Ho + rows - 1) / rows;
+  return p;
 }
 
-template <typename T, int K, int S, int V>
-__global__ void __launch_bounds__(kMaxThreads)
-dwgrad_partial(const T* __restrict__ x, const float* __restrict__ dz,
-               float* __restrict__ ws, int64_t B, int64_t H, int64_t W,
-               int64_t C, int64_t Ho, int64_t Wo, int pad_top, int pad_left,
-               int64_t tile_pixels) {
-  extern __shared__ float red[];  // (K, blockDim.y, blockDim.x, V)
-  const int tc = blockDim.x, tp = blockDim.y;
-  const int tx = threadIdx.x, ty = threadIdx.y, r = threadIdx.z;
-  const int64_t c0 = ((int64_t)blockIdx.x * tc + tx) * V;
-  const bool active = c0 < C;
-  const int64_t P = B * Ho * Wo;
-  const int64_t p_begin = (int64_t)blockIdx.y * tile_pixels;
-  int64_t p_end = p_begin + tile_pixels;
-  if (p_end > P) p_end = P;
+// Floats of shared memory the first pass uses: the x ring, the dz rows and,
+// after them, the reduction over the column runs.
+template <int K, int S>
+constexpr int64_t kXCols = (kSeg - 1) * S + K;
+template <int K, int S>
+constexpr int64_t kRing = K + kAhead * S;
+template <int K, int S>
+constexpr int64_t smem_floats() {
+  const int64_t stage = (kRing<K, S> * kXCols<K, S> + (kAhead + 1) * kSeg) *
+                        kCW;
+  const int64_t red = (int64_t)K * K * kRuns * kCW;
+  return stage > red ? stage : red;
+}
 
-  float acc[K][V];
+// Stages n pixels of one row into dst ([n][32] floats): pixel i is column
+// col0 + i of the row at src (a (W, C) row of x or dz), channels
+// [c0, c0 + 32); zeros where the row is outside (row_in false), the column
+// outside [0, W) or the channel past C.  vec: 16-byte copies (C % 4 == 0 and
+// 16-byte aligned bases); else 4-byte copies; bf16 is widened by the threads.
+__device__ __forceinline__ void stage_row(float* dst, const float* src,
+                                          bool row_in, int64_t col0, int n,
+                                          int64_t W, int64_t C, int64_t c0,
+                                          bool vec, int tid, int nt) {
+  if (vec) {
+    for (int i = tid; i < n * kTX; i += nt) {
+      const int p = i / kTX, ch = i % kTX * 4;
+      const int64_t w = col0 + p;
+      const bool in = row_in && w >= 0 && w < W && c0 + ch < C;
+      sm90::cp_async16(dst + p * kCW + ch, in ? src + w * C + c0 + ch : src,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < n * kCW; i += nt) {
+      const int p = i / kCW, ch = i % kCW;
+      const int64_t w = col0 + p;
+      const bool in = row_in && w >= 0 && w < W && c0 + ch < C;
+      sm90::cp_async4(dst + p * kCW + ch, in ? src + w * C + c0 + ch : src,
+                in ? 4 : 0);
+    }
+  }
+}
+
+__device__ __forceinline__ void stage_row(float* dst,
+                                          const __nv_bfloat16* src,
+                                          bool row_in, int64_t col0, int n,
+                                          int64_t W, int64_t C, int64_t c0,
+                                          bool, int tid, int nt) {
+  for (int i = tid; i < n * kCW; i += nt) {
+    const int p = i / kCW, ch = i % kCW;
+    const int64_t w = col0 + p;
+    const bool in = row_in && w >= 0 && w < W && c0 + ch < C;
+    dst[p * kCW + ch] = in ? __bfloat162float(src[w * C + c0 + ch]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+template <typename T, int K, int S>
+__global__ void __launch_bounds__(kTX * kRuns * K)
+dwgrad_partial(const T* __restrict__ x, const float* __restrict__ dz,
+               float* __restrict__ ws, int64_t H, int64_t W, int64_t C,
+               int64_t Ho, int64_t Wo, int pad_top, int pad_left, Plan p,
+               int vec_x, int vec_dz) {
+  constexpr int XC = kXCols<K, S>, NR = kRing<K, S>;
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);  // [NR][XC][32]
+  float* dzs = xs + NR * XC * kCW;               // [kAhead + 1][kSeg][32]
+  const int tx = threadIdx.x, run = threadIdx.y, r = threadIdx.z;
+  const int tid = (r * kRuns + run) * kTX + tx, nt = kTX * kRuns * K;
+
+  // the tile: image b, band of output rows [h0, h1), segment of output
+  // columns [w0, w0 + ncols)
+  const int64_t c0 = (int64_t)blockIdx.x * kCW;
+  const int64_t tile = blockIdx.y;
+  const int64_t b = tile / p.tiles(), rest = tile % p.tiles();
+  const int64_t band = rest / p.segs, seg = rest % p.segs;
+  const int64_t h0 = band * p.band_rows;
+  const int64_t h1 = h0 + p.band_rows < Ho ? h0 + p.band_rows : Ho;
+  const int64_t w0 = seg * p.seg_cols;
+  const int ncols = (int)(w0 + p.seg_cols < Wo ? p.seg_cols : Wo - w0);
+  const int nx = (ncols - 1) * S + K;       // x columns the segment reads
+  const int64_t xcol0 = w0 * S - pad_left;
+  const int64_t xrow0 = h0 * S - pad_top;   // x row of ring row 0
+
+  // the thread's run of output columns [j0, j1) of the segment
+  const int per = (ncols + kRuns - 1) / kRuns;
+  const int j0 = run * per, j1 = j0 + per < ncols ? j0 + per : ncols;
+
+  // stages ring rows [lo, hi) and dz row i (relative to h0)
+  auto stage = [&](int i, int64_t lo, int64_t hi) {
+    for (int64_t rr = lo; rr < hi; ++rr) {
+      const int64_t xr = xrow0 + rr;
+      const bool in = xr >= 0 && xr < H;
+      stage_row(xs + (rr % NR) * XC * kCW,
+                x + (b * H + (in ? xr : 0)) * W * C, in, xcol0, nx, W, C, c0,
+                vec_x, tid, nt);
+    }
+    stage_row(dzs + (i % (kAhead + 1)) * kSeg * kCW,
+              dz + (b * Ho + h0 + i) * Wo * C, true, w0, ncols, Wo, C, c0,
+              vec_dz, tid, nt);
+  };
+
+  float acc[K][4];
 #pragma unroll
   for (int s = 0; s < K; ++s)
 #pragma unroll
-    for (int v = 0; v < V; ++v) acc[s][v] = 0.0f;
+    for (int v = 0; v < 4; ++v) acc[s][v] = 0.f;
 
-  if (active) {
-    for (int64_t p = p_begin + ty; p < p_end; p += tp) {
-      const int64_t wo = p % Wo;
-      const int64_t rest = p / Wo;
-      const int64_t ho = rest % Ho;
-      const int64_t b = rest / Ho;
-      const int64_t hi = ho * S - pad_top + r;
-      if (hi < 0 || hi >= H) continue;
-      float g[V];
-      Load<float, V>::run(dz + p * C + c0, g);
-      const T* xrow = x + (b * H + hi) * W * C + c0;
-      const int64_t wi0 = wo * S - pad_left;
+  const int rows = (int)(h1 - h0);
+  // row i reads ring rows [i S, i S + K): row 0 brings K, each later one S
+  stage(0, 0, K);
+  sm90::cp_async_commit();
 #pragma unroll
-      for (int s = 0; s < K; ++s) {
-        const int64_t wi = wi0 + s;
-        if (wi < 0 || wi >= W) continue;
-        float xv[V];
-        Load<T, V>::run(xrow + wi * C, xv);
+  for (int i = 1; i < kAhead; ++i) {
+    if (i < rows) stage(i, (int64_t)i * S + K - S, (int64_t)i * S + K);
+    sm90::cp_async_commit();
+  }
+  for (int i = 0; i < rows; ++i) {
+    const int ia = i + kAhead;
+    if (ia < rows) stage(ia, (int64_t)ia * S + K - S, (int64_t)ia * S + K);
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<kAhead>();
+    __syncthreads();
+
+    const int64_t xr = xrow0 + (int64_t)i * S + r;
+    if (xr >= 0 && xr < H && j0 < j1) {
+      const float* xrow = xs + (((int64_t)i * S + r) % NR) * XC * kCW + 4 * tx;
+      const float* drow = dzs + (i % (kAhead + 1)) * kSeg * kCW + 4 * tx;
+      float4 win[K];
 #pragma unroll
-        for (int v = 0; v < V; ++v) acc[s][v] = fmaf(g[v], xv[v], acc[s][v]);
+      for (int s = 0; s < K; ++s) win[s] = ld4(xrow + (j0 * S + s) * kCW);
+      for (int j = j0;;) {
+        const float4 g = ld4(drow + j * kCW);
+#pragma unroll
+        for (int s = 0; s < K; ++s) {
+          acc[s][0] = fmaf(g.x, win[s].x, acc[s][0]);
+          acc[s][1] = fmaf(g.y, win[s].y, acc[s][1]);
+          acc[s][2] = fmaf(g.z, win[s].z, acc[s][2]);
+          acc[s][3] = fmaf(g.w, win[s].w, acc[s][3]);
+        }
+        if (++j == j1) break;
+#pragma unroll
+        for (int s = 0; s < K - S; ++s) win[s] = win[s + S];
+#pragma unroll
+        for (int s = K - S; s < K; ++s) win[s] = ld4(xrow + (j * S + s) * kCW);
       }
     }
+    __syncthreads();  // this row's slots are read before they refill
   }
 
-  float* mine = red + (((int64_t)r * tp + ty) * tc + tx) * V;
+  // sums over the column runs, in order
+  sm90::cp_async_wait<0>();
+  float* red = xs;  // [K][K][kRuns][32]
 #pragma unroll
-  for (int s = 0; s < K; ++s) {
+  for (int s = 0; s < K; ++s)
 #pragma unroll
-    for (int v = 0; v < V; ++v) mine[v] = acc[s][v];
-    __syncthreads();
-    for (int half = tp / 2; half > 0; half /= 2) {  // fixed tree over ty
-      if (ty < half) {
-        const float* other = mine + (int64_t)half * tc * V;
-#pragma unroll
-        for (int v = 0; v < V; ++v) mine[v] += other[v];
-      }
-      __syncthreads();
-    }
-    if (ty == 0 && active) {
-      float* out = ws + ((int64_t)blockIdx.y * K * K + r * K + s) * C + c0;
-#pragma unroll
-      for (int v = 0; v < V; ++v) out[v] = mine[v];
-    }
-    __syncthreads();
+    for (int v = 0; v < 4; ++v)
+      red[((r * K + s) * kRuns + run) * kCW + 4 * tx + v] = acc[s][v];
+  __syncthreads();
+  for (int i = tid; i < K * K * kCW; i += nt) {
+    const int rs = i / kCW, ch = i % kCW;
+    if (c0 + ch >= C) continue;
+    float sum = 0.f;
+    for (int u = 0; u < kRuns; ++u) sum += red[(rs * kRuns + u) * kCW + ch];
+    ws[(tile * K * K + rs) * C + c0 + ch] = sum;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// dw[i] = the sum over the tiles of ws[t][i], in a fixed order: thread
+// (x, y) of a block adds tiles y, y + L, y + 2L, ... (L = blockDim.y) of
+// output 32 blockIdx.x + x, then the L partial sums are added in order.
+__global__ void __launch_bounds__(32 * kSumLanes)
 dwgrad_sum(const float* __restrict__ ws, float* __restrict__ dw, int64_t n,
            int64_t tiles) {
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    float s = 0.0f;
-    for (int64_t t = 0; t < tiles; ++t) s += ws[t * n + i];
-    dw[i] = s;
+  __shared__ float part[kSumLanes][33];
+  const int x = threadIdx.x, y = threadIdx.y, lanes = blockDim.y;
+  const int64_t i = blockIdx.x * 32LL + x;
+  float s = 0.f;
+  if (i < n)
+    for (int64_t t = y; t < tiles; t += lanes) s += ws[t * n + i];
+  part[y][x] = s;
+  __syncthreads();
+  if (y == 0 && i < n) {
+    float sum = 0.f;
+    for (int u = 0; u < lanes; ++u) sum += part[u][x];
+    dw[i] = sum;
   }
 }
 
@@ -186,48 +277,42 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int K, int S, int V>
-cudaError_t launch(const Args& a) {
-  const int64_t n = (int64_t)K * K * a.C;
-  if (a.B * a.Ho * a.Wo == 0)
-    return cudaMemsetAsync(a.dw, 0, n * sizeof(float), a.stream);
-  const Tiles tiles = plan_tiles(a.B, a.Ho, a.Wo, a.C);
-  const int64_t cv = (a.C + V - 1) / V;
-  int tc = 1;
-  while (tc < 32 && tc < cv) tc *= 2;
-  const int tp = kPixelThreads / tc;
-  const dim3 grid((unsigned)((cv + tc - 1) / tc), (unsigned)tiles.count);
-  const dim3 block(tc, tp, K);
-  const size_t smem = (size_t)K * tc * tp * V * sizeof(float);
-  dwgrad_partial<T, K, S, V><<<grid, block, smem, a.stream>>>(
-      static_cast<const T*>(a.x), a.dz, a.ws, a.B, a.H, a.W, a.C, a.Ho, a.Wo,
-      a.pad_top, a.pad_left, tiles.pixels);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  int64_t blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 65535) blocks = 65535;  // the loop strides over the rest
-  dwgrad_sum<<<(unsigned)blocks, kThreads, 0, a.stream>>>(a.ws, a.dw, n,
-                                                          tiles.count);
-  return cudaGetLastError();
-}
-
 bool aligned(const void* p, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 template <typename T, int K, int S>
-cudaError_t launch_vec(const Args& a) {
-  const bool vec = a.C % 4 == 0 && aligned(a.x, 4 * sizeof(T)) &&
-                   aligned(a.dz, 16) && aligned(a.ws, 16);
-  return vec ? launch<T, K, S, 4>(a) : launch<T, K, S, 1>(a);
+cudaError_t launch(const Args& a) {
+  const int64_t n = (int64_t)K * K * a.C;
+  if (a.B * a.Ho * a.Wo == 0)
+    return cudaMemsetAsync(a.dw, 0, n * sizeof(float), a.stream);
+  const Plan p = plan(a.B, a.Ho, a.Wo, a.C);
+  const int64_t tiles = a.B * p.tiles();
+  constexpr size_t smem = smem_floats<K, S>() * sizeof(float);
+  static bool configured = false;
+  cudaError_t err = sm90::configure(dwgrad_partial<T, K, S>, configured, smem);
+  if (err != cudaSuccess) return err;
+  const bool vec_dz = a.C % 4 == 0 && aligned(a.dz, 16);
+  const bool vec_x = vec_dz && aligned(a.x, 16);  // f32 x only
+  const dim3 grid((unsigned)p.strips, (unsigned)tiles);
+  const dim3 block(kTX, kRuns, K);
+  dwgrad_partial<T, K, S><<<grid, block, smem, a.stream>>>(
+      static_cast<const T*>(a.x), a.dz, a.ws, a.H, a.W, a.C, a.Ho, a.Wo,
+      a.pad_top, a.pad_left, p, vec_x, vec_dz);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 sum_block(32, (unsigned)(tiles < kSumLanes ? tiles : kSumLanes));
+  dwgrad_sum<<<(unsigned)((n + 31) / 32), sum_block, 0, a.stream>>>(
+      a.ws, a.dw, n, tiles);
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_ks(const Args& a, int k, int stride) {
-  if (k == 3 && stride == 1) return launch_vec<T, 3, 1>(a);
-  if (k == 3 && stride == 2) return launch_vec<T, 3, 2>(a);
-  if (k == 5 && stride == 1) return launch_vec<T, 5, 1>(a);
-  if (k == 5 && stride == 2) return launch_vec<T, 5, 2>(a);
+  if (k == 3 && stride == 1) return launch<T, 3, 1>(a);
+  if (k == 3 && stride == 2) return launch<T, 3, 2>(a);
+  if (k == 5 && stride == 1) return launch<T, 5, 1>(a);
+  if (k == 5 && stride == 2) return launch<T, 5, 2>(a);
   return cudaErrorInvalidValue;
 }
 
@@ -237,7 +322,8 @@ cudaError_t launch_ks(const Args& a, int k, int stride) {
 extern "C" int64_t dfd_depthwise_dwgrad_workspace(int64_t B, int64_t Ho,
                                                   int64_t Wo, int64_t C,
                                                   int k) {
-  return plan_tiles(B, Ho, Wo, C).count * k * k * C;
+  if (B * Ho * Wo == 0) return 0;
+  return B * plan(B, Ho, Wo, C).tiles() * k * k * C;
 }
 
 // x (B, H, W, C) in dtype 0 = float32 or 1 = bfloat16; dz (B, Ho, Wo, C)

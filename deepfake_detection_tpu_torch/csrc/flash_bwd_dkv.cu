@@ -36,7 +36,7 @@ constexpr size_t dkv_smem() {
 }
 
 template <typename T, int DT>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kBlockThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
@@ -47,7 +47,7 @@ __global__ void __launch_bounds__(kBwdThreads)
   constexpr bool kX = kExact<T>;
   constexpr int TS = kTileFloats<DT>;
   constexpr int NS = kSub / 8, ND = DT / 8;
-  static_assert(kBwdThreads == 2 * kTile, "one lse or delta a thread");
+  static_assert(kBlockThreads == 2 * kTile, "one lse or delta a thread");
   float* Ks = sm90::dyn_smem();
   float* Vs = Ks + TS;
   float* Qs = Vs + TS;        // [2 stages][TS]
@@ -150,7 +150,7 @@ template <typename T, int DT>
 cudaError_t run(const Args& a) {
   const dim3 grid((a.Lk + kTile - 1) / kTile, a.BH);
   return launch(flash_bwd_dkv_kernel<T, DT>, configured<T, DT>(), grid,
-                kBwdThreads, dkv_smem<DT>(), a.stream,
+                kBlockThreads, dkv_smem<DT>(), a.stream,
                 static_cast<const T*>(a.q), static_cast<const T*>(a.k),
                 static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
                 a.lse, a.delta, static_cast<float*>(a.out0),
@@ -162,7 +162,7 @@ cudaError_t run(const Args& a) {
 template <typename T, int DT>
 cudaError_t info(int* out) {
   return kernel_info(flash_bwd_dkv_kernel<T, DT>, configured<T, DT>(),
-                     kBwdThreads, dkv_smem<DT>(), out);
+                     kBlockThreads, dkv_smem<DT>(), out);
 }
 
 template <typename T>

@@ -34,7 +34,7 @@ constexpr size_t dq_smem() {
 }
 
 template <typename T, int DT>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kBlockThreads)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
@@ -145,7 +145,7 @@ template <typename T, int DT>
 cudaError_t run(const Args& a) {
   const dim3 grid((a.Lq + kTile - 1) / kTile, a.BH);
   return launch(flash_bwd_dq_kernel<T, DT>, configured<T, DT>(), grid,
-                kBwdThreads, dq_smem<DT>(), a.stream,
+                kBlockThreads, dq_smem<DT>(), a.stream,
                 static_cast<const T*>(a.q), static_cast<const T*>(a.k),
                 static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
                 a.lse, a.delta, static_cast<float*>(a.out0), a.Lq, a.Lk, a.D,
@@ -156,7 +156,7 @@ cudaError_t run(const Args& a) {
 template <typename T, int DT>
 cudaError_t info(int* out) {
   return kernel_info(flash_bwd_dq_kernel<T, DT>, configured<T, DT>(),
-                     kBwdThreads, dq_smem<DT>(), out);
+                     kBlockThreads, dq_smem<DT>(), out);
 }
 
 template <typename T>

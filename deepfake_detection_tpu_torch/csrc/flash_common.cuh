@@ -14,6 +14,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace flash {
 
 constexpr int kTile = 64;
@@ -56,24 +58,12 @@ inline int head_tile(int D) {
   return D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 0;
 }
 
-// Raises the kernel's dynamic shared-memory limit to `smem` bytes once
-// (`configured`, one flag per kernel instantiation), so that later
-// launches, which a CUDA graph may capture, are launches only.
-template <typename Kernel>
-cudaError_t configure(Kernel kernel, bool& configured, size_t smem) {
-  if (configured) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) configured = true;
-  return err;
-}
-
 // Launches `threads` threads a block with `smem` bytes of dynamic shared
 // memory.
 template <typename Kernel, typename... A>
 cudaError_t launch(Kernel kernel, bool& configured, dim3 grid, int threads,
                    size_t smem, cudaStream_t stream, A... args) {
-  const cudaError_t err = configure(kernel, configured, smem);
+  const cudaError_t err = sm90::configure(kernel, configured, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
@@ -85,7 +75,7 @@ cudaError_t launch(Kernel kernel, bool& configured, dim3 grid, int threads,
 template <typename Kernel>
 cudaError_t kernel_info(Kernel kernel, bool& configured, int threads,
                         size_t smem, int* out) {
-  cudaError_t err = configure(kernel, configured, smem);
+  cudaError_t err = sm90::configure(kernel, configured, smem);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, kernel);

@@ -1,6 +1,6 @@
-// The flash backward's f32-accurate tensor-core pieces (flash_bwd_dq.cu,
-// flash_bwd_dkv.cu): staged tiles, fragments, and products as three TF32
-// products.
+// The flash kernels' f32-accurate tensor-core pieces (flash_fwd.cu,
+// flash_bwd_dq.cu, flash_bwd_dkv.cu): staged tiles, fragments, and products
+// as three TF32 products.
 //
 // Products.  Hopper's tensor cores take f32 only as TF32 (a 10-bit
 // mantissa).  Each f32 operand x is split into big = x rounded to TF32
@@ -35,7 +35,7 @@
 //     same products, a [n][k] tile);
 //   - the 4-byte reads of rows 2t and 2t + 1 (t = lane % 4) at column
 //     n0 + lane / 4 for an operand contracted along its rows (dO and q in
-//     dV = P^T dO and dK = dS^T q, k in dQ = dS k);
+//     dV = P^T dO and dK = dS^T q, k in dQ = dS k, v in O = P v);
 // and leaves every fragment at a fixed offset from the thread's base.
 // f32 tiles arrive by cp.async (16 bytes where D % 4 == 0 and the base is
 // 16-byte aligned, else 4 bytes), zero-filled past the rows and past D;
@@ -56,48 +56,14 @@
 #include <type_traits>
 
 #include "flash_common.cuh"
+#include "sm90.cuh"
 
-namespace flash {
-
-constexpr int kBwdThreads = 128;  // 4 warps of 16 rows
-constexpr int kSub = 32;          // rows of the second product a pass
-
-// What the card offers the backward, as PTX.
+// What else the flash kernels take from the card, as PTX.
 namespace sm90 {
 
 __device__ __forceinline__ float* dyn_smem() {
   extern __shared__ float4 smem4[];
   return reinterpret_cast<float*>(smem4);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global src to shared dst, the last 16 - bytes zero-filled.
-__device__ __forceinline__ void cp_async16(float* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-
-// 4 bytes, or a zero where bytes == 0.
-__device__ __forceinline__ void cp_async4(float* dst, const void* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Waits until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Four 8 x 4 f32 matrices (8 rows of 16 bytes each, row addresses from
@@ -127,6 +93,11 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
 }
 
 }  // namespace sm90
+
+namespace flash {
+
+constexpr int kBlockThreads = 128;  // 4 warps of 16 rows
+constexpr int kSub = 32;            // rows of the second product a pass
 
 template <typename T>
 constexpr bool kExact = std::is_same<T, __nv_bfloat16>::value;
@@ -169,14 +140,14 @@ template <int DT>
 __device__ __forceinline__ void stage_tile(float* dst, const float* src,
                                            int rows, int D, bool vec) {
   if (vec) {
-    for (int i = threadIdx.x; i < kTile * DT / 4; i += kBwdThreads) {
+    for (int i = threadIdx.x; i < kTile * DT / 4; i += kBlockThreads) {
       const int r = i / (DT / 4), c = i % (DT / 4) * 4;
       const bool in = r < rows && c < D;
       sm90::cp_async16(dst + at<DT>(r, c),
                        in ? src + (int64_t)r * D + c : src, in ? 16 : 0);
     }
   } else {
-    for (int i = threadIdx.x; i < kTile * DT; i += kBwdThreads) {
+    for (int i = threadIdx.x; i < kTile * DT; i += kBlockThreads) {
       const int r = i / DT, c = i % DT;
       const bool in = r < rows && c < D;
       sm90::cp_async4(dst + at<DT>(r, c),
@@ -189,7 +160,7 @@ template <int DT>
 __device__ __forceinline__ void stage_tile(float* dst,
                                            const __nv_bfloat16* src, int rows,
                                            int D, bool) {
-  for (int i = threadIdx.x; i < kTile * DT; i += kBwdThreads) {
+  for (int i = threadIdx.x; i < kTile * DT; i += kBlockThreads) {
     const int r = i / DT, c = i % DT;
     dst[at<DT>(r, c)] =
         r < rows && c < D ? to_f32(src[(int64_t)r * D + c]) : 0.f;

@@ -13,6 +13,8 @@ Pallas kernel cannot be traced by this jax version; see ROADMAP.)
 * ``depthwise_backward``, the glue the CUDA autograd node runs (epilogue
   cotangents, dz dilation, dx padding), with the plain versions of its two
   device ops passed in, gives autograd's gradients.
+* A numpy model of the CUDA dw-gradient kernel's partition and summation
+  order gives the plain version's and JAX's dw.
 
 Inputs are seeded numpy, f32, unit scale.  Tolerance: each gradient within
 1e-5 of its own max |·| (f32 sums of a few hundred products taken in
@@ -209,3 +211,110 @@ def test_backward_glue_beyond_k_minus_1_matches_jax_vjp(stride, epilogue,
     names = ("dx", "dw", "dscale", "dbias") if affine else ("dx", "dw")
     for name, a, b in zip(names, got, want):
         _close(a.numpy(), b, name)
+
+
+# The CUDA dw-gradient kernel's partition (csrc/depthwise_dwgrad.cu): strips
+# of 32 channels; tiles of (image, band of output rows, segment of at most 32
+# output columns) planned to fill about 2 * 132 * 3 blocks, bands of at least
+# 8 rows; 4 runs of columns a segment
+_CW, _RUNS, _SEG, _TARGET, _MIN_ROWS = 32, 4, 32, 2 * 132 * 3, 8
+
+
+def _dwgrad_plan(b, ho, wo, c):
+    """(segments, columns a segment, bands, rows a band), as ``plan``."""
+    strips = -(-c // _CW)
+    segs = -(-wo // _SEG)
+    seg_cols = -(-wo // segs)
+    bands = -(-_TARGET // (strips * b * segs))
+    rows = min(max(-(-ho // bands), _MIN_ROWS), ho)
+    return segs, seg_cols, -(-ho // rows), rows
+
+
+def _dwgrad_model(x, dz, k, stride, pads):
+    """dw in the kernel's order, in numpy f32: per tile and tap row r, each
+    run of output columns walks the band's rows in order and its columns in
+    order, a window of the k x values of row ``h·s + r − top`` (zero outside
+    x) times dz added by fused multiply-adds (exact products in double, one
+    f32 rounding); the runs' sums added in order 0..3, then the tiles' by
+    the second pass."""
+    b, h, w, c = x.shape
+    _, ho, wo, _ = dz.shape
+    top, left = pads[0], pads[2]
+    segs, seg_cols, bands, rows = _dwgrad_plan(b, ho, wo, c)
+    partials = []
+    for bi in range(b):
+        for band in range(bands):
+            for seg in range(segs):
+                h0, w0 = band * rows, seg * seg_cols
+                ncols = min(seg_cols, wo - w0)
+                per = -(-ncols // _RUNS)
+                runs = np.zeros((_RUNS, k, k, c), np.float32)
+                for hq in range(h0, min(h0 + rows, ho)):
+                    for r in range(k):
+                        xr = hq * stride - top + r
+                        if not 0 <= xr < h:
+                            continue
+                        for u in range(_RUNS):
+                            j1 = min(w0 + (u + 1) * per, w0 + ncols)
+                            for j in range(w0 + u * per, j1):
+                                g = dz[bi, hq, j].astype(np.float64)
+                                for s in range(k):
+                                    xc = j * stride - left + s
+                                    xv = x[bi, xr, xc] if 0 <= xc < w else 0
+                                    runs[u, r, s] = (runs[u, r, s] + g * xv
+                                                     ).astype(np.float32)
+                tile = np.zeros((k, k, c), np.float32)
+                for u in range(_RUNS):
+                    tile = tile + runs[u]
+                partials.append(tile)
+    # the second pass: lane y of 32 adds tiles y, y + 32, ... in order, then
+    # the lanes' sums are added in order
+    lanes = min(len(partials), 32)
+    dw = np.zeros_like(partials[0])
+    for y in range(lanes):
+        lane = np.zeros_like(dw)
+        for tile in partials[y::lanes]:
+            lane = lane + tile
+        dw = dw + lane
+    return dw
+
+
+@pytest.mark.parametrize("shape", [(2, 19, 37, 13), (1, 7, 9, 13)])
+@pytest.mark.parametrize("pad", ["", "same", 1])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("k", [3, 5])
+def test_dwgrad_kernel_partition_matches_plain_and_jax(k, stride, pad, shape):
+    """The CUDA dw-gradient kernel's partition and summation order
+    (:func:`_dwgrad_model`: bands, segments, tap rows, the halo and the
+    stride-2 edges as zeros, the fixed-order sums) against the plain
+    version and ``jax.vjp``'s dw, within 1e-5 of dw's max.  C = 13 and odd
+    H/W; at (2, 19, 37) stride 1 the 37 output columns make two segments
+    and the 19 rows three bands (12 tiles), at (1, 7, 9) one tile, which
+    the second pass adds to zero."""
+    _check_partition(k, stride, pad, shape)
+
+
+def test_dwgrad_kernel_partition_more_tiles_than_lanes():
+    """54 tiles (3 images × 3 segments × 6 bands): the second pass adds them
+    in 32 lanes, then the lanes in order."""
+    assert 3 * np.prod(_dwgrad_plan(3, 41, 70, 13)[::2]) == 54
+    _check_partition(3, 1, "", (3, 41, 70, 13))
+
+
+def _check_partition(k, stride, pad, shape):
+    seed = 11 * k + 5 * stride + shape[1] + len(str(pad))
+    x, _, _, _ = _inputs(k, shape, seed)
+    pads = tops.explicit_padding(pad, (k, k), 1, stride, shape[1], shape[2])
+    one, zero = np.float32(1.0), np.float32(0.0)
+    y, vjp = jax.vjp(lambda w_: _xla(k, stride, pads, "none")(
+        jnp.asarray(x), w_, one, zero), jnp.zeros((k, k, shape[3])))
+    dz = np.random.default_rng(seed).standard_normal(y.shape).astype(
+        np.float32)
+    (want,) = vjp(jnp.asarray(dz))
+    got = _dwgrad_model(x, dz, k, stride, pads)
+    plain = tdw.depthwise_dwgrad_reference(torch.from_numpy(x),
+                                           torch.from_numpy(dz), k, stride,
+                                           pads).numpy()
+    assert got.dtype == np.float32 and got.shape == (k, k, shape[3])
+    _close(got, plain, "dw vs plain")
+    _close(got, want, "dw vs jax.vjp")

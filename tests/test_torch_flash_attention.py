@@ -19,7 +19,12 @@ which take the plain PyTorch versions of its three CUDA kernels.
   splits of each f32 operand), accumulated as the tensor core does
   (truncating toward zero) in the kernels' order, and dQ, dK and dV so
   computed must stay within 1e-5 of each gradient's max against the
-  port's plain f32 versions and within 5e-5 against the JAX kernels.
+  port's plain f32 versions and within 5e-5 against the JAX kernels;
+* the card's forward arithmetic, emulated the same way (q split once,
+  S with the small terms apart, the online softmax with exp2, each
+  32-key pass of P V in a fresh truncating accumulator): O and lse
+  within atol = rtol = 2e-5 of the plain forward and the JAX kernel,
+  on the edge and causal cases, including rows that see no key.
 
 Inputs are seeded numpy.  Tolerances: atol = rtol = 2e-5 in f32 for the
 forward (sums of up to 320 f32 products, blocked differently: 64-row tiles
@@ -287,3 +292,87 @@ def test_split_tf32_backward_matches_plain_and_jax(bh, l, d, seq_len, causal,
         assert err <= 1e-5, f"{name}: split vs plain f32 {err:.3e} of max"
         jerr = np.abs(got - jwant).max() / np.abs(jwant).max()
         assert jerr <= 5e-5, f"{name}: split vs JAX kernel {jerr:.3e} of max"
+
+
+def _split_forward(q, k, v, scale, seq_len, causal, q_off, kv_off):
+    """O and lse of the CUDA forward kernel's arithmetic, in numpy f32: q
+    times the scale split once; per 64-key tile S = (q scale) kᵀ as three
+    TF32 products with the small terms apart; the online softmax with
+    ``ex2`` (exp2 in double) of ``s·log2 e − m_safe·log2 e``; then
+    O = O·corr + P V, each 32-key half of P V in a fresh truncating
+    accumulator added to O in f32; at the end O·(1/l) and
+    lse = m_safe + log l, l ≥ 1e-30."""
+    log2e = np.float32(1.4426950408889634)
+    bh, lq, d = q.shape
+    hide = tfa._hidden(lq, k.shape[1], seq_len, causal, q_off, kv_off,
+                       "cpu").numpy()
+    qs = q * np.float32(scale)
+    m = np.full((bh, lq, 1), -np.inf, np.float32)
+    l = np.zeros((bh, lq, 1), np.float32)
+    o = np.zeros((bh, lq, d), np.float32)
+    for k0 in range(0, k.shape[1], 64):
+        kt, vt = k[:, k0:k0 + 64], v[:, k0:k0 + 64]
+        s = _split_matmul(qs, kt.transpose(0, 2, 1), small_apart=True)
+        s = np.where(hide[:, k0:k0 + 64], np.float32(-np.inf), s)
+        m_new = np.maximum(m, s.max(-1, keepdims=True))
+        m_safe = np.where(m_new == -np.inf, np.float32(0), m_new)
+        with np.errstate(invalid="ignore"):
+            corr = np.where(m == -np.inf, np.float32(0), np.exp2(
+                ((m - m_safe) * log2e).astype(np.float64)).astype(np.float32))
+        neg = (-m_safe * log2e).astype(np.float64)
+        p = np.exp2(s.astype(np.float64) * np.float64(log2e) + neg).astype(
+            np.float32)
+        l = l * corr + p.sum(-1, keepdims=True, dtype=np.float32)
+        m = m_new
+        o = o * corr
+        for h in range(0, kt.shape[1], 32):
+            o = o + _split_matmul(p[..., h:h + 32], vt[:, h:h + 32])
+    lc = np.maximum(l, np.float32(1e-30))
+    o = o * (np.float32(1) / lc)
+    m_safe = np.where(m == -np.inf, np.float32(0), m)
+    return o, (m_safe + np.log(lc)).squeeze(-1)
+
+
+# (B·H, L, D, seq_len, causal, q_off, kv_off): the TimeSformer's spatial
+# length, ragged lengths and head dims, key padding, the causal masks with
+# offsets, 16 rows that see no key, and every row hidden
+FWD_SPLIT_CASES = [(2, 576, 64, 576, False, 0, 0),
+                   (2, 197, 48, 197, False, 0, 0),
+                   (2, 200, 64, 200, False, 0, 0),
+                   (2, 200, 32, 150, False, 0, 0),
+                   (2, 130, 128, 130, False, 0, 0),
+                   (2, 200, 64, 200, True, 0, 16),
+                   (2, 192, 48, 192, True, 64, 0),
+                   (2, 200, 64, 150, True, 7, 40),
+                   (2, 130, 64, 130, True, 0, 300)]
+
+
+@pytest.mark.parametrize("bh,l,d,seq_len,causal,q_off,kv_off",
+                         FWD_SPLIT_CASES)
+def test_split_tf32_forward_matches_plain_and_jax(bh, l, d, seq_len, causal,
+                                                 q_off, kv_off):
+    """The CUDA forward's arithmetic (:func:`_split_forward`) against the
+    port's plain f32 forward and the JAX Pallas forward in interpret mode
+    (L zero-padded to its 64-row blocks, the padded keys past seq_len):
+    O and lse within atol = rtol = 2e-5, as the card's kernel is held."""
+    q, k, v = _qkv((bh, l, d), seed=3 * l + d + kv_off)
+    scale = d ** -0.5
+    args = (scale, seq_len, causal, q_off, kv_off)
+    o, lse = _split_forward(q, k, v, *args)
+    ro, rlse = tfa.flash_fwd_reference(*map(torch.from_numpy, (q, k, v)),
+                                       *args)
+    pad = ((0, 0), (0, -l % 64), (0, 0))
+    jo, jlse = _jax_fwd(*(np.pad(a, pad) for a in (q, k, v)), *args)
+    jo, jlse = np.asarray(jo)[:, :l], np.asarray(jlse)[:, :l, 0]
+    assert o.dtype == np.float32 and np.isfinite(o).all()
+    visible = ~tfa._hidden(l, l, seq_len, causal, q_off, kv_off,
+                           "cpu").numpy().all(-1)
+    if visible.any():   # the split is not the plain f32 product
+        assert not np.array_equal(o, ro.numpy())
+    for name, got, want in (("o", o, ro.numpy()), ("lse", lse, rlse.numpy()),
+                            ("o vs JAX", o, jo), ("lse vs JAX", lse, jlse)):
+        np.testing.assert_allclose(got, want, err_msg=name, **TOL)
+    # rows that see no key: o = 0 and lse = log(1e-30), as on the TPU
+    np.testing.assert_array_equal(o[:, ~visible], 0.0)
+    np.testing.assert_allclose(lse[:, ~visible], np.log(np.float32(1e-30)),
+                               rtol=1e-6)
