@@ -8,15 +8,19 @@ Phases, each printed as a JSON line; any failure raises and exits non-zero
 before the result line:
 
 1. device: the card's ``nvidia-smi`` name and power limit, torch and CUDA;
-2. build: ``nvcc`` compiles every kernel source of the port (the two
+2. build: ``nvcc`` compiles every kernel source of the port (the three
    depthwise and the three flash-attention kernels), one process per
-   source, all started together (timed, with ptxas' register report);
+   source, all started together (timed, with ptxas' register report); for
+   every instantiation of the depthwise forward and dx kernels, ptxas'
+   registers and spills, and the card's registers, local bytes, largest
+   dynamic shared memory and resident blocks per SM;
 3. forward kernel vs plain: the depthwise kernel at every depthwise shape
    of the flagship ``efficientnet_deepfake_v4`` at a 600² input (batch 1,
    the inference path's, and batch 2; f32, TF32 off), bf16 on a few of them,
    and edge cases (C = 13, odd H/W, ``'same'`` and int padding, act
    none/relu, identity affine, an unaligned base pointer), each against its
-   plain PyTorch version on the same inputs; the device time of the kernel,
+   plain PyTorch version on the same inputs, two calls bitwise equal; the
+   device time of the kernel,
    the plain version and the library call (a CUDA graph of 20 calls
    replayed between CUDA events), beside the bound (bytes over the memory
    rate or operations over the f32 rate);
@@ -25,14 +29,18 @@ before the result line:
    dw; kernel, plain, library (cuDNN's weight gradient) and bound times,
    and each stage's workspace bytes and the kernels one call launches
    (counted by torch.profiler);
-5. backward vs autograd: at every flagship shape at batch 3, for the
-   identity epilogue (the training call) and for affine + SiLU (the path
-   that saves z), the forward the training path launches (y against the
-   plain version, elementwise) and the full ``fused_depthwise`` backward on
-   the card (dx through the forward kernel, dw through the dw-gradient
-   kernel) against ``torch.autograd`` through the plain version, also at a
-   padding of k and k+1 a side (dx cropped); the dx path's device time beside
-   cuDNN's input gradient;
+5. dx kernel and backward vs plain: the dx kernel (``depthwise_dx``, a
+   direct transposed kernel, no dilated copy) against
+   ``depthwise_dx_reference`` at every flagship shape at batch 3 and at
+   edge cases (padding k and k+1 a side, C = 13 with odd H/W at k5 s2, bf16
+   dx, an unaligned base), two calls bitwise equal, with its device time
+   beside the plain version's, cuDNN's input gradient and the bound; then,
+   for the identity epilogue (the training call) and for affine + SiLU (the
+   path that saves z), the forward the training path launches (y against
+   the plain version, elementwise) and the full ``fused_depthwise`` backward
+   on the card (dx and dw through their kernels) against
+   ``torch.autograd`` through the plain version, also at a padding of k and
+   k+1 a side;
 6. flash kernels vs plain: forward, dQ and dK/dV at the TimeSformer's
    spatial attention (B·H 384 for a train step at batch 8, 768 for an eval
    forward at batch 16; L 576, D 64, f32) and at edge cases (L 197 and 200,
@@ -56,9 +64,8 @@ before the result line:
    (torch.profiler);
 8. training path: ``runners.train`` in-process on the flagship at full width
    and depth, 12×600², batch 3 (``scripts/train.sh``'s config on synthetic
-   data: 8 steps, validation of the model and its EMA, checkpoints); 110
-   forward-kernel launches (55 forward + 55 dx) and 55 dw-gradient launches
-   per step; loss finite; params, BN stats and EMA moved; the inference
+   data: 8 steps, validation of the model and its EMA, checkpoints); 55
+   forward, 55 dx and 55 dw-gradient launches per step; loss finite; params, BN stats and EMA moved; the inference
    path scores a frame with the checkpoint; ms per step, samples/s, peak
    memory, and the device time per step by kernel kind;
 9. TimeSformer training path: ``runners.train`` in-process on
@@ -74,7 +81,7 @@ before the result line:
    the same weights on the card and on the CPU (loss, every parameter's
    update, BN running stats); then a NaN batch through each card step must
    leave the whole state bitwise unchanged;
-11. the ``kernels`` line (all five kernels), the ``nvidia-smi`` line, and
+11. the ``kernels`` line (all six kernels), the ``nvidia-smi`` line, and
    last ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or in a directory that holds only this file, it exits
@@ -237,10 +244,15 @@ def _case(shape, k, dtype, seed, identity=False):
 
 
 def check(name, x, w, scale, bias, stride, padding, act, tol) -> float:
+    """Kernel vs plain y elementwise within ``tol``; two kernel calls must
+    agree bitwise.  Returns the max absolute error."""
     y = dw.fused_depthwise(x, w, scale, bias, stride, padding, act)
+    again = dw.fused_depthwise(x, w, scale, bias, stride, padding, act)
     ref = dw.fused_depthwise_reference(x, w, scale, bias, stride, padding,
                                        act)
     torch.cuda.synchronize()
+    if not torch.equal(y, again):
+        raise AssertionError(f"{name}: two forward calls differ")
     if y.shape != ref.shape or y.dtype != ref.dtype:
         raise AssertionError(f"{name}: {y.shape} {y.dtype} vs plain "
                              f"{ref.shape} {ref.dtype}")
@@ -301,6 +313,7 @@ def phase_kernels(shapes: Counter) -> dict:
                        plain_ms=plain, library_ms=lib,
                        bound_ms=max(b_ms, o_ms),
                        bound_by="bytes" if b_ms >= o_ms else "operations",
+                       bound_share=max(b_ms, o_ms) / ms,
                        gbytes_per_s=nbytes / ms / 1e6)
             emit(phase="kernel_row", **row)
             for key, v in (("ms", ms), ("call_ms", per_call),
@@ -487,14 +500,101 @@ def check_backward(name, shape, k, s, pad, affine, dtype, seed):
     return y_err, worst
 
 
+def check_dx(name, dz, w, x_shape, s, pads, dtype) -> float:
+    """The dx kernel vs its plain version: within GRAD_TOL of dx's max
+    |plain| (BF16_GRAD_TOL for a bf16 dx, one rounding apart); two calls
+    must agree bitwise.  Returns the error relative to max |plain| and the
+    max absolute error."""
+    a = dw.depthwise_dx(dz, w, x_shape, s, pads, dtype)
+    b = dw.depthwise_dx(dz, w, x_shape, s, pads, dtype)
+    ref = dw.depthwise_dx_reference(dz, w, x_shape, s, pads, dtype)
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name}: two dx calls differ")
+    if a.shape != ref.shape or a.dtype != ref.dtype:
+        raise AssertionError(f"{name}: dx {a.shape} {a.dtype} vs plain "
+                             f"{ref.shape} {ref.dtype}")
+    rel = _rel_err(a, ref)
+    tol = BF16_GRAD_TOL if dtype == torch.bfloat16 else GRAD_TOL
+    if not torch.isfinite(a).all() or rel > tol:
+        raise AssertionError(f"{name}: dx |kernel - plain| / max|plain| "
+                             f"{rel:.3e} > {tol}")
+    return rel, (a.float() - ref.float()).abs().max().item()
+
+
+def phase_dx(shapes: Counter) -> dict:
+    """The dx kernel against its plain version at every flagship depthwise
+    shape at the training batch and at edge cases; its device time beside
+    the plain version's, cuDNN's input gradient and the bound; returns the
+    count-weighted sums over the 55 stages and the largest error."""
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               bytes_ms=0.0, ops_ms=0.0)
+    worst = worst_abs = 0.0
+    for i, ((h, c, k, s), count) in enumerate(sorted(shapes.items())):
+        x, dz, pads = _grad_case((TRAIN_BATCH, h, h, c), k, s, "",
+                                 torch.float32, 750 + i)
+        w = torch.randn((k, k, c), device="cuda") * 0.2
+        shape = tuple(x.shape)
+        err, abs_err = check_dx(f"f32 {h}x{h}x{c} k{k} s{s}", dz, w, shape,
+                                s, pads, torch.float32)
+        worst, worst_abs = max(worst, err), max(worst_abs, abs_err)
+        ms = device_ms(lambda: dw.depthwise_dx(dz, w, shape, s, pads,
+                                               torch.float32))
+        plain = device_ms(lambda: dw.depthwise_dx_reference(
+            dz, w, shape, s, pads, torch.float32))
+        w_lib = w.permute(2, 0, 1).unsqueeze(1).contiguous()
+        dzc = dz.permute(0, 3, 1, 2)
+        lib = device_ms(lambda: torch.nn.grad.conv2d_input(
+            (TRAIN_BATCH, c, h, h), w_lib, dzc, s, pads[0], 1, c))
+        nbytes = (dz.numel() + x.numel() + k * k * c) * 4
+        b_ms = nbytes / MEM_BYTES_PER_S * 1e3
+        o_ms = 2 * k * k * dz.numel() / F32_FLOP_PER_S * 1e3
+        emit(phase="dx_row", h=h, c=c, k=k, stride=s, count=count,
+             batch=TRAIN_BATCH, max_rel_err=err, ms=ms, plain_ms=plain,
+             library_ms=lib, bound_ms=max(b_ms, o_ms),
+             bound_by="bytes" if b_ms >= o_ms else "operations",
+             bound_share=max(b_ms, o_ms) / ms,
+             gbytes_per_s=nbytes / ms / 1e6)
+        for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                       ("bound_ms", max(b_ms, o_ms)), ("bytes_ms", b_ms),
+                       ("ops_ms", o_ms)):
+            tot[key] += count * v
+    edges = [("padding k at k=3", (3, 17, 17, 24), 3, 1, 3, torch.float32),
+             ("padding k+1 at k=5, stride 2", (3, 19, 21, 24), 5, 2, 6,
+              torch.float32),
+             ("C=13 odd H/W k5 s2", (3, 31, 45, 13), 5, 2, 1, torch.float32),
+             ("C=13 odd H/W k3 s1 same", (3, 37, 29, 13), 3, 1, "same",
+              torch.float32),
+             ("bf16 dx k3 s2 same", (3, 40, 40, 64), 3, 2, "same",
+              torch.bfloat16),
+             ("bf16 dx C=13 k5 s1", (3, 15, 15, 13), 5, 1, "",
+              torch.bfloat16)]
+    for j, (name, shape, k, s, pad, dtype) in enumerate(edges):
+        _, dz, pads = _grad_case(shape, k, s, pad, torch.float32, 770 + j)
+        w = torch.randn((k, k, shape[3]), device="cuda") * 0.2
+        err, abs_err = check_dx(name, dz, w, shape, s, pads, dtype)
+        worst = max(worst, err)
+        if dtype == torch.float32:
+            worst_abs = max(worst_abs, abs_err)
+    # contiguous but only 4-byte aligned: the kernel's scalar path
+    flat = torch.randn(1 + 19 * 19 * 48, device="cuda")
+    w = torch.randn(3, 3, 48, device="cuda") * 0.2
+    err, abs_err = check_dx("unaligned base", flat[1:].view(1, 19, 19, 48),
+                            w, (1, 19, 19, 48), 1, (1, 1, 1, 1),
+                            torch.float32)
+    worst, worst_abs = max(worst, err), max(worst_abs, abs_err)
+    emit(phase="dx", batch=TRAIN_BATCH, rows=len(shapes),
+         stages=sum(shapes.values()), max_rel_err=worst,
+         max_abs_err=worst_abs, bitwise=True, **tot)
+    return dict(max_rel_err=worst, max_abs_err=worst_abs, **tot)
+
+
 def phase_backward(shapes: Counter) -> dict:
     """The forward with a gradient wanted and the full backward against the
     plain version at every flagship shape at the training batch, identity
-    and affine + SiLU epilogues, and at paddings beyond k-1; the dx path's
-    device time (dilation + forward
-    kernel) beside cuDNN's input gradient; returns the count-weighted sums
-    and the forward's max absolute error."""
-    tot = dict(dx_ms=0.0, dilate_ms=0.0, dx_library_ms=0.0, dx_bound_ms=0.0)
+    and affine + SiLU epilogues, and at paddings beyond k-1; returns the
+    gradients' largest relative error and the forward's max absolute
+    error."""
     worst = y_worst = 0.0
     for i, ((h, c, k, s), count) in enumerate(sorted(shapes.items())):
         shape = (TRAIN_BATCH, h, h, c)
@@ -505,36 +605,15 @@ def phase_backward(shapes: Counter) -> dict:
                 shape, k, s, "", affine, torch.float32, 700 + 2 * i)
             y_err, row_err = max(y_err, ye), max(row_err, ge)
         worst, y_worst = max(worst, row_err), max(y_worst, y_err)
-        x, dz, pads = _grad_case(shape, k, s, "", torch.float32, 750 + i)
-        w = torch.randn((k, k, c), device="cuda") * 0.2
-        wf = torch.flip(w, dims=(0, 1)).contiguous()
-        ho = dz.shape[1]
-        pads_dx = dw.dx_padding(h, h, k, s, pads, ho, ho)
-        dx_ms = device_ms(lambda: dw.cuda_conv(dw.dilate(dz, s), wf,
-                                               pads_dx))
-        dil_ms = device_ms(lambda: dw.dilate(dz, s)) if s > 1 else 0.0
-        w_lib = w.permute(2, 0, 1).unsqueeze(1).contiguous()
-        dzc = dz.permute(0, 3, 1, 2)
-        lib = device_ms(lambda: torch.nn.grad.conv2d_input(
-            (TRAIN_BATCH, c, h, h), w_lib, dzc, s, pads[0], 1, c))
-        nbytes = (dz.numel() + x.numel() + k * k * c) * 4
-        bound = max(nbytes / MEM_BYTES_PER_S,
-                    2 * k * k * dz.numel() / F32_FLOP_PER_S) * 1e3
         emit(phase="backward_row", h=h, c=c, k=k, stride=s, count=count,
-             batch=TRAIN_BATCH, max_rel_err=row_err, y_max_abs_err=y_err,
-             dx_ms=dx_ms, dilate_ms=dil_ms, dx_library_ms=lib,
-             dx_bound_ms=bound)
-        for key, v in (("dx_ms", dx_ms), ("dilate_ms", dil_ms),
-                       ("dx_library_ms", lib), ("dx_bound_ms", bound)):
-            tot[key] += count * v
+             batch=TRAIN_BATCH, max_rel_err=row_err, y_max_abs_err=y_err)
     worst = max(worst, check_backward("bf16 x k3 s2 same", (3, 40, 40, 64), 3,
                                       2, "same", True, torch.bfloat16,
                                       790)[1])
     ye, ge = check_backward("C=13 odd H/W k5 s2 int pad", (3, 31, 45, 13), 5,
                             2, 1, True, torch.float32, 792)
     worst, y_worst = max(worst, ge), max(y_worst, ye)
-    # padding beyond k-1 (k and k+1 a side): dx is cropped out of the
-    # correlation padded by at most k-1, as the JAX backward crops
+    # padding beyond k-1 (k and k+1 a side): dx at x's size with no crop
     for j, (name, shape, kk, s, pad, affine) in enumerate([
             ("padding k at k=3", (3, 17, 17, 24), 3, 1, 3, True),
             ("padding k+1 at k=5, stride 2", (3, 19, 21, 24), 5, 2, 6,
@@ -543,8 +622,8 @@ def phase_backward(shapes: Counter) -> dict:
                                 torch.float32, 796 + 2 * j)
         worst, y_worst = max(worst, ge), max(y_worst, ye)
     emit(phase="backward", batch=TRAIN_BATCH, rows=len(shapes),
-         max_rel_err=worst, y_max_abs_err=y_worst, **tot)
-    return dict(max_rel_err=worst, y_max_abs_err=y_worst, **tot)
+         max_rel_err=worst, y_max_abs_err=y_worst)
+    return dict(max_rel_err=worst, y_max_abs_err=y_worst)
 
 
 def _frames(rng):
@@ -658,6 +737,8 @@ def _kernel_kind(name: str) -> str:
         return "softmax"
     if "dw_fwd_kernel" in n:
         return "depthwise_fwd"
+    if "dw_dx_kernel" in n:
+        return "depthwise_dx"
     if "dwgrad" in n:
         return "depthwise_dwgrad"
     if "multi_tensor_apply" in n:
@@ -707,8 +788,8 @@ def phase_profile(model, x, iters: int = 3) -> None:
     _emit_kinds("profile", prof, iters, wall_us, batch=x.shape[0])
 
 
-_COUNTED = (dw.fused_depthwise, dw.depthwise_dwgrad, fa.flash_fwd,
-            fa.flash_bwd_dq, fa.flash_bwd_dkv)
+_COUNTED = (dw.fused_depthwise, dw.depthwise_dx, dw.depthwise_dwgrad,
+            fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
 
 
 def _reset_counts() -> None:
@@ -717,8 +798,9 @@ def _reset_counts() -> None:
 
 
 def _counts():
-    """Launches of (depthwise forward, dw gradient) since the reset."""
-    return dw.fused_depthwise.launches, dw.depthwise_dwgrad.launches
+    """Launches of (depthwise forward, dx, dw gradient) since the reset."""
+    return (dw.fused_depthwise.launches, dw.depthwise_dx.launches,
+            dw.depthwise_dwgrad.launches)
 
 
 def _flash_counts():
@@ -741,16 +823,17 @@ def phase_train(frame: str) -> dict:
     result = train_runner.main(cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fwd, dwg = _counts()
+    fwd, dxl, dwg = _counts()
     peak = torch.cuda.max_memory_allocated()
     steps = len(result["train"]["step_s"])
     n_eval = max(max(TRAIN_BATCH * 8, 16) // 2, 8)    # runners.train.setup
     eval_batches = math.ceil(n_eval / (2 * TRAIN_BATCH))
-    want_fwd = 110 * steps + 55 * eval_batches * 2     # model + EMA eval
-    if steps != 8 or fwd != want_fwd or dwg != 55 * steps:
+    want_fwd = 55 * steps + 55 * eval_batches * 2      # model + EMA eval
+    if steps != 8 or (fwd, dxl, dwg) != (want_fwd, 55 * steps, 55 * steps):
         raise AssertionError(
-            f"train path: {steps} steps, {fwd} forward-kernel and {dwg} "
-            f"dw-gradient launches; expected 8, {want_fwd} and {55 * steps}")
+            f"train path: {steps} steps, {fwd} forward, {dxl} dx and {dwg} "
+            f"dw-gradient launches; expected 8, {want_fwd}, {55 * steps} and "
+            f"{55 * steps}")
     if not (np.isfinite(result["train"]["loss"])
             and np.isfinite(result["eval"]["loss"])):
         raise AssertionError(f"non-finite loss: {result}")
@@ -775,7 +858,7 @@ def phase_train(frame: str) -> dict:
     step_s = result["train"]["step_s"][1:]        # the first one warms up
     ms_step = float(np.mean(step_s)) * 1e3
     emit(phase="train", steps=steps, forward_launches=fwd,
-         dwgrad_launches=dwg, loss=result["train"]["loss"],
+         dx_launches=dxl, dwgrad_launches=dwg, loss=result["train"]["loss"],
          eval_loss=result["eval"]["loss"], moved_leaves=moved,
          checkpoint=str(last.relative_to(ROOT)), score=score[0],
          ms_per_step=ms_step, step_ms=[v * 1e3 for v in step_s],
@@ -793,9 +876,10 @@ def phase_train(frame: str) -> dict:
     run.train_step(run.state, *batches[1])
     torch.cuda.synchronize()
     per_step = _counts()
-    if per_step != (110, 55):
+    if per_step != (55, 55, 55):
         raise AssertionError(f"one train step launched {per_step} "
-                             f"(forward, dw-gradient); expected (110, 55)")
+                             f"(forward, dx, dw-gradient); expected "
+                             f"(55, 55, 55)")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -808,7 +892,7 @@ def phase_train(frame: str) -> dict:
     del run, batches
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(forward_launches=fwd, dwgrad_launches=dwg)
+    return dict(forward_launches=fwd, dx_launches=dxl, dwgrad_launches=dwg)
 
 
 def _flagship(device: str):
@@ -1175,6 +1259,62 @@ def _flash_kernel_key(mangled: str):
     return m and f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'},{m[3]}>"
 
 
+def _ptxas_report(lib: Path, key_fn) -> dict:
+    """ptxas' registers, stack and spills of each kernel in the build log
+    beside ``lib`` whose mangled name ``key_fn`` maps to a key."""
+    out, key = {}, None
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            key = key_fn(line)
+            if key:
+                out[key] = {}
+        elif key and "bytes stack frame" in line:
+            n = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            out[key].update(stack_bytes=n[0], spill_store_bytes=n[1],
+                            spill_load_bytes=n[2])
+        elif key and "registers" in line:
+            out[key]["ptxas_registers"] = int(
+                re.search(r"Used (\d+) registers", line)[1])
+    return out
+
+
+_DW_KERNEL = re.compile(r"(dw_fwd|dw_dx)_kernelI(f|13__nv_bfloat16)Li(\d)E"
+                        r"Li(\d)ELb(\d)E")
+
+
+def _dw_kernel_key(mangled: str):
+    m = _DW_KERNEL.search(mangled)
+    return m and (f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'},k{m[3]},"
+                  f"s{m[4]},{'vec' if m[5] == '1' else 'scalar'}>")
+
+
+def phase_depthwise_kernels(libs: dict) -> dict:
+    """For every instantiation of the depthwise forward and dx kernels:
+    ptxas' registers, stack and spills (the build's ``-Xptxas -v``
+    report), and what the card gives it (registers, local bytes, the
+    largest dynamic shared memory its tiles take, resident blocks per SM
+    at that size and 128 threads: cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    out = {}
+    for name, short in (("depthwise_fwd", "dw_fwd"), ("depthwise_dx", "dw_dx")):
+        out.update(_ptxas_report(libs[name], _dw_kernel_key))
+        info = kernel(name, f"dfd_{name}_info", [ctypes.c_int] * 4
+                      + [ctypes.c_void_p])
+        for dtype, k, s, vec in itertools.product((0, 1), (3, 5), (1, 2),
+                                                  (1, 0)):
+            got = (ctypes.c_int * 4)()
+            err = info(k, s, dtype, vec, ctypes.addressof(got))
+            key = (f"{short}<{('f32', 'bf16')[dtype]},k{k},s{s},"
+                   f"{'vec' if vec else 'scalar'}>")
+            if err != 0:
+                raise RuntimeError(f"{key} info: cudaError_t {err}")
+            out.setdefault(key, {}).update(
+                registers=got[0], local_bytes=got[1], smem_bytes=got[2],
+                blocks_per_sm=got[3])
+    emit(phase="depthwise_kernels", kernels=out)
+    return out
+
+
 def phase_flash_kernels(libs: dict) -> dict:
     """For every instantiation of the three flash kernels (the forward and
     the two backward kernels): ptxas' registers, stack and spills (the
@@ -1187,19 +1327,7 @@ def phase_flash_kernels(libs: dict) -> dict:
     tensor cores."""
     out = {}
     for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
-        key = None
-        for line in libs[name].with_suffix(".log").read_text().splitlines():
-            if "Compiling entry function" in line:
-                key = _flash_kernel_key(line)
-                if key:
-                    out[key] = {}
-            elif key and "bytes stack frame" in line:
-                n = [int(x) for x in re.findall(r"(\d+) bytes", line)]
-                out[key].update(stack_bytes=n[0], spill_store_bytes=n[1],
-                                spill_load_bytes=n[2])
-            elif key and "registers" in line:
-                out[key]["ptxas_registers"] = int(
-                    re.search(r"Used (\d+) registers", line)[1])
+        out.update(_ptxas_report(libs[name], _flash_kernel_key))
         info = kernel(name, f"dfd_{name}_info",
                       [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         for dtype, tname in ((0, "f32"), (1, "bf16")):
@@ -1300,7 +1428,7 @@ def phase_tsf_train() -> dict:
     eval_forwards = 2 * math.ceil(n_eval / (2 * TSF_BATCH))  # model + EMA
     want = (TSF_BLOCKS * (steps + eval_forwards), TSF_BLOCKS * steps,
             TSF_BLOCKS * steps)
-    if steps != 8 or (fwd, dq, dkv) != want or _counts() != (0, 0):
+    if steps != 8 or (fwd, dq, dkv) != want or _counts() != (0, 0, 0):
         raise AssertionError(
             f"TimeSformer train path: {steps} steps, (forward, dQ, dK/dV) "
             f"launches {(fwd, dq, dkv)}, depthwise {_counts()}; expected 8, "
@@ -1447,6 +1575,7 @@ def main() -> int:
                 for name, path in libs.items()},
          libraries=[path.name for path in libs.values()])
     phase_flash_kernels(libs)
+    phase_depthwise_kernels(libs)
 
     model = create_deepfake_model_v4(device="cpu")
     shapes = flagship_dw_shapes(model, 600)
@@ -1455,6 +1584,7 @@ def main() -> int:
         raise AssertionError(f"flagship depthwise shapes {dict(shapes)}")
     k = phase_kernels(shapes)
     g = phase_dwgrad(shapes)
+    d = phase_dx(shapes)
     b = phase_backward(shapes)
     fl = phase_flash()
     fl_autograd = phase_flash_autograd()
@@ -1462,10 +1592,10 @@ def main() -> int:
     # each path runs with the launch counts set to 0 just before it
     _reset_counts()
     infer_launches, frame = phase_main_path()
-    if _counts()[1] != 0 or _flash_counts() != (0, 0, 0):
-        raise AssertionError(f"the inference path launched the dw-gradient "
-                             f"and flash kernels {_counts()[1]}, "
-                             f"{_flash_counts()} times")
+    if _counts()[1:] != (0, 0) or _flash_counts() != (0, 0, 0):
+        raise AssertionError(f"the inference path launched the dx, "
+                             f"dw-gradient and flash kernels {_counts()[1:]}"
+                             f", {_flash_counts()} times")
     t = phase_train(frame)
     tsf = phase_tsf_train()
     phase_card_vs_cpu()
@@ -1484,12 +1614,31 @@ def main() -> int:
              bound_by="bytes" if k["bytes_ms"] >= k["ops_ms"]
              else "operations",
              library_ms=k["library_ms"],
-             dx_ms=b["dx_ms"], dx_library_ms=b["dx_library_ms"],
-             dx_bound_ms=b["dx_bound_ms"], dilate_ms=b["dilate_ms"],
+             dx_source="deepfake_detection_tpu_torch/csrc/depthwise_dx.cu",
+             dx_ms=d["ms"], dx_library_ms=d["library_ms"],
+             dx_bound_ms=d["bound_ms"],
              timing="device time (CUDA graph replay between CUDA events) "
                     "summed over the flagship's 55 depthwise stages at a "
                     f"600² input, f32: the forward at batch {MAIN_BATCH}, "
-                    f"dx (dilation + kernel) at batch {TRAIN_BATCH}"),
+                    f"dx (its own kernel, no dilated copy) at batch "
+                    f"{TRAIN_BATCH}"),
+        dict(name="depthwise_dx", route="cuda",
+             source="deepfake_detection_tpu_torch/csrc/depthwise_dx.cu",
+             replaces="deepfake_detection_tpu/ops/depthwise_pallas.py:138 "
+                      "(reused for dx by _op_bwd, :387-403)",
+             launches=t["dx_launches"],
+             launches_by_path={"train": t["dx_launches"]},
+             max_abs_err=d["max_abs_err"], max_rel_err=d["max_rel_err"],
+             ms=d["ms"], kernel_ms=d["ms"], plain_ms=d["plain_ms"],
+             bound_ms=d["bound_ms"],
+             bound_by="bytes" if d["bytes_ms"] >= d["ops_ms"]
+             else "operations",
+             library_ms=d["library_ms"],
+             timing="device time (CUDA graph replay between CUDA events) "
+                    "summed over the flagship's 55 depthwise stages at a "
+                    f"600² input, batch {TRAIN_BATCH}, f32; max_abs_err "
+                    "over the f32 cases, max_rel_err over all, relative to "
+                    "dx's max |plain|; library: cuDNN's conv2d_input"),
         dict(name="depthwise_dwgrad", route="cuda",
              source="deepfake_detection_tpu_torch/csrc/depthwise_dwgrad.cu",
              replaces="deepfake_detection_tpu/ops/depthwise_pallas.py:214",

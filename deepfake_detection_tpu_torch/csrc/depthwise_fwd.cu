@@ -5,186 +5,194 @@
 // f32 accumulation and epilogue, y in x's dtype.  When z is not null it also
 // writes z = dwconv(x, w) in f32, the pre-affine output the backward of a
 // non-identity epilogue needs (the TPU version's want_z); inference and the
-// identity epilogue of training pass null and pay nothing for it.  The
-// backward reuses this kernel for dx (stride 1, act none, flipped kernel,
-// over the upstream gradient dilated by stride-1).
+// identity epilogue of training pass null and pay nothing for it.  dx of
+// the backward has its own kernel, depthwise_dx.cu.
 //
 // What bounds it on an H100: memory.  The stage must read x once and write y
 // once (w, scale and bias are k*k*C + 2*C floats); at the flagship's shapes
 // that is ~3 FLOP per byte in f32, far below the card's ratio of f32 rate to
-// memory rate.  The design therefore aims at whole-sector, coalesced traffic:
+// memory rate.  So each x value should come from device memory about once,
+// the k x k reuse should happen in shared memory, and the loads should keep
+// flowing while the SM computes:
 //
-// * threads run along C, so neighbouring threads touch neighbouring
-//   addresses; with C % 4 == 0 and aligned pointers each thread moves 4
-//   channels per access (16 bytes in f32, 8 in bf16), else one;
-// * each thread computes a strip of TW output pixels along W for its
-//   channels: per tap row it loads the (TW-1)*S+K input columns the strip
-//   needs once into registers and reuses them across the K column taps and
-//   the TW outputs; the k*k weights are read once per strip;
-// * the halo is handled with bounds checks, so no padded copy of x exists
-//   (the TPU version pads in XLA first, one more pass over memory);
-// * all offsets are 64-bit: at batch 8 the first flagship stage already
-//   holds 184 M elements.
+// * work items (depthwise_common.cuh's walk): one image's band of at most
+//   8 (k = 5, stride 1) or 4 output rows by a segment of at most 16
+//   columns, for a strip of 32 channels; the bands are halved for an
+//   output too small to spread over the card.  One wave of blocks takes
+//   items i, i + grid, ...;
+// * a block stages an item's input box, ((rows-1)*S + K) x ((cols-1)*S + K)
+//   pixels of 32 channels, and its k*k x 32 weights by two TMA loads,
+//   which put zeros where the box leaves x (the padding), into one of two
+//   shared-memory slots, while it computes the previous item from the other
+//   slot; bf16 x stays bf16 there and is widened on read;
+// * a thread owns 4 channels (8 threads along the strip, so each quarter
+//   warp reads one contiguous 128-byte pixel) and units of kTW output
+//   pixels along a row: for each of the K input rows it loads the
+//   (kTW-1)*S + K columns once from shared memory into registers and
+//   reuses them across the K column taps and the kTW outputs;
+// * each output's k*k products are added in the order (r, s), by fused
+//   multiply-adds in f32, as the plain version's sum is.
 //
-// Shared-memory halo tiles, TMA and tuning are later work.
+// A C that is not a multiple of 16 bytes' values, or an unaligned base,
+// takes the scalar path: the threads stage the same slots by cp.async, one
+// value a copy.  All offsets into x, y and z are 64-bit.
 //
 // Built with nvcc into a shared library with a plain C interface and loaded
 // through ctypes by deepfake_detection_tpu_torch/ops/depthwise.py.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <string.h>
+#include "depthwise_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTW = 4;  // output pixels per thread along W
+using namespace dwk;
 
-// V consecutive values of T moved as one access, converted to / from f32.
-template <typename T, int V> struct Vec;
+constexpr int kTW = 4;  // output columns a thread's unit
 
-template <> struct Vec<float, 1> {
-  static __device__ __forceinline__ void load(const float* p, float (&o)[1]) {
-    o[0] = __ldg(p);
-  }
-  static __device__ __forceinline__ void store(float* p, const float (&o)[1]) {
-    p[0] = o[0];
-  }
+// the largest work item, in output rows and columns
+template <int K, int S> struct Item {
+  static constexpr int rows = S == 1 && K == 5 ? 8 : 4, cols = 16;
 };
 
-template <> struct Vec<float, 4> {
-  static __device__ __forceinline__ void load(const float* p, float (&o)[4]) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-  }
-  static __device__ __forceinline__ void store(float* p, const float (&o)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
-  }
-};
-
-template <> struct Vec<__nv_bfloat16, 1> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float (&o)[1]) {
-    o[0] = __bfloat162float(p[0]);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                               const float (&o)[1]) {
-    p[0] = __float2bfloat16_rn(o[0]);
-  }
-};
-
-template <> struct Vec<__nv_bfloat16, 4> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float (&o)[4]) {
-    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
-    __nv_bfloat162 lo, hi;
-    memcpy(&lo, &raw.x, sizeof(lo));
-    memcpy(&hi, &raw.y, sizeof(hi));
-    const float2 a = __bfloat1622float2(lo);
-    const float2 b = __bfloat1622float2(hi);
-    o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                               const float (&o)[4]) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(o[0], o[1]);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(o[2], o[3]);
-    uint2 raw;
-    memcpy(&raw.x, &lo, sizeof(lo));
-    memcpy(&raw.y, &hi, sizeof(hi));
-    *reinterpret_cast<uint2*>(p) = raw;
-  }
-};
-
-// act codes match FUSED_DW_ACTS in ops/depthwise.py: 0 none, 1 silu, 2 relu
-__device__ __forceinline__ float apply_act(float u, int act) {
-  if (act == 1) return u / (1.0f + expf(-u));
-  if (act == 2) return fmaxf(u, 0.0f);
-  return u;
+template <typename T, int K, int S>
+constexpr int slot_bytes_max() {
+  return round128(K * K * kCW * 4) +
+         round128(((Item<K, S>::rows - 1) * S + K) *
+                  ((Item<K, S>::cols - 1) * S + K) * kCW * (int)sizeof(T));
 }
 
-template <typename T, int K, int S, int V>
+template <typename T, int K, int S, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-dw_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+dw_fwd_kernel(const __grid_constant__ CUtensorMap xmap,
+              const __grid_constant__ CUtensorMap wmap,
+              const T* __restrict__ x, const float* __restrict__ w,
               const float* __restrict__ scale, const float* __restrict__ bias,
-              T* __restrict__ y, float* __restrict__ z, int64_t B, int64_t H,
-              int64_t W, int64_t C, int64_t Ho, int64_t Wo, int pad_top,
-              int pad_left, int act) {
-  constexpr int NCOL = (kTW - 1) * S + K;  // input columns a strip reads
-  const int64_t CV = C / V;
-  const int64_t n_strip = (Wo + kTW - 1) / kTW;
-  const int64_t total = B * Ho * n_strip * CV;
-  for (int64_t idx = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-       idx < total; idx += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t c0 = (idx % CV) * V;
-    int64_t rest = idx / CV;
-    const int64_t wo0 = (rest % n_strip) * kTW;
-    rest /= n_strip;
-    const int64_t ho = rest % Ho;
-    const int64_t b = rest / Ho;
-    const int64_t hi0 = ho * S - pad_top;
-    const int64_t wi0 = wo0 * S - pad_left;
+              T* __restrict__ y, float* __restrict__ z, int64_t H, int64_t W,
+              int64_t C, int64_t Ho, int64_t Wo, int pad_top, int pad_left,
+              int act, Walk p) {
+  constexpr int NCOL = (kTW - 1) * S + K;  // input columns a unit reads
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kSlots * p.slot_bytes);
+  const int tx = threadIdx.x;
+  const int tid = threadIdx.y * kTX + tx, nt = kTX * blockDim.y;
 
-    float acc[kTW][V];
+  // work item i: (strip, image, band of rows, segment of columns), the
+  // segment fastest
+  auto where = [&](int i, int64_t& c0, int64_t& b, int64_t& oh0,
+                   int64_t& ow0) {
+    ow0 = i % p.segs * p.cols;
+    i /= p.segs;
+    oh0 = i % p.bands * p.rows;
+    i /= p.bands;
+    b = i % p.B;
+    c0 = i / p.B * kCW;
+  };
+  // stages item i's weights and input box into slot
+  auto stage = [&](int i, int slot) {
+    int64_t c0, b, oh0, ow0;
+    where(i, c0, b, oh0, ow0);
+    float* ws = reinterpret_cast<float*>(smem + slot * p.slot_bytes);
+    T* xs = reinterpret_cast<T*>(smem + slot * p.slot_bytes + p.w_bytes);
+    if (VEC) {
+      if (tid == 0) {
+        sm90::fence_proxy_async();
+        sm90::mbar_expect_tx(&bars[slot], p.tx_bytes);
+        sm90::tma_load_2d(ws, &wmap, (int)c0, 0, &bars[slot]);
+        sm90::tma_load_4d(xs, &xmap, (int)c0, (int)(ow0 * S - pad_left),
+                          (int)(oh0 * S - pad_top), (int)b, &bars[slot]);
+      }
+    } else {
+      stage_weights(ws, w, K * K, C, c0, tid, nt);
+      stage_tile<T>(xs, x + b * H * W * C, oh0 * S - pad_top,
+                           ow0 * S - pad_left, p.in_rows, p.in_cols, H, W, C,
+                           c0, tid, nt);
+    }
+  };
+
+  if (VEC && tid == 0) {
+    for (int s = 0; s < kSlots; ++s) sm90::mbar_init(&bars[s], 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+  // items blockIdx.x + j * gridDim.x go to slot j % kSlots, kSlots - 1
+  // items ahead of the one computed
+  const int grid = gridDim.x;
+  for (int s = 0; s < kSlots - 1; ++s) {
+    if ((int)blockIdx.x + s * grid < p.items) stage(blockIdx.x + s * grid, s);
+    sm90::cp_async_commit();
+  }
+
+  int k = 0;
+  for (int i = blockIdx.x; i < p.items; i += grid, ++k) {
+    const int slot = k % kSlots;
+    // the loads kSlots - 1 items ahead go out before this one is computed
+    const int ahead = i + (kSlots - 1) * grid;
+    if (ahead < p.items) stage(ahead, (k + kSlots - 1) % kSlots);
+    sm90::cp_async_commit();
+    if (VEC) {
+      sm90::mbar_wait(&bars[slot], (k / kSlots) & 1);
+    } else {
+      sm90::cp_async_wait<kSlots - 1>();
+      __syncthreads();
+    }
+
+    int64_t c0, b, oh0, ow0;
+    where(i, c0, b, oh0, ow0);
+    const float* ws =
+        reinterpret_cast<const float*>(smem + slot * p.slot_bytes);
+    const T* xs =
+        reinterpret_cast<const T*>(smem + slot * p.slot_bytes + p.w_bytes);
+    const int rows = (int)(Ho - oh0 < p.rows ? Ho - oh0 : p.rows);
+    const int cols = (int)(Wo - ow0 < p.cols ? Wo - ow0 : p.cols);
+    const int cu = (cols + kTW - 1) / kTW;
+    const int64_t c = c0 + 4 * tx;
+    float sc[4], bi[4];
 #pragma unroll
-    for (int t = 0; t < kTW; ++t)
+    for (int v = 0; v < 4; ++v) {
+      sc[v] = scale != nullptr && c + v < C ? __ldg(scale + c + v) : 1.0f;
+      bi[v] = bias != nullptr && c + v < C ? __ldg(bias + c + v) : 0.0f;
+    }
+
+    for (int u = threadIdx.y; u < rows * cu; u += blockDim.y) {
+      const int r0 = u / cu, q0 = u % cu * kTW;
+      float acc[kTW][4];
 #pragma unroll
-      for (int v = 0; v < V; ++v) acc[t][v] = 0.0f;
+      for (int t = 0; t < kTW; ++t)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[t][v] = 0.0f;
 
 #pragma unroll
-    for (int r = 0; r < K; ++r) {
-      const int64_t hi = hi0 + r;
-      if (hi < 0 || hi >= H) continue;
-      const T* xrow = x + (b * H + hi) * W * C + c0;
-      float col[NCOL][V];
+      for (int r = 0; r < K; ++r) {
+        const T* row = xs + ((r0 * S + r) * p.in_cols + q0 * S) * kCW + 4 * tx;
+        float win[NCOL][4];
 #pragma unroll
-      for (int j = 0; j < NCOL; ++j) {
-        const int64_t wi = wi0 + j;
-        if (wi >= 0 && wi < W) {
-          Vec<T, V>::load(xrow + wi * C, col[j]);
-        } else {
+        for (int j = 0; j < NCOL; ++j) lds4(row + j * kCW, win[j]);
 #pragma unroll
-          for (int v = 0; v < V; ++v) col[j][v] = 0.0f;
+        for (int s = 0; s < K; ++s) {
+          float wt[4];
+          lds4(ws + (r * K + s) * kCW + 4 * tx, wt);
+#pragma unroll
+          for (int t = 0; t < kTW; ++t)
+#pragma unroll
+            for (int v = 0; v < 4; ++v)
+              acc[t][v] = fmaf(win[t * S + s][v], wt[v], acc[t][v]);
         }
       }
+
 #pragma unroll
-      for (int s = 0; s < K; ++s) {
-        float wt[V];
-        Vec<float, V>::load(w + (int64_t)(r * K + s) * C + c0, wt);
+      for (int t = 0; t < kTW; ++t) {
+        if (q0 + t >= cols) continue;
+        const int64_t off = ((b * Ho + oh0 + r0) * Wo + ow0 + q0 + t) * C + c;
+        if (z != nullptr) store4<float, VEC>(z + off, acc[t], c, C);
+        float out[4];
 #pragma unroll
-        for (int t = 0; t < kTW; ++t)
-#pragma unroll
-          for (int v = 0; v < V; ++v)
-            acc[t][v] = fmaf(col[t * S + s][v], wt[v], acc[t][v]);
+        for (int v = 0; v < 4; ++v)
+          out[v] = apply_act(acc[t][v] * sc[v] + bi[v], act);
+        store4<T, VEC>(y + off, out, c, C);
       }
     }
-
-    float sc[V], bi[V];
-    if (scale != nullptr) {
-      Vec<float, V>::load(scale + c0, sc);
-    } else {
-#pragma unroll
-      for (int v = 0; v < V; ++v) sc[v] = 1.0f;
-    }
-    if (bias != nullptr) {
-      Vec<float, V>::load(bias + c0, bi);
-    } else {
-#pragma unroll
-      for (int v = 0; v < V; ++v) bi[v] = 0.0f;
-    }
-#pragma unroll
-    for (int t = 0; t < kTW; ++t) {
-      const int64_t wo = wo0 + t;
-      if (wo >= Wo) break;
-      const int64_t off = ((b * Ho + ho) * Wo + wo) * C + c0;
-      if (z != nullptr) Vec<float, V>::store(z + off, acc[t]);
-      float out[V];
-#pragma unroll
-      for (int v = 0; v < V; ++v)
-        out[v] = apply_act(acc[t][v] * sc[v] + bi[v], act);
-      Vec<T, V>::store(y + off, out);
-    }
+    __syncthreads();  // the slot is read before it refills
   }
+  sm90::cp_async_wait<0>();
 }
 
 struct Args {
@@ -195,29 +203,77 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int K, int S, int V>
+template <typename T, int K, int S, bool VEC>
+bool& configured() {
+  static bool flag = false;
+  return flag;
+}
+
+template <typename T, int K, int S, bool VEC>
 cudaError_t launch(const Args& a) {
-  const int64_t total = a.B * a.Ho * ((a.Wo + kTW - 1) / kTW) * (a.C / V);
-  if (total == 0) return cudaSuccess;
-  int64_t blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 2147483647) blocks = 2147483647;  // the loop strides over rest
-  dw_fwd_kernel<T, K, S, V><<<(unsigned)blocks, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.x), a.w, a.scale, a.bias, static_cast<T*>(a.y),
-      a.z, a.B, a.H, a.W, a.C, a.Ho, a.Wo, a.pad_top, a.pad_left, a.act);
+  if (a.B * a.Ho * a.Wo * a.C == 0) return cudaSuccess;
+  auto kernel = dw_fwd_kernel<T, K, S, VEC>;
+  constexpr size_t smem_max = kSlots * (slot_bytes_max<T, K, S>() + 8);
+  cudaError_t err =
+      sm90::configure(kernel, configured<T, K, S, VEC>(), smem_max);
+  if (err != cudaSuccess) return err;
+  Walk p = walk(a.B, a.Ho, a.Wo, a.C, Item<K, S>::rows, Item<K, S>::cols, 1,
+                kTW);
+  p.in_rows = (p.rows - 1) * S + K;
+  p.in_cols = (p.cols - 1) * S + K;
+  p.w_bytes = round128(K * K * kCW * 4);
+  p.slot_bytes =
+      p.w_bytes + round128(p.in_rows * p.in_cols * kCW * (int)sizeof(T));
+  p.tx_bytes = K * K * kCW * 4 + p.in_rows * p.in_cols * kCW * (int)sizeof(T);
+  const size_t smem = kSlots * ((size_t)p.slot_bytes + 8);
+  const int64_t units = p.rows * (p.cols / kTW);
+  const dim3 block(kTX, (unsigned)(units < kWorkers ? units : kWorkers));
+  unsigned grid = 0;
+  if (p.items < 0) return cudaErrorInvalidValue;
+  err = wave(kernel, block, smem, p.items, grid);
+  if (err != cudaSuccess) return err;
+
+  CUtensorMap xmap{}, wmap{};
+  if (VEC) {
+    const CUtensorMapDataType type = sizeof(T) == 4
+                                         ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    const uint64_t es = sizeof(T);
+    const uint64_t xdims[4] = {(uint64_t)a.C, (uint64_t)a.W, (uint64_t)a.H,
+                               (uint64_t)a.B};
+    const uint64_t xstrides[3] = {a.C * es, a.W * a.C * es,
+                                  a.H * a.W * a.C * es};
+    const uint32_t xbox[4] = {kCW, (uint32_t)p.in_cols, (uint32_t)p.in_rows,
+                              1};
+    err = sm90::encode_tiled(&xmap, type, 4, a.x, xdims, xstrides, xbox);
+    if (err != cudaSuccess) return err;
+    const uint64_t wdims[2] = {(uint64_t)a.C, (uint64_t)(K * K)};
+    const uint64_t wstrides[1] = {a.C * 4};
+    const uint32_t wbox[2] = {kCW, K * K};
+    err = sm90::encode_tiled(&wmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, a.w,
+                             wdims, wstrides, wbox);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, block, smem, a.stream>>>(
+      xmap, wmap, static_cast<const T*>(a.x), a.w, a.scale, a.bias,
+      static_cast<T*>(a.y), a.z, a.H, a.W, a.C, a.Ho, a.Wo, a.pad_top,
+      a.pad_left, a.act, p);
   return cudaGetLastError();
 }
 
-bool aligned(const void* p, uintptr_t bytes) {
-  return p == nullptr || reinterpret_cast<uintptr_t>(p) % bytes == 0;
+// TMA loads of x and w (their strides a multiple of 16 bytes, 16-byte
+// aligned bases), vector stores of y and z
+template <typename T>
+bool vec_path(const Args& a) {
+  return a.C % (16 / sizeof(T)) == 0 && aligned(a.x, 16) &&
+         aligned(a.w, 16) && aligned(a.y, 4 * sizeof(T)) &&
+         aligned(a.z, 16);
 }
 
 template <typename T, int K, int S>
 cudaError_t launch_vec(const Args& a) {
-  const bool vec = a.C % 4 == 0 && aligned(a.x, 4 * sizeof(T)) &&
-                   aligned(a.y, 4 * sizeof(T)) && aligned(a.w, 16) &&
-                   aligned(a.scale, 16) && aligned(a.bias, 16) &&
-                   aligned(a.z, 16);
-  return vec ? launch<T, K, S, 4>(a) : launch<T, K, S, 1>(a);
+  return vec_path<T>(a) ? launch<T, K, S, true>(a)
+                        : launch<T, K, S, false>(a);
 }
 
 template <typename T>
@@ -226,6 +282,26 @@ cudaError_t launch_ks(const Args& a, int k, int stride) {
   if (k == 3 && stride == 2) return launch_vec<T, 3, 2>(a);
   if (k == 5 && stride == 1) return launch_vec<T, 5, 1>(a);
   if (k == 5 && stride == 2) return launch_vec<T, 5, 2>(a);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int K, int S, bool VEC>
+cudaError_t info(int* out) {
+  return kernel_info(dw_fwd_kernel<T, K, S, VEC>, configured<T, K, S, VEC>(),
+                     kSlots * (slot_bytes_max<T, K, S>() + 8), out);
+}
+
+template <typename T, int K, int S>
+cudaError_t info_vec(int vec, int* out) {
+  return vec ? info<T, K, S, true>(out) : info<T, K, S, false>(out);
+}
+
+template <typename T>
+cudaError_t info_ks(int k, int stride, int vec, int* out) {
+  if (k == 3 && stride == 1) return info_vec<T, 3, 1>(vec, out);
+  if (k == 3 && stride == 2) return info_vec<T, 3, 2>(vec, out);
+  if (k == 5 && stride == 1) return info_vec<T, 5, 1>(vec, out);
+  if (k == 5 && stride == 2) return info_vec<T, 5, 2>(vec, out);
   return cudaErrorInvalidValue;
 }
 
@@ -251,5 +327,15 @@ extern "C" int dfd_depthwise_fwd(const void* x, const void* w,
                pad_top, pad_left, act, static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return (int)launch_ks<float>(a, k, stride);
   if (dtype == 1) return (int)launch_ks<__nv_bfloat16>(a, k, stride);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The instantiation's registers, local bytes, largest dynamic shared bytes
+// and resident blocks per SM at those bytes, into out[0..4); vec selects
+// the 16-byte path.
+extern "C" int dfd_depthwise_fwd_info(int k, int stride, int dtype, int vec,
+                                      int* out) {
+  if (dtype == 0) return (int)info_ks<float>(k, stride, vec, out);
+  if (dtype == 1) return (int)info_ks<__nv_bfloat16>(k, stride, vec, out);
   return (int)cudaErrorInvalidValue;
 }

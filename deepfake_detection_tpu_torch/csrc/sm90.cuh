@@ -1,9 +1,12 @@
 // What the card offers the port's kernels that stage tiles in shared memory
-// by cp.async (flash_tf32.cuh's flash kernels, depthwise_dwgrad.cu), as
-// PTX, and the one-time raise of a kernel's shared-memory limit.
+// (flash_tf32.cuh's flash kernels, the depthwise kernels): cp.async, the
+// Tensor Memory Accelerator (TMA) with its mbarriers, as PTX; the host-side
+// encoding of a TMA tensor map, and the one-time raise of a kernel's
+// shared-memory limit.
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap; its encoder is looked up in libcuda
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -14,7 +17,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 // 16 bytes from global src to shared dst, the last 16 - bytes zero-filled.
-__device__ __forceinline__ void cp_async16(float* dst, const void* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
@@ -22,7 +25,7 @@ __device__ __forceinline__ void cp_async16(float* dst, const void* src,
 }
 
 // 4 bytes, or a zero where bytes == 0.
-__device__ __forceinline__ void cp_async4(float* dst, const void* src,
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           int bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
@@ -37,6 +40,111 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// An mbarrier in shared memory that `count` arrivals complete.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Makes mbarrier inits visible to the async proxy (TMA) before first use.
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Orders this thread's earlier shared-memory accesses before its next TMA
+// write to shared memory.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Arrives once on bar and adds `bytes` to the transfer it waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until bar's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// TMA: the box of `map` at coordinates (c0, c1[, c2, c3]) (innermost
+// first, may be negative: out-of-bounds elements arrive as zeros) into dst,
+// completing `bar`'s transfer.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Encodes a tiled TMA tensor map of `rank` dims (innermost first) over
+// base: dims[i] elements, strides[i] bytes between steps of dim i + 1, a
+// box of box[i] elements, no swizzle, out-of-bounds reads as zeros.
+// cudaErrorInvalidValue where cuTensorMapEncodeTiled refuses it.
+inline cudaError_t encode_tiled(CUtensorMap* map, CUtensorMapDataType type,
+                                int rank, const void* base,
+                                const uint64_t* dims, const uint64_t* strides,
+                                const uint32_t* box) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorInvalidValue;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  cuuint64_t d[5], st[4];
+  cuuint32_t bx[5], one[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    bx[i] = box[i];
+    one[i] = 1;
+    if (i + 1 < rank) st[i] = strides[i];
+  }
+  const CUresult res = encode(
+      map, type, (cuuint32_t)rank, const_cast<void*>(base), d, st, bx, one,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // Raises the kernel's dynamic shared-memory limit to `smem` bytes once

@@ -6,9 +6,11 @@ written for Hopper:
 
 * ``_fwd_kernel`` (launched by ``_dw_call``, public ``fused_depthwise``) →
   ``csrc/depthwise_fwd.cu``, which also writes the f32 pre-affine output z
-  when the backward of a non-identity epilogue needs it, and computes dx in
-  the backward (stride 1, act none, flipped kernel, over the upstream
-  gradient dilated by ``stride - 1``), as the TPU version does;
+  when the backward of a non-identity epilogue needs it;
+* the TPU backward's reuse of that kernel for dx (over the upstream
+  gradient dilated by ``stride - 1``, kernel flipped, then cropped) →
+  ``csrc/depthwise_dx.cu``, a direct transposed kernel: each dx pixel takes
+  only the taps of its stride phase, nothing is dilated or cropped;
 * ``_dwgrad_kernel`` (launched by ``_dwgrad_call``) →
   ``csrc/depthwise_dwgrad.cu``, the weight gradient, reduced in two passes
   without atomics so that two calls give bitwise-equal dw.
@@ -16,20 +18,24 @@ written for Hopper:
 What bounds them on an H100: memory bytes.  The forward reads x once and
 writes y once; at the flagship's 55 stages that is 1.21 GB per 600² image
 in f32 against 4.0 GFLOP, ~3 FLOP per byte, far under the card's f32 ridge.
-The dw gradient reads x and dz once, 2.25-6.25 FLOP per byte.  Both kernels
-put threads along C for coalesced 16-byte accesses and handle the halo with
-bounds checks instead of the padded copy of x the TPU version makes in XLA.
+dx reads dz once and writes dx once; the dw gradient reads x and dz once,
+2.25-6.25 FLOP per byte.  All three put threads along C for coalesced
+16-byte accesses and stage tiles with their halo in shared memory (zeros
+outside the image; the forward and dx by TMA, two tiles in flight a block)
+instead of the padded copy of x the TPU version makes in XLA.
 
-* :func:`fused_depthwise_reference` and :func:`depthwise_dwgrad_reference`
-  are the plain PyTorch versions.  The CPU tests run them; ``chip_smoke.py``
-  holds the kernels against them on the card.
-* :func:`fused_depthwise` and :func:`depthwise_dwgrad` send a CPU tensor to
-  the plain version and a CUDA tensor to the kernel, or raise; there is no
-  fallback.  Their ``launches`` attributes count kernel launches.
+* :func:`fused_depthwise_reference`, :func:`depthwise_dx_reference` and
+  :func:`depthwise_dwgrad_reference` are the plain PyTorch versions.  The
+  CPU tests run them; ``chip_smoke.py`` holds the kernels against them on
+  the card.
+* :func:`fused_depthwise`, :func:`depthwise_dx` and :func:`depthwise_dwgrad`
+  send a CPU tensor to the plain version and a CUDA tensor to the kernel,
+  or raise; there is no fallback.  Their ``launches`` attributes count
+  kernel launches.
 * :func:`depthwise_backward` is the backward's glue (the counterpart of
-  ``fused_depthwise::_op_bwd``): epilogue cotangents, the dilation and the
-  padding of dx, with the two device ops passed in.  The CUDA autograd node
-  passes the kernels; the CPU tests pass the plain versions.
+  ``fused_depthwise::_op_bwd``): the epilogue cotangents, with the two
+  device ops passed in.  The CUDA autograd node passes the kernels; the CPU
+  tests pass the plain versions.
 
 The kernels are compiled at first use by ``csrc/build.py`` (``nvcc``, one
 process per source, in parallel) into ``build/kernels/`` at the repository
@@ -49,9 +55,8 @@ from ..csrc.build import kernel
 from .conv import explicit_padding
 
 __all__ = ["FUSED_DW_ACTS", "fused_depthwise", "fused_depthwise_reference",
-           "depthwise_dwgrad", "depthwise_dwgrad_reference",
-           "depthwise_backward", "dilate", "dx_padding", "cuda_conv",
-           "plain_conv", "output_size"]
+           "depthwise_dx", "depthwise_dx_reference", "depthwise_dwgrad",
+           "depthwise_dwgrad_reference", "depthwise_backward", "output_size"]
 
 #: epilogue activations the kernel fuses, in the order of its act codes
 FUSED_DW_ACTS = ("none", "silu", "relu")
@@ -61,6 +66,7 @@ _KERNEL_SIZES = (3, 5)
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
     "dfd_depthwise_fwd": ([_P] * 6 + [_I64] * 6 + [_I] * 6 + [_P], _I),
+    "dfd_depthwise_dx": ([_P] * 3 + [_I64] * 6 + [_I] * 5 + [_P], _I),
     "dfd_depthwise_dwgrad": ([_P] * 4 + [_I64] * 6 + [_I] * 5 + [_P], _I),
     "dfd_depthwise_dwgrad_workspace": ([_I64] * 4 + [_I], _I64),
 }
@@ -276,7 +282,7 @@ depthwise_dwgrad.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# backward glue
+# dx and the backward glue
 # ---------------------------------------------------------------------------
 
 def _act_grad(u: torch.Tensor, act: str) -> torch.Tensor:
@@ -303,23 +309,9 @@ def _dx_pads(h: int, w: int, k: int, stride: int, pads, ho: int,
             w + l - 1 - (wo - 1) * stride)
 
 
-def dx_padding(h: int, w: int, k: int, stride: int, pads,
-               ho: int, wo: int) -> Tuple[int, int, int, int]:
-    """The non-negative padding of dx's correlation (:func:`_dx_pads`; it
-    exceeds ``k-1`` after where rows or columns of x got no tap).  Raises
-    where the forward padding exceeds ``k-1``: there
-    :func:`depthwise_backward` pads by 0 and crops instead."""
-    out = _dx_pads(h, w, k, stride, pads, ho, wo)
-    if min(out) < 0:
-        raise ValueError(f"padding {tuple(pads)} exceeds k-1={k - 1}: the "
-                         f"correlation takes at most k-1 per side")
-    return out
-
-
-def dilate(dz: torch.Tensor, stride: int) -> torch.Tensor:
+def _dilate(dz: torch.Tensor, stride: int) -> torch.Tensor:
     """NHWC ``dz`` with ``stride - 1`` zero rows and columns between its
-    own (``dz`` itself at stride 1): the plain-torch copy the stride-2
-    stages pay for dx, as ``lax.pad`` in the JAX package."""
+    own (``dz`` itself at stride 1), as ``lax.pad`` in the JAX package."""
     if stride == 1:
         return dz
     bsz, ho, wo, c = dz.shape
@@ -328,22 +320,102 @@ def dilate(dz: torch.Tensor, stride: int) -> torch.Tensor:
     return out
 
 
+def depthwise_dx_reference(dz: torch.Tensor, w: torch.Tensor, x_shape,
+                           stride: int, pads,
+                           dtype: torch.dtype) -> torch.Tensor:
+    """The plain PyTorch version of :func:`depthwise_dx`, the composition
+    the JAX backward runs: dz dilated by ``stride - 1``, the stride-1
+    correlation with the flipped kernel, padded by at most ``k-1`` a side
+    (:func:`_dx_pads`), then the rows and columns that lie in a forward
+    padding beyond ``k-1`` cropped (the JAX ``_op_bwd`` pads by ``k-1`` and
+    crops the same way)."""
+    k = w.shape[0]
+    h, wd = x_shape[1], x_shape[2]
+    signed = _dx_pads(h, wd, k, stride, pads, dz.shape[1], dz.shape[2])
+    t, b, l, r = (max(p, 0) for p in signed)
+    dx = fused_depthwise_reference(
+        _dilate(dz.float(), stride), torch.flip(w.float(), dims=(0, 1)), None,
+        None, 1, [(t, b), (l, r)], "none")
+    top, left = max(-signed[0], 0), max(-signed[2], 0)
+    dx = dx[:, top:top + h, left:left + wd]
+    if tuple(dx.shape) != tuple(x_shape):
+        raise AssertionError(f"dx {tuple(dx.shape)} for x {tuple(x_shape)}")
+    return dx.to(dtype)
+
+
+def depthwise_dx(dz: torch.Tensor, w: torch.Tensor, x_shape, stride: int,
+                 pads, dtype: torch.dtype) -> torch.Tensor:
+    """``dx[b,h,w,c] = Σ w[r,s,c] · dz[b, (h+top-r)/s, (w+left-s)/s, c]``
+    over the taps where both quotients are whole and inside dz: the input
+    gradient of the depthwise conv, in ``dtype`` (x's: f32 or bf16, one
+    rounding from f32) at exactly ``x_shape`` ``(B, H, W, C)``.
+
+    ``dz`` is NHWC f32 ``(B, Ho, Wo, C)``, ``w`` ``(k, k, C)`` f32,
+    ``pads`` the forward's ``(top, bottom, left, right)``, any non-negative
+    size.  CPU tensors take the plain version, CUDA tensors the kernel."""
+    if dz.device.type == "cpu":
+        return depthwise_dx_reference(dz, w, x_shape, stride, pads, dtype)
+    if dz.device.type != "cuda":
+        raise ValueError(f"depthwise_dx runs on cpu or cuda, got "
+                         f"{dz.device}")
+    bsz, h, wd, c = x_shape
+    k = w.shape[0]
+    if (dz.dim() != 4 or dz.dtype != torch.float32
+            or not dz.is_contiguous() or dz.shape[0] != bsz
+            or dz.shape[3] != c):
+        raise ValueError(f"dz must be contiguous float32 ({bsz}, Ho, Wo, {c})"
+                         f", got {dz.dtype} {tuple(dz.shape)} strides "
+                         f"{dz.stride()}")
+    if (w.shape != (k, k, c) or w.dtype != torch.float32
+            or w.device != dz.device or not w.is_contiguous()):
+        raise ValueError(f"w must be contiguous float32 (k, k, {c}) on "
+                         f"{dz.device}, got {w.dtype} {tuple(w.shape)} on "
+                         f"{w.device}")
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"dx must be float32 or bfloat16, got {dtype}")
+    if k not in _KERNEL_SIZES or stride not in (1, 2) or min(pads) < 0:
+        raise ValueError(f"k={k} stride={stride} pads={pads}: the kernel "
+                         f"takes k in {_KERNEL_SIZES}, stride 1 or 2 and "
+                         f"non-negative padding")
+    ho, wo = dz.shape[1], dz.shape[2]
+    if output_size(h, wd, k, stride, pads) != (ho, wo):
+        raise ValueError(f"dz {tuple(dz.shape)} is not the output of x "
+                         f"{tuple(x_shape)} at k={k}, stride={stride}, "
+                         f"padding {tuple(pads)}")
+    dx = torch.empty(x_shape, dtype=dtype, device=dz.device)
+    fn = _fn("depthwise_dx", "dfd_depthwise_dx")
+    with torch.cuda.device(dz.device):
+        stream = torch.cuda.current_stream(dz.device).cuda_stream
+        err = fn(dz.data_ptr(), w.data_ptr(), dx.data_ptr(), bsz, h, wd, c,
+                 ho, wo, k, stride, pads[0], pads[2], _DTYPE_CODE[dtype],
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"dfd_depthwise_dx launch failed: cudaError_t "
+                           f"{err} for dz {tuple(dz.shape)}, x "
+                           f"{tuple(x_shape)} {dtype}, k={k}, "
+                           f"stride={stride}")
+    depthwise_dx.launches += 1
+    return dx
+
+
+depthwise_dx.launches = 0
+
+
 def depthwise_backward(grad: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                        scale: Optional[torch.Tensor],
                        bias: Optional[torch.Tensor],
                        z: Optional[torch.Tensor], stride: int, pads,
-                       act: str, conv: Callable, dwgrad: Callable):
+                       act: str, dx_fn: Callable, dwgrad: Callable):
     """``(dx, dw, dscale, dbias)`` of :func:`fused_depthwise` at the
     cotangent ``grad`` of y (NHWC); the counterpart of
     ``depthwise_pallas.py::fused_depthwise::_op_bwd``.
 
     ``z`` is the f32 pre-affine conv output, or None for the identity
     epilogue (no scale, no bias, act ``none``), where dz = grad and nothing
-    was saved.  ``conv(x, w, pads)`` must compute a stride-1 depthwise
-    correlation in f32 with explicit ``(top, bottom, left, right)`` pads
-    and no epilogue; ``dwgrad(x, dz, k, stride, pads)`` the weight
-    gradient (:func:`depthwise_dwgrad`).  dscale/dbias are None where scale/
-    bias are."""
+    was saved.  ``dx_fn(dz, w, x_shape, stride, pads, dtype)`` computes the
+    input gradient (:func:`depthwise_dx`), ``dwgrad(x, dz, k, stride,
+    pads)`` the weight gradient (:func:`depthwise_dwgrad`).  dscale/dbias
+    are None where scale/bias are."""
     g = grad.float()
     dscale = dbias = None
     if z is None:
@@ -362,38 +434,14 @@ def depthwise_backward(grad: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
             du = du * scale
         dz = du
     dz = dz.contiguous()
-    k = w.shape[0]
-    ho, wo = dz.shape[1], dz.shape[2]
-    h, wd = x.shape[1], x.shape[2]
-    wf = torch.flip(w.float(), dims=(0, 1)).contiguous()
-    signed = _dx_pads(h, wd, k, stride, pads, ho, wo)
-    dx = conv(dilate(dz, stride), wf, tuple(max(p, 0) for p in signed))
-    # beyond k-1 of forward padding, crop the rows and columns that lie in
-    # the padding (the JAX _op_bwd pads by k-1 and crops the same way)
-    top, left = max(-signed[0], 0), max(-signed[2], 0)
-    dx = dx[:, top:top + h, left:left + wd]
-    if dx.shape != x.shape:
-        raise AssertionError(f"dx {tuple(dx.shape)} for x {tuple(x.shape)}")
-    dw = dwgrad(x, dz, k, stride, pads)
-    return dx.to(x.dtype), dw.to(w.dtype), dscale, dbias
-
-
-def cuda_conv(x, w, pads):
-    """The backward's ``conv`` on the card: the forward kernel at stride 1,
-    act none, no affine."""
-    return _launch(x, w, None, None, 1, pads, "none")[0]
-
-
-def plain_conv(x, w, pads):
-    """The plain version of the backward's ``conv`` argument."""
-    t, b, l, r = pads
-    return fused_depthwise_reference(x, w, None, None, 1, [(t, b), (l, r)],
-                                     "none")
+    dx = dx_fn(dz, w, tuple(x.shape), stride, pads, x.dtype)
+    dw = dwgrad(x, dz, w.shape[0], stride, pads)
+    return dx, dw.to(w.dtype), dscale, dbias
 
 
 class _CudaDepthwise(torch.autograd.Function):
-    """The forward kernel as an autograd node; its backward runs dx through
-    the same kernel and dw through the dw-gradient kernel."""
+    """The forward kernel as an autograd node; its backward runs the dx and
+    dw-gradient kernels."""
 
     @staticmethod
     def forward(ctx, x, w, scale, bias, s, pads, act):
@@ -408,7 +456,7 @@ class _CudaDepthwise(torch.autograd.Function):
         x, w, scale, bias, z = ctx.saved_tensors
         s, pads, act = ctx.cfg
         dx, dw, dscale, dbias = depthwise_backward(
-            grad, x, w, scale, bias, z, s, pads, act, cuda_conv,
+            grad, x, w, scale, bias, z, s, pads, act, depthwise_dx,
             depthwise_dwgrad)
         return dx, dw, dscale, dbias, None, None, None
 

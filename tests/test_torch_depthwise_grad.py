@@ -10,9 +10,12 @@ Pallas kernel cannot be traced by this jax version; see ROADMAP.)
   tensors (its plain PyTorch version) gives dx, dw, dscale and dbias.
 * ``depthwise_dwgrad_reference`` (the dw-gradient kernel's plain version)
   gives JAX's dw.
+* ``depthwise_dx_reference`` (the dx kernel's plain version: dilation,
+  flipped-kernel correlation, crop) gives autograd's and JAX's dx at x's
+  size, also for padding beyond k-1.
 * ``depthwise_backward``, the glue the CUDA autograd node runs (epilogue
-  cotangents, dz dilation, dx padding), with the plain versions of its two
-  device ops passed in, gives autograd's gradients.
+  cotangents), with the plain versions of its two device ops passed in,
+  gives autograd's gradients.
 * A numpy model of the CUDA dw-gradient kernel's partition and summation
   order gives the plain version's and JAX's dw.
 
@@ -128,7 +131,7 @@ def test_dwgrad_reference_matches_jax_dw(k, stride, pad):
 @pytest.mark.parametrize("k", [3, 5])
 def test_backward_glue_with_plain_ops_matches_autograd(k, stride, pad,
                                                        epilogue, shape):
-    """``depthwise_backward`` with ``plain_conv`` and the plain dw gradient
+    """``depthwise_backward`` with the plain dx and dw-gradient versions
     (what the CUDA node runs with the kernels) against autograd through the
     plain forward, including the dx padding for asymmetric 'same' and for
     stride 2 with odd H/W, and the z-free identity epilogue."""
@@ -152,7 +155,7 @@ def test_backward_glue_with_plain_ops_matches_autograd(k, stride, pad,
             tdw.fused_depthwise_reference(xt, wt, None, None, stride, pad,
                                           "none")
         got = tdw.depthwise_backward(g, xt, wt, st, bt, z, stride, pads, act,
-                                     tdw.plain_conv,
+                                     tdw.depthwise_dx_reference,
                                      tdw.depthwise_dwgrad_reference)
     got = [t for t in got if t is not None]
     assert len(got) == len(want)
@@ -165,16 +168,40 @@ def test_backward_glue_with_plain_ops_matches_autograd(k, stride, pad,
     (15, 5, 2, (2, 2, 2, 2)),      # odd size: the last column gets no tap
     (13, 3, 1, (1, 1, 1, 1))])
 def test_dx_padding_gives_the_input_size(h, k, stride, pads):
-    ho = tdw.output_size(h, h, k, stride, pads)[0]
-    t, b, l, r = tdw.dx_padding(h, h, k, stride, pads, ho, ho)
-    dilated = (ho - 1) * stride + 1
-    assert tdw.output_size(dilated, dilated, k, 1, (t, b, l, r)) == (h, h)
-    assert min(t, b, l, r) >= 0
+    """The plain dx version pads its correlation so that dx comes out at
+    exactly x's size, and agrees with autograd through the plain forward;
+    the wrapper takes it for a CPU tensor and counts no launch."""
+    _check_plain_dx(h, k, stride, pads)
 
 
 def test_dx_padding_rejects_padding_beyond_k_minus_1():
-    with pytest.raises(ValueError, match="exceeds k-1"):
-        tdw.dx_padding(10, 10, 3, 1, (3, 3, 3, 3), 12, 12)
+    """Beyond k-1 of forward padding the correlation takes at most k-1 a
+    side (``_dx_pads`` is negative there) and the plain dx version crops the
+    rows and columns that lie in the padding instead: dx at x's size, equal
+    to autograd's."""
+    assert tdw._dx_pads(10, 10, 3, 1, (3, 3, 3, 3), 14, 14) == (-1, -1, -1,
+                                                                 -1)
+    _check_plain_dx(10, 3, 1, (3, 3, 3, 3))
+
+
+def _check_plain_dx(h, k, stride, pads):
+    rng = np.random.default_rng(h + k + stride)
+    x = torch.from_numpy(rng.standard_normal((2, h, h, 5)).astype(
+        np.float32)).requires_grad_()
+    w = torch.from_numpy((rng.standard_normal((k, k, 5)) * 0.2).astype(
+        np.float32))
+    padding = [(pads[0], pads[1]), (pads[2], pads[3])]
+    y = tdw.fused_depthwise_reference(x, w, None, None, stride, padding,
+                                      "none")
+    dz = torch.from_numpy(rng.standard_normal(tuple(y.shape)).astype(
+        np.float32))
+    (want,) = torch.autograd.grad(y, x, dz)
+    before = tdw.depthwise_dx.launches
+    for fn in (tdw.depthwise_dx_reference, tdw.depthwise_dx):
+        got = fn(dz, w, tuple(x.shape), stride, pads, torch.float32)
+        assert tuple(got.shape) == tuple(x.shape)
+        _close(got.numpy(), want.numpy(), "dx")
+    assert tdw.depthwise_dx.launches == before
 
 
 @pytest.mark.parametrize("pads", [(3, 3, 3, 3), (4, 4, 4, 4), (3, 4, 4, 3),
@@ -184,8 +211,8 @@ def test_dx_padding_rejects_padding_beyond_k_minus_1():
 def test_backward_glue_beyond_k_minus_1_matches_jax_vjp(stride, epilogue,
                                                         pads):
     """Padding k and k+1 a side at k = 3 (and mixed sides): the glue with
-    the plain device ops, which crops dx out of a correlation padded by at
-    most k-1, against ``jax.vjp`` of the XLA composition, whose backward
+    the plain device ops, whose dx is cropped out of a correlation padded by
+    at most k-1, against ``jax.vjp`` of the XLA composition, whose backward
     pads by k-1 and crops."""
     k, shape = 3, SHAPES[0]
     seed = 97 * stride + sum(pads) + len(epilogue)
@@ -206,7 +233,8 @@ def test_backward_glue_beyond_k_minus_1_matches_jax_vjp(stride, epilogue,
     z = None if not affine else tdw.fused_depthwise_reference(
         xt, wt, None, None, stride, padding, "none")
     got = tdw.depthwise_backward(torch.from_numpy(g), xt, wt, st, bt, z,
-                                 stride, pads, act, tdw.plain_conv,
+                                 stride, pads, act,
+                                 tdw.depthwise_dx_reference,
                                  tdw.depthwise_dwgrad_reference)
     names = ("dx", "dw", "dscale", "dbias") if affine else ("dx", "dw")
     for name, a, b in zip(names, got, want):
