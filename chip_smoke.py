@@ -7,7 +7,9 @@ Run from the root of a checkout, with no arguments::
 Phases, each printed as a JSON line; any failure raises and exits non-zero
 before the result line:
 
-1. device: the card's ``nvidia-smi`` name and power limit, torch and CUDA;
+1. device: the card's ``nvidia-smi`` name and power limit, torch and CUDA,
+   and whether a ten-line C file that includes ``jpeglib.h`` compiles and
+   links with ``-ljpeg`` (reported; it fails nothing);
 2. build: ``nvcc`` compiles every kernel source of the port (the three
    depthwise and the three flash-attention kernels), one process per
    source, all started together (timed, with ptxas' register report); for
@@ -67,8 +69,22 @@ before the result line:
    data: 8 steps, validation of the model and its EMA, checkpoints); 55
    forward, 55 dx and 55 dw-gradient launches per step; loss finite; params, BN stats and EMA moved; the inference
    path scores a frame with the checkpoint; ms per step, samples/s, peak
-   memory, and the device time per step by kernel kind;
-9. TimeSformer training path: ``runners.train`` in-process on
+   memory, the loader's host wait, and the device time per step by kernel
+   kind;
+9. training from a clip tree (``train_data``): a seeded tree of uint8
+   ``.npy`` frames at 640² under ``build/chip_smoke/tree`` (more fakes than
+   reals, some clips shorter than 4 frames), ``runners.train`` in-process
+   on the flagship at 12×600², batch 3, with ``scripts/train.sh``'s flags
+   (``--amp``, ``--auto-resume`` and ``--recovery-interval`` are not ported;
+   one epoch, which gives ≥ 8 steps): 55/55/55 depthwise launches a step,
+   loss finite, no guarded step, params and BN stats moved, the checkpoint
+   scores a frame; one prologue batch on the card against the same batch
+   rendered on the CPU, stage by stage (draws made on the CPU); a pack of
+   the tree (``data/packed.py``) whose first two training batches equal the
+   tree's bitwise; ms per step, samples/s, peak memory, the loader's host
+   wait, each prologue stage's device ms (torch.profiler) and the idle
+   share of profiled steps, beside the synthetic phase's;
+10. TimeSformer training path: ``runners.train`` in-process on
    ``timesformer_base_patch25_600`` (full width and depth) at 12×600²,
    batch 8, ``--attn-impl flash``: 8 steps, validation of the model and its
    EMA, a checkpoint; 12 forward, 12 dQ and 12 dK/dV launches a step and 12
@@ -76,12 +92,12 @@ before the result line:
    EMA reloaded from the checkpoint scores the eval set as the run did; ms
    per step, samples/s, peak memory, the device time per step by kernel kind
    and the eval forward's clips/s at batch 16;
-10. card against CPU: one guarded train step of the full flagship at
+11. card against CPU: one guarded train step of the full flagship at
    12×224², batch 2, and of the full TimeSformer at 12×300², batch 2, from
    the same weights on the card and on the CPU (loss, every parameter's
    update, BN running stats); then a NaN batch through each card step must
    leave the whole state bitwise unchanged;
-11. the ``kernels`` line (all six kernels), the ``nvidia-smi`` line, and
+12. the ``kernels`` line (all six kernels), the ``nvidia-smi`` line, and
    last ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or in a directory that holds only this file, it exits
@@ -112,7 +128,13 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.profiler import ProfilerActivity, profile
 
 from deepfake_detection_tpu_torch import losses
-from deepfake_detection_tpu_torch.csrc.build import build, kernel
+from deepfake_detection_tpu_torch.csrc.build import _nvcc, build, kernel
+from deepfake_detection_tpu_torch.data.device_augment import (
+    DeviceAugmentSpec, derive_geometric_batch)
+from deepfake_detection_tpu_torch.data.loader import Prologue
+from deepfake_detection_tpu_torch.data.random_erasing import \
+    draw_random_erasing
+from deepfake_detection_tpu_torch.data.packed import write_pack
 from deepfake_detection_tpu_torch.models import (create_deepfake_model_v4,
                                                  create_model)
 from deepfake_detection_tpu_torch.ops import depthwise as dw
@@ -184,6 +206,42 @@ FLASH_L, FLASH_D = 576, 64
 FLASH_TOL = (2e-5, 2e-5)
 FLASH_GRAD_TOL = 1e-5
 
+# training from a clip tree: scripts/train.sh's flags (--amp, --auto-resume
+# and --recovery-interval are not ported) with one epoch; --log-interval 1,
+# as the synthetic phase, reads each step's metrics back
+TREE_HW = 640                     # uniform source frames, larger than 600
+TREE_REALS, TREE_FAKES = 14, 30   # label balance: 26 train samples, 8 steps
+DATA_FLAGS = ["--model", "efficientnet_deepfake_v4", "--model-version", "v4",
+              "--input-size-v2", "12,600,600", "-b", str(TRAIN_BATCH),
+              "--opt", "rmsproptf", "--basic-lr", "5e-7", "--sched", "step",
+              "--decay-epochs", "2", "--decay-rate", ".92", "--epochs", "1",
+              "--reprob", "0.2", "--remax", "0.05", "--flicker", "0.05",
+              "--rotate-range", "5", "--blur-prob", "0.05",
+              "--bn-momentum", "0.001", "--mixup", "0.1", "--label-balance",
+              "--eval-metric", "loss", "--workers", "8", "--experiment",
+              "flagship", "--log-interval", "1"]
+# the prologue, card against CPU on one batch: the warp and the blur may
+# differ by one grey level where an FMA flips a rounding at .5, in at most
+# WARP_FRAC of the values (tests/test_torch_device_augment.py); jitter within
+# JITTER_ATOL on 0..255; integer warps, the mixup blend, normalize and
+# erasing bitwise
+WARP_FRAC, WARP_MAX = 1e-3, 1.0
+JITTER_ATOL = 1e-3
+DATA_DEVICE = "cuda"
+
+JPEG_PROBE = r"""#include <stdio.h>
+#include <jpeglib.h>
+int main(void) {
+  struct jpeg_decompress_struct cinfo;
+  struct jpeg_error_mgr jerr;
+  cinfo.err = jpeg_std_error(&jerr);
+  jpeg_create_decompress(&cinfo);
+  jpeg_destroy_decompress(&cinfo);
+  printf("%d\n", JPEG_LIB_VERSION);
+  return 0;
+}
+"""
+
 
 def emit(**kw) -> None:
     print(json.dumps(kw), flush=True)
@@ -195,6 +253,30 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0]
+
+
+def jpeg_probe() -> dict:
+    """Whether a C file that includes ``jpeglib.h`` compiles and links with
+    ``-ljpeg`` here (the host compiler, else ``nvcc``), and the library's
+    ``JPEG_LIB_VERSION``."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    src, exe = OUT / "jpeg_probe.c", OUT / "jpeg_probe"
+    src.write_text(JPEG_PROBE)
+    cc = shutil.which("cc") or shutil.which("gcc")
+    if cc is None:
+        try:
+            cc = _nvcc()
+        except RuntimeError:
+            return {"ok": False, "compiler": None}
+    proc = subprocess.run([cc, str(src), "-o", str(exe), "-ljpeg"],
+                          capture_output=True, text=True, timeout=120)
+    out = {"ok": proc.returncode == 0, "compiler": cc,
+           "stderr": proc.stderr.strip()[-300:]}
+    if out["ok"]:
+        run = subprocess.run([str(exe)], capture_output=True, text=True,
+                             timeout=60)
+        out["jpeg_lib_version"] = run.stdout.strip()
+    return out
 
 
 def call_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -756,7 +838,7 @@ def _kernel_kind(name: str) -> str:
 def _emit_kinds(phase: str, prof, n: int, wall_us: float, **extra) -> None:
     """Device time and launches per iteration by kernel kind, and the
     device's idle share of the wall time, from a torch.profiler run of
-    ``n`` iterations."""
+    ``n`` iterations; returns what it printed."""
     kinds = Counter()
     launches = Counter()
     for e in prof.key_averages():
@@ -766,13 +848,15 @@ def _emit_kinds(phase: str, prof, n: int, wall_us: float, **extra) -> None:
     busy_us = sum(kinds.values())
     if busy_us == 0:
         emit(phase=phase, device_time="not measured", **extra)
-        return
-    emit(phase=phase, iterations=n,
-         ms_per_iteration={k: v / n / 1e3 for k, v in kinds.items()},
-         launches_per_iteration={k: v / n for k, v in launches.items()},
-         busy_ms_per_iteration=busy_us / n / 1e3,
-         wall_ms_per_iteration=wall_us / n / 1e3,
-         idle_share=max(0.0, 1.0 - busy_us / wall_us), **extra)
+        return {}
+    out = dict(phase=phase, iterations=n,
+               ms_per_iteration={k: v / n / 1e3 for k, v in kinds.items()},
+               launches_per_iteration={k: v / n for k, v in launches.items()},
+               busy_ms_per_iteration=busy_us / n / 1e3,
+               wall_ms_per_iteration=wall_us / n / 1e3,
+               idle_share=max(0.0, 1.0 - busy_us / wall_us), **extra)
+    emit(**out)
+    return out
 
 
 def phase_profile(model, x, iters: int = 3) -> None:
@@ -857,13 +941,15 @@ def phase_train(frame: str) -> dict:
         raise AssertionError(f"checkpoint scored {score}")
     step_s = result["train"]["step_s"][1:]        # the first one warms up
     ms_step = float(np.mean(step_s)) * 1e3
+    numbers = dict(ms_per_step=ms_step, samples_per_s=TRAIN_BATCH / (
+        ms_step / 1e3), peak_mem_gib=peak / 2 ** 30,
+        host_wait_ms_per_step=result["loader"]["host_wait_s"]
+        / result["loader"]["batches"] * 1e3)
     emit(phase="train", steps=steps, forward_launches=fwd,
          dx_launches=dxl, dwgrad_launches=dwg, loss=result["train"]["loss"],
          eval_loss=result["eval"]["loss"], moved_leaves=moved,
          checkpoint=str(last.relative_to(ROOT)), score=score[0],
-         ms_per_step=ms_step, step_ms=[v * 1e3 for v in step_s],
-         samples_per_s=TRAIN_BATCH / (ms_step / 1e3),
-         peak_mem_gib=peak / 2 ** 30, wall_s=wall)
+         step_ms=[v * 1e3 for v in step_s], wall_s=wall, **numbers)
     del result, ckpt, init
     gc.collect()
     torch.cuda.empty_cache()
@@ -887,11 +973,254 @@ def phase_train(frame: str) -> dict:
             run.train_step(run.state, x, y)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    _emit_kinds("train_profile", prof, len(batches) - 2, wall_us,
-                batch=TRAIN_BATCH)
+    kinds = _emit_kinds("train_profile", prof, len(batches) - 2, wall_us,
+                        batch=TRAIN_BATCH)
     del run, batches
     gc.collect()
     torch.cuda.empty_cache()
+    return dict(forward_launches=fwd, dx_launches=dxl, dwgrad_launches=dwg,
+                idle_share=kinds.get("idle_share"), **numbers)
+
+
+def make_clip_tree(root: Path, seed: int = 0) -> Path:
+    """A seeded clip tree of uint8 ``.npy`` frames at ``TREE_HW``² (4×4
+    blocks of noise, so warps and blurs see structure), some clips shorter
+    than 4 frames, more fakes than reals, and the ``name:num`` lists."""
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(seed)
+    q = TREE_HW // 4
+    for kind, n in (("real", TREE_REALS), ("fake", TREE_FAKES)):
+        lines = []
+        for c in range(n):
+            nf = (2, 3, 4, 5, 6, 4)[c % 6]
+            d = root / kind / f"clip{c:03d}"
+            d.mkdir(parents=True)
+            for i in range(nf):
+                block = rng.integers(0, 256, (q, q, 3), dtype=np.uint8)
+                np.save(d / f"{i}.npy", np.repeat(np.repeat(block, 4, 0), 4,
+                                                  1))
+            lines.append(f"clip{c:03d}:{nf}\n")
+        (root / f"{kind}_list.txt").write_text("".join(lines))
+    return root
+
+
+def _stage_ms(fn, iters: int = 5) -> float:
+    """Device ms of a call of ``fn``: its kernels and copies summed over
+    ``iters`` calls by torch.profiler (after a warm-up), per call."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / iters / 1e3
+
+
+def _grey_diff(got: torch.Tensor, want: torch.Tensor):
+    d = (got.double().cpu() - want.double().cpu()).abs()
+    return float((d > 0).double().mean()), float(d.max())
+
+
+def phase_prologue(run) -> dict:
+    """One train batch through the prologue on the card and on the CPU,
+    stage by stage from the same input (the draws made on the CPU, moved to
+    the card), and each stage's device ms on the card."""
+    dl = run.train_loader
+    gen = iter(dl.loader)
+    hb = next(gen)
+    gen.close()
+    card = dl.to_device(hb)
+    pro = dl.prologue
+    cpu = Prologue("cpu", img_num=pro.img_num, spec=pro.spec)
+    p_cpu, p_card = hb.params, card.params
+    out = {}
+    w_cpu = cpu.warp(hb.images, p_cpu["coeffs"])
+    w_card = pro.warp(card.images, p_card["coeffs"])
+    out["warp_frac"], out["warp_max"] = _grey_diff(w_card, w_cpu)
+    # integer coefficients (scale 1, no rotation) from the same samples
+    spec1 = DeviceAugmentSpec(size=pro.spec.size, scale=(1.0, 1.0),
+                              img_num=pro.img_num)
+    k1 = torch.from_numpy(derive_geometric_batch(
+        spec1, hb.indices, dl.loader.seed, 0, hb.images.shape[1:3])[0])
+    int_equal = torch.equal(
+        cpu.warp(hb.images, k1),
+        pro.warp(card.images, k1.to(DATA_DEVICE)).cpu())
+    # the later stages from the CPU's input on both sides; every frame
+    # blurred when no coin fired in this batch
+    frames = p_cpu["blur"] or [(b, f) for b in range(hb.images.shape[0])
+                               for f in range(pro.img_num)]
+    b_cpu = cpu.blur(w_cpu.clone(), frames)
+    b_card = pro.blur(w_cpu.to(DATA_DEVICE), frames)
+    out["blur_frac"], out["blur_max"] = _grey_diff(b_card, b_cpu)
+    j_cpu = cpu.jitter(b_cpu.clone(), p_cpu["jitter"])
+    j_card = pro.jitter(b_cpu.to(DATA_DEVICE), p_cpu["jitter"])
+    out["jitter_max"] = _grey_diff(j_card, j_cpu)[1]
+    m_cpu = cpu.blend(j_cpu, p_cpu["lam"])
+    blend_equal = torch.equal(
+        pro.blend(j_cpu.to(DATA_DEVICE), p_cpu["lam"]).cpu(), m_cpu)
+    n_cpu = cpu.normalize(m_cpu)
+    norm_equal = torch.equal(pro.normalize(m_cpu.to(DATA_DEVICE)).cpu(), n_cpu)
+    # erasing: this batch's boxes, or, when it drew none, boxes drawn at
+    # probability 1 with the run's other settings
+    boxes = p_cpu["erase"] or draw_random_erasing(
+        torch.Generator().manual_seed(0), *n_cpu.shape,
+        img_num=pro.img_num, **{**dl.erasing, "probability": 1.0})
+    e_cpu = cpu.erase(n_cpu.clone(), boxes)
+    e_card = pro.erase(n_cpu.to(DATA_DEVICE), [
+        bx._replace(fill=None if bx.fill is None
+                    else bx.fill.to(DATA_DEVICE)) for bx in boxes])
+    erase_equal = torch.equal(e_card.cpu(), e_cpu)
+    whole_cpu = cpu(hb.images, p_cpu)
+    whole_card = pro(card.images, p_card)
+    std = (1.0 / pro.inv_std).cpu()
+    d = ((whole_card.cpu() - whole_cpu).permute(0, 2, 3, 1) * std).abs()
+    out.update(integer_warp_bitwise=int_equal, blend_bitwise=blend_equal,
+               normalize_bitwise=norm_equal, erase_bitwise=erase_equal,
+               erase_boxes=len(boxes), batch_erase_boxes=len(p_cpu["erase"]),
+               blur_frames=len(frames),
+               whole_frac=float((d > 1e-3).double().mean()),
+               whole_max_grey=float(d.max()))
+    if not (int_equal and blend_equal and norm_equal and erase_equal
+            and out["warp_frac"] <= WARP_FRAC and out["warp_max"] <= WARP_MAX
+            and out["blur_frac"] <= WARP_FRAC and out["blur_max"] <= WARP_MAX
+            and out["jitter_max"] <= JITTER_ATOL):
+        raise AssertionError(f"prologue, card against CPU: {out}")
+    # device ms of each stage on the card's batch
+    x = w_card
+    ms = {"h2d": _stage_ms(lambda: dl.to_device(hb)),
+          "warp": _stage_ms(lambda: pro.warp(card.images, p_card["coeffs"])),
+          "blur": _stage_ms(lambda: pro.blur(x.clone(), p_card["blur"])),
+          "jitter": _stage_ms(lambda: pro.jitter(x.clone(),
+                                                 p_card["jitter"])),
+          "blend": _stage_ms(lambda: pro.blend(x, p_card["lam"])),
+          "normalize": _stage_ms(lambda: pro.normalize(x)),
+          "erase": _stage_ms(lambda: pro.erase(x.clone(), p_card["erase"])),
+          "whole": _stage_ms(lambda: pro(card.images, p_card))}
+    out["device_ms"] = ms
+    out["blur_frames_in_batch"] = len(p_card["blur"])
+    return out
+
+
+def phase_train_data(frame: str, synthetic: dict) -> dict:
+    """``runners.train`` from a clip tree with ``scripts/train.sh``'s flags
+    on the flagship; the prologue card against CPU; a pack of the tree
+    against the tree."""
+    root = make_clip_tree(OUT / "tree")
+    out = OUT / "train_data"
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = train_runner.parse_args(DATA_FLAGS + ["--data", str(root),
+                                                "--output", str(out)])
+    train_ds, eval_ds = train_runner.build_datasets(cfg)
+    want_steps = len(train_ds) // TRAIN_BATCH
+    eval_batches = math.ceil(len(eval_ds) / (2 * TRAIN_BATCH))
+    init = train_runner.build_model(cfg, "cpu").state_dict()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    result = train_runner.main(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, dxl, dwg = _counts()
+    flash = _flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(result["train"]["step_s"])
+    if steps < 8 or steps != want_steps or flash != (0, 0, 0) or \
+            (fwd, dxl, dwg) != (55 * (steps + eval_batches), 55 * steps,
+                                55 * steps):
+        raise AssertionError(
+            f"train_data: {steps} steps, {fwd} forward, {dxl} dx, {dwg} "
+            f"dw-gradient and {flash} flash launches; expected {want_steps} "
+            f"(≥ 8), {55 * (steps + eval_batches)}, {55 * steps}, "
+            f"{55 * steps} and none")
+    if not (np.isfinite(result["train"]["loss"])
+            and np.isfinite(result["eval"]["loss"])):
+        raise AssertionError(f"non-finite loss: {result}")
+    if result["train"]["nonfinite"]:
+        raise AssertionError(f"{result['train']['nonfinite']} guarded steps")
+    last = Path(result["output_dir"]) / "last.pth.tar"
+    sd = torch.load(last, map_location="cpu", weights_only=True)["state_dict"]
+    stats = ("running_mean", "running_var")
+    counters = stats + ("num_batches_tracked",)
+    moved = {"params": sum(not torch.equal(v, init[k]) for k, v in sd.items()
+                           if not k.endswith(counters)),
+             "bn": sum(not torch.equal(v, init[k]) for k, v in sd.items()
+                       if k.endswith(stats))}
+    if not all(moved.values()):
+        raise AssertionError(f"state did not move in training: {moved}")
+    score = runner.test_img(str(last), [frame], size=600,
+                           device=DATA_DEVICE)
+    if not (len(score) == 1 and 0.0 <= score[0] <= 1.0):
+        raise AssertionError(f"checkpoint scored {score}")
+    step_s = result["train"]["step_s"][1:]
+    ms_step = float(np.mean(step_s)) * 1e3
+    loader = result["loader"]
+    numbers = dict(loss=result["train"]["loss"],
+                   eval_loss=result["eval"]["loss"], ms_per_step=ms_step,
+                   samples_per_s=TRAIN_BATCH / (ms_step / 1e3),
+                   peak_mem_gib=peak / 2 ** 30,
+                   host_wait_ms_per_step=loader["host_wait_s"]
+                   / loader["batches"] * 1e3,
+                   fetch_ms_per_batch=loader["fetch_s"]
+                   / loader["batches"] * 1e3)
+    del result, sd, init
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one step's launches and a profiled run of steps fed by the loader
+    run = train_runner.setup(cfg)
+    run.train_loader.set_epoch(0)
+    it = iter(run.train_loader)
+    run.train_step(run.state, *next(it))
+    torch.cuda.synchronize()
+    _reset_counts()
+    run.train_step(run.state, *next(it))
+    torch.cuda.synchronize()
+    if _counts() != (55, 55, 55):
+        raise AssertionError(f"one train step launched {_counts()}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            run.train_step(run.state, *next(it))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    it.close()
+    kinds = _emit_kinds("train_data_profile", prof, 3, wall_us,
+                        batch=TRAIN_BATCH)
+    prologue = phase_prologue(run)
+    del run, it
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the packed cache of the same tree: the first two batches bitwise
+    t0 = time.perf_counter()
+    index = write_pack(str(root), str(OUT / "pack"), workers=8, force=True)
+    pack_s = time.perf_counter() - t0
+    cfg_p = train_runner.parse_args(DATA_FLAGS + [
+        "--data", str(root), "--data-packed", str(OUT / "pack"),
+        "--output", str(out)])
+    pairs = []
+    for c in (cfg, cfg_p):
+        tl, _ = train_runner.build_loaders(c, torch.device(DATA_DEVICE),
+                                           *train_runner.build_datasets(c))
+        tl.set_epoch(0)
+        pairs.append(list(itertools.islice(iter(tl), 2)))
+    packed_equal = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                       for a, b in zip(*pairs))
+    if not packed_equal or len(pairs[1]) != 2:
+        raise AssertionError("packed batches differ from the tree's")
+    emit(phase="train_data", steps=steps, forward_launches=fwd,
+         dx_launches=dxl, dwgrad_launches=dwg, eval_batches=eval_batches,
+         train_samples=len(train_ds), eval_samples=len(eval_ds),
+         moved_leaves=moved, checkpoint=str(last.relative_to(ROOT)),
+         score=score[0], step_ms=[v * 1e3 for v in step_s], wall_s=wall,
+         idle_share=kinds.get("idle_share"), prologue=prologue,
+         pack={"write_s": pack_s, "clips": len(index["clips"]),
+               "bytes": sum(int(s_["num_samples"]) for s_ in index["shards"])
+               * TREE_HW * TREE_HW * 12, "first_two_batches_bitwise": True},
+         synthetic=synthetic, **numbers)
     return dict(forward_launches=fwd, dx_launches=dxl, dwgrad_launches=dwg)
 
 
@@ -1565,7 +1894,7 @@ def main() -> int:
     smi = nvidia_smi_line()
     emit(phase="device", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
-         count=torch.cuda.device_count())
+         count=torch.cuda.device_count(), jpeglib=jpeg_probe())
 
     t0 = time.perf_counter()
     libs = build()
@@ -1597,6 +1926,9 @@ def main() -> int:
                              f"dw-gradient and flash kernels {_counts()[1:]}"
                              f", {_flash_counts()} times")
     t = phase_train(frame)
+    td = phase_train_data(frame, {k: t[k] for k in (
+        "ms_per_step", "samples_per_s", "peak_mem_gib",
+        "host_wait_ms_per_step", "idle_share")})
     tsf = phase_tsf_train()
     phase_card_vs_cpu()
     phase_card_vs_cpu(TSF_MODEL, _timesformer(300), size=300, batch=2)
@@ -1605,9 +1937,11 @@ def main() -> int:
         dict(name="depthwise_fwd", route="cuda",
              source="deepfake_detection_tpu_torch/csrc/depthwise_fwd.cu",
              replaces="deepfake_detection_tpu/ops/depthwise_pallas.py:138",
-             launches=infer_launches + t["forward_launches"],
+             launches=infer_launches + t["forward_launches"]
+             + td["forward_launches"],
              launches_by_path={"inference": infer_launches,
-                               "train": t["forward_launches"]},
+                               "train": t["forward_launches"],
+                               "train_data": td["forward_launches"]},
              max_abs_err=max(k["max_abs_err"], b["y_max_abs_err"]),
              ms=k["ms"], kernel_ms=k["ms"],
              plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
@@ -1626,8 +1960,9 @@ def main() -> int:
              source="deepfake_detection_tpu_torch/csrc/depthwise_dx.cu",
              replaces="deepfake_detection_tpu/ops/depthwise_pallas.py:138 "
                       "(reused for dx by _op_bwd, :387-403)",
-             launches=t["dx_launches"],
-             launches_by_path={"train": t["dx_launches"]},
+             launches=t["dx_launches"] + td["dx_launches"],
+             launches_by_path={"train": t["dx_launches"],
+                               "train_data": td["dx_launches"]},
              max_abs_err=d["max_abs_err"], max_rel_err=d["max_rel_err"],
              ms=d["ms"], kernel_ms=d["ms"], plain_ms=d["plain_ms"],
              bound_ms=d["bound_ms"],
@@ -1642,8 +1977,9 @@ def main() -> int:
         dict(name="depthwise_dwgrad", route="cuda",
              source="deepfake_detection_tpu_torch/csrc/depthwise_dwgrad.cu",
              replaces="deepfake_detection_tpu/ops/depthwise_pallas.py:214",
-             launches=t["dwgrad_launches"],
-             launches_by_path={"train": t["dwgrad_launches"]},
+             launches=t["dwgrad_launches"] + td["dwgrad_launches"],
+             launches_by_path={"train": t["dwgrad_launches"],
+                               "train_data": td["dwgrad_launches"]},
              max_abs_err=g["max_abs_err"], ms=g["ms"], kernel_ms=g["ms"],
              plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
              bound_by="bytes" if g["bytes_ms"] >= g["ops_ms"]

@@ -1,1 +1,3 @@
-"""Data of the PyTorch port: synthetic dataset, mixup, a minimal loader."""
+"""Data of the PyTorch port: the clip dataset and its packed cache, the
+samplers, the host transforms, the device augment chain, RandomErasing,
+mixup and the loaders."""

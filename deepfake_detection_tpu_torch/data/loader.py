@@ -1,119 +1,197 @@
-"""Minimal training and eval loader.
+"""Batch loading: host threads, then one prologue a batch on the device.
 
-Counterpart of the JAX package's host loader + device prologue
-(``deepfake_detection_tpu/data/loader.py``), cut to what synthetic
-training needs:
+Counterpart of ``deepfake_detection_tpu/data/loader.py``:
 
-* samplers: train draws a seeded per-epoch permutation
-  (``SeedSequence([seed, epoch])``) and drops the last partial batch; eval
-  walks the dataset in order, wrap-pads the last batch and marks the
-  padding invalid, so metrics stay exact;
-* a host batcher thread stacks uint8 HWC samples and applies the collate
-  mixup with the per-batch generator ``SeedSequence([seed, epoch, batch,
-  0x77])``, as the JAX host loaders do;
-* on a CUDA device each batch lands in pinned host memory and is copied
-  with ``non_blocking=True``; the device normalizes with the port's own
-  constants (``params.img_mean``/``img_std``, tiled per frame) and hands the
-  model an NCHW view in ``channels_last`` memory.
+* :class:`HostLoader`: ``--workers`` threads (a ``ThreadPoolExecutor``)
+  load a batch's samples, each with its generator ``SeedSequence([seed,
+  epoch, index])``, so a batch is the same for any worker count; the batch
+  is stacked straight into pinned memory when the device is a card, the
+  collate mixup runs with ``[seed, epoch, batch, 0x77]``, and the
+  prologue's parameters are derived in the same thread, beside the batch;
+  a bounded queue (``--prefetch-depth``) holds the batches ahead;
+* :class:`Prologue`: on the device, on the current stream, in the host
+  chain's order: warp → blur → jitter/flicker → mixup blend → normalize →
+  erase (``data/device_augment.py``, ``data/random_erasing.py``); the
+  model gets NCHW in ``channels_last`` memory;
+* :class:`DeviceLoader`: copies each host batch over with ``non_blocking``
+  and runs the prologue; :class:`LoaderStats` counts the consumer's wait
+  for the host;
+* :func:`create_deepfake_loader_v3` (the clip dataset) and
+  :func:`create_loader` (datasets without a transform, as the synthetic
+  one) with the JAX factory's rules.
 
-The shm transport, device augment, RandomErasing and the packed cache are
-ROADMAP Queue 1 item 7.
+Jitter/flicker and erasing draw from a ``torch.Generator`` seeded a batch
+from ``SeedSequence([seed, epoch, batch, tag])``: a batch's draws are a
+function of its position.  The JAX package draws them from ``jax.random``.
+
+The port runs the train chain in its device form only (the JAX package's
+``--augment-device on``); the host Pillow chain is ROADMAP Queue 1 item 7.
+The shm ring transport (``data/shm_ring.py``) is not ported; threads carry
+the host side.
 """
 
 from __future__ import annotations
 
-import math
 import queue
 import threading
-from typing import Iterator, List, Tuple
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..params import img_mean, img_std
+from .device_augment import (DeviceAugmentSpec, apply_color_jitter,
+                             derive_geometric_batch, derive_mixup_lam,
+                             device_blur, device_geometric,
+                             device_mixup_blend, draw_color_jitter)
+from .mixup import FastCollateMixup
+from .random_erasing import (EraseBox, apply_random_erasing,
+                             draw_random_erasing)
+from .samplers import OrderedShardedSampler, ShardedTrainSampler, \
+    epoch_batches
+from .transforms_factory import (transforms_deepfake_eval_v3,
+                                 transforms_deepfake_train_passthrough)
 
-__all__ = ["Loader", "train_batches", "eval_batches"]
+__all__ = ["train_batches", "eval_batches", "HostBatch", "HostLoader",
+           "LoaderStats", "Prologue", "DeviceLoader", "create_loader",
+           "create_deepfake_loader_v3", "batch_generator"]
+
+_JITTER_TAG = 0x6A17           # per-batch generator tags
+_ERASE_TAG = 0xE2A5
+
+#: --augment-device off: the host Pillow chain
+HOST_CHAIN_ITEM = ("the host Pillow augment chain (--augment-device off, hue "
+                   "jitter; ROADMAP Queue 1 item 7)")
 
 
 def train_batches(n: int, batch_size: int, seed: int,
                   epoch: int) -> List[np.ndarray]:
     """Index batches of one training epoch (partial batch dropped)."""
-    perm = np.random.default_rng(
-        np.random.SeedSequence([seed, epoch])).permutation(n)
-    nb = n // batch_size
-    return [perm[i * batch_size:(i + 1) * batch_size] for i in range(nb)]
+    sampler = ShardedTrainSampler(n, batch_size=batch_size, seed=seed)
+    sampler.set_epoch(epoch)
+    batches, _ = epoch_batches(sampler, batch_size)
+    return [np.asarray(b) for b in batches]
 
 
 def eval_batches(n: int, batch_size: int
                  ) -> List[Tuple[np.ndarray, np.ndarray]]:
     """``(indices, valid)`` batches in order, the last wrap-padded."""
-    total = int(math.ceil(n / batch_size)) * batch_size
-    idx = np.arange(total)
-    valid = idx < n
-    idx = idx % n
-    return [(idx[i:i + batch_size], valid[i:i + batch_size])
-            for i in range(0, total, batch_size)]
+    batches, vms = epoch_batches(
+        OrderedShardedSampler(n, batch_size=batch_size), batch_size, True)
+    return [(np.asarray(b), v) for b, v in zip(batches, vms)]
 
 
-class Loader:
-    """Iterates ``(x, y)`` (train) or ``(x, y, valid)`` (eval) device
-    batches; ``x`` is normalized float32 NCHW in channels_last memory, ``y``
-    int64 labels or float32 soft targets (under mixup)."""
+def batch_generator(seed: int, epoch: int, batch_index: int,
+                    tag: int) -> torch.Generator:
+    """A CPU ``torch.Generator`` seeded from ``SeedSequence([seed, epoch,
+    batch_index, tag])``."""
+    lo, hi = np.random.SeedSequence(
+        [seed, epoch, batch_index, tag]).generate_state(2, np.uint32)
+    return torch.Generator().manual_seed(int(lo) | (int(hi) << 32))
 
-    def __init__(self, dataset, batch_size: int, is_training: bool,
-                 device: torch.device, seed: int = 42,
-                 collate_mixup=None, prefetch: int = 2):
+
+@dataclass
+class HostBatch:
+    """One collated batch on the host: its dataset ``indices``, uint8 NHWC
+    ``images``, int64 labels or f32 soft ``targets``, eval's ``valid``
+    mask, and the prologue's parameters (``params``)."""
+    indices: List[int]
+    images: torch.Tensor
+    targets: torch.Tensor
+    valid: Optional[torch.Tensor] = None
+    params: Dict[str, Any] = field(default_factory=dict)
+
+
+class LoaderStats:
+    """Counters of the loaders: batches, the consumer's wait for the host
+    (``host_wait_s``) and the producer's load + collate time
+    (``fetch_s``)."""
+
+    __slots__ = ("batches", "host_wait_s", "fetch_s")
+
+    def __init__(self):
+        self.batches = 0
+        self.host_wait_s = 0.0
+        self.fetch_s = 0.0
+
+
+class HostLoader:
+    """Load, transform and collate on host threads, ahead of the consumer.
+
+    ``prepare(bi, indices, images, epoch)``, when set (the
+    :class:`DeviceLoader` sets it), runs in the producer thread after the
+    collate and returns the batch's prologue parameters."""
+
+    def __init__(self, dataset, sampler, batch_size: int, seed: int = 42,
+                 num_workers: int = 1, prefetch_depth: int = 2,
+                 collate_mixup: Optional[FastCollateMixup] = None,
+                 valid_mask: bool = False, pin_memory: bool = False):
         self.dataset = dataset
+        self.sampler = sampler
         self.batch_size = batch_size
-        self.is_training = is_training
-        self.device = torch.device(device)
         self.seed = seed
-        self.collate_mixup = collate_mixup if is_training else None
-        self.prefetch = prefetch
+        self.num_workers = max(1, num_workers)
+        self.prefetch_depth = max(1, prefetch_depth)
+        self.collate_mixup = collate_mixup
+        self.valid_mask = valid_mask
+        self.pin_memory = pin_memory
+        self.prepare: Optional[Callable] = None
         self.epoch = 0
-        chans = dataset.image_shape[-1]
-        reps = chans // 3
-        self._mean = torch.from_numpy(np.tile(img_mean, reps)).to(self.device)
-        self._std = torch.from_numpy(np.tile(img_std, reps)).to(self.device)
+        self.stats = LoaderStats()
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
+        self.sampler.set_epoch(epoch)
         if hasattr(self.dataset, "set_epoch"):
             self.dataset.set_epoch(epoch)
 
     def __len__(self) -> int:
-        n = len(self.dataset)
-        if self.is_training:
-            return n // self.batch_size
-        return int(math.ceil(n / self.batch_size))
+        return len(self.sampler) // self.batch_size
 
-    def _host_batch(self, bi: int, idx: np.ndarray):
-        samples = [self.dataset[int(i)] for i in idx]
-        images = np.stack([np.asarray(s[0], np.uint8) for s in samples])
+    def _load_one(self, index: int) -> Tuple[np.ndarray, int]:
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, self.epoch, int(index)]))
+        img, target = self.dataset.__getitem__(int(index), rng=rng)
+        return np.asarray(img, dtype=np.uint8), target
+
+    def _collate(self, bi: int, idx: List[int], samples, valid) -> HostBatch:
+        shapes = {s[0].shape for s in samples}
+        if len(shapes) > 1:
+            raise ValueError(
+                f"batch {bi}: samples of shapes {sorted(shapes)} cannot be "
+                f"stacked; the source frames must share one size")
+        shape = (len(samples),) + samples[0][0].shape
+        images = torch.empty(shape, dtype=torch.uint8,
+                             pin_memory=self.pin_memory)
+        np.stack([s[0] for s in samples], out=images.numpy())
         targets = np.asarray([s[1] for s in samples], np.int64)
         if self.collate_mixup is not None:
-            rng = np.random.default_rng(np.random.SeedSequence(
+            mrng = np.random.default_rng(np.random.SeedSequence(
                 [self.seed, self.epoch, bi, 0x77]))
-            images, targets = self.collate_mixup(images, targets, rng)
-        x = torch.from_numpy(np.ascontiguousarray(images))
-        y = torch.from_numpy(np.ascontiguousarray(targets))
-        if self.device.type == "cuda":
-            x, y = x.pin_memory(), y.pin_memory()
-        return x, y
+            arr = images.numpy()
+            mixed, targets = self.collate_mixup(arr, targets, mrng)
+            if mixed is not arr:
+                arr[...] = mixed
+        batch = HostBatch(list(idx), images,
+                          torch.from_numpy(np.ascontiguousarray(targets)))
+        if valid is not None:
+            batch.valid = torch.from_numpy(np.asarray(valid))
+        if self.prepare is not None:
+            batch.params = self.prepare(bi, batch.indices, images,
+                                        self.epoch)
+        if self.pin_memory:
+            batch.targets = batch.targets.pin_memory()
+            if batch.valid is not None:
+                batch.valid = batch.valid.pin_memory()
+        return batch
 
-    def _to_device(self, x: torch.Tensor, y: torch.Tensor):
-        x = x.to(self.device, non_blocking=True)
-        y = y.to(self.device, non_blocking=True)
-        x = (x.float() - self._mean) / self._std
-        return x.permute(0, 3, 1, 2), y
-
-    def __iter__(self) -> Iterator[tuple]:
-        if self.is_training:
-            plan = [(b, None) for b in train_batches(
-                len(self.dataset), self.batch_size, self.seed, self.epoch)]
-        else:
-            plan = eval_batches(len(self.dataset), self.batch_size)
-        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+    def __iter__(self) -> Iterator[HostBatch]:
+        batches, vms = epoch_batches(self.sampler, self.batch_size,
+                                     self.valid_mask)
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch_depth)
         stop = threading.Event()
 
         def put(item) -> bool:
@@ -127,25 +205,275 @@ class Loader:
 
         def produce():
             try:
-                for bi, (idx, _) in enumerate(plan):
-                    if not put(self._host_batch(bi, idx)):
-                        return
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    for bi, idx in enumerate(batches):
+                        if stop.is_set():
+                            return
+                        t0 = time.perf_counter()
+                        samples = list(pool.map(self._load_one, idx))
+                        item = self._collate(
+                            bi, idx, samples,
+                            None if vms is None else vms[bi])
+                        self.stats.fetch_s += time.perf_counter() - t0
+                        self.stats.batches += 1
+                        if not put(item):
+                            return
+                put(None)
             except Exception as e:  # raised again by the consumer
                 put(e)
 
         thread = threading.Thread(target=produce, daemon=True)
         thread.start()
         try:
-            for _, valid in plan:
+            while True:
                 item = q.get()
+                if item is None:
+                    return
                 if isinstance(item, Exception):
                     raise item
-                x, y = self._to_device(*item)
-                if valid is None:
-                    yield x, y
-                else:
-                    yield x, y, torch.from_numpy(valid).to(self.device)
+                yield item
         finally:
             stop.set()
-            thread.join(timeout=5)
+            thread.join(timeout=30)
 
+
+class Prologue:
+    """The device side of a batch, stage by stage (each stage is a method,
+    so a benchmark can time it alone)."""
+
+    def __init__(self, device, img_num: int = 4,
+                 spec: Optional[DeviceAugmentSpec] = None):
+        self.img_num = img_num
+        self.spec = spec
+        # ImageNet's mean and std ×255, tiled to every frame; the JAX
+        # DeviceLoader's compiled prologue divides by the constant std as a
+        # multiply by its f32 reciprocal, and so does this one
+        self.mean = torch.from_numpy(np.tile(img_mean, img_num)).to(device)
+        self.inv_std = torch.from_numpy(
+            np.float32(1.0) / np.tile(img_std, img_num)).to(device)
+
+    def warp(self, images: torch.Tensor, coeffs: torch.Tensor):
+        return device_geometric(images, coeffs, self.spec.size)
+
+    def blur(self, x: torch.Tensor, frames: List[Tuple[int, int]]):
+        return device_blur(x, frames, self.spec.blur_radius)
+
+    def jitter(self, x: torch.Tensor, params: Dict[str, torch.Tensor]):
+        return apply_color_jitter(x, params, self.img_num)
+
+    def blend(self, x: torch.Tensor, lam: Tuple[np.float32, np.float32]):
+        return device_mixup_blend(x, lam[0], lam[1], self.spec.mixup_blocks)
+
+    def normalize(self, x: torch.Tensor) -> torch.Tensor:
+        return (x.to(torch.float32) - self.mean) * self.inv_std
+
+    def erase(self, x: torch.Tensor, boxes: List[EraseBox]):
+        return apply_random_erasing(x, boxes, self.img_num)
+
+    def __call__(self, images: torch.Tensor,
+                 params: Dict[str, Any]) -> torch.Tensor:
+        """uint8 NHWC ``images`` on the device → normalized f32 NCHW in
+        ``channels_last`` memory."""
+        x = images
+        if "coeffs" in params:
+            x = self.warp(x, params["coeffs"])
+            x = self.blur(x, params.get("blur", []))
+        if "jitter" in params:
+            x = self.jitter(x.to(torch.float32), params["jitter"])
+        if "lam" in params:
+            x = self.blend(x, params["lam"])
+        x = self.normalize(x)
+        if params.get("erase"):
+            x = self.erase(x, params["erase"])
+        return x.permute(0, 3, 1, 2)
+
+
+class DeviceLoader:
+    """Iterates ``(x, y)`` (train) or ``(x, y, valid)`` (eval) on the
+    device: the host batch goes over with ``non_blocking`` and through the
+    :class:`Prologue`."""
+
+    def __init__(self, host: HostLoader, device, prologue: Prologue,
+                 color_jitter=None, flicker: float = 0.0,
+                 erasing: Optional[Dict[str, Any]] = None):
+        self.loader = host
+        self.device = torch.device(device)
+        self.prologue = prologue
+        self.color_jitter = color_jitter
+        self.flicker = flicker
+        self.erasing = erasing
+        self.stats = LoaderStats()
+        host.prepare = self.prepare
+
+    def set_epoch(self, epoch: int) -> None:
+        self.loader.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def prepare(self, bi: int, indices: List[int], images: torch.Tensor,
+                epoch: int) -> Dict[str, Any]:
+        """The prologue's parameters of batch ``bi`` (host thread)."""
+        spec = self.prologue.spec
+        seed = self.loader.seed
+        b, h, w, c = images.shape
+        params: Dict[str, Any] = {}
+        if spec is not None:
+            coeffs, blur = derive_geometric_batch(spec, indices, seed, epoch,
+                                                  (h, w))
+            params["coeffs"] = torch.from_numpy(coeffs)
+            params["blur"] = [tuple(v) for v in np.argwhere(blur).tolist()]
+            h, w = spec.size
+            if spec.mixup:
+                cm = self.loader.collate_mixup
+                params["lam"] = derive_mixup_lam(
+                    seed, epoch, bi, spec.mixup_alpha,
+                    bool(cm is not None and cm.mixup_enabled))
+        if self.color_jitter is not None or self.flicker > 0.0:
+            params["jitter"] = draw_color_jitter(
+                batch_generator(seed, epoch, bi, _JITTER_TAG), b,
+                self.prologue.img_num, self.color_jitter, self.flicker)
+        if self.erasing is not None:
+            params["erase"] = draw_random_erasing(
+                batch_generator(seed, epoch, bi, _ERASE_TAG), b, h, w, c,
+                img_num=self.prologue.img_num, **self.erasing)
+        return params
+
+    def to_device(self, batch: HostBatch) -> HostBatch:
+        """The batch and its tensor parameters on the device."""
+        dev = self.device
+        pin = dev.type == "cuda"
+
+        def move(t):
+            if t is None or t.device == dev:
+                return t
+            return (t.pin_memory() if pin and not t.is_pinned()
+                    else t).to(dev, non_blocking=True)
+
+        params = dict(batch.params)
+        if "coeffs" in params:
+            params["coeffs"] = move(params["coeffs"])
+        if "erase" in params:
+            params["erase"] = [bx._replace(fill=move(bx.fill))
+                               for bx in params["erase"]]
+        return HostBatch(batch.indices, move(batch.images),
+                         move(batch.targets), move(batch.valid), params)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            self.stats.host_wait_s += time.perf_counter() - t0
+            self.stats.batches += 1
+            batch = self.to_device(batch)
+            x = self.prologue(batch.images, batch.params)
+            if batch.valid is None:
+                yield x, batch.targets
+            else:
+                yield x, batch.targets, batch.valid
+
+
+def _build_loader(dataset, transform, batch_size: int, is_training: bool,
+                  device, collate_mixup, seed: int, num_workers: int,
+                  prefetch_depth: int, img_num: int,
+                  spec: Optional[DeviceAugmentSpec], color_jitter, flicker,
+                  erasing) -> DeviceLoader:
+    """Shared tail of the factories: transform, sampler, host threads,
+    prologue."""
+    if transform is not None:
+        dataset.set_transform(transform)
+    if is_training:
+        sampler: Any = ShardedTrainSampler(len(dataset), batch_size=batch_size,
+                                           seed=seed, drop_last=True)
+    else:
+        sampler = OrderedShardedSampler(len(dataset), batch_size=batch_size)
+    device = torch.device(device)
+    host = HostLoader(dataset, sampler, batch_size, seed=seed,
+                      num_workers=num_workers, prefetch_depth=prefetch_depth,
+                      collate_mixup=collate_mixup if is_training else None,
+                      valid_mask=not is_training,
+                      pin_memory=device.type == "cuda")
+    prologue = Prologue(device, img_num, spec)
+    return DeviceLoader(host, device, prologue,
+                        color_jitter if is_training else None,
+                        flicker if is_training else 0.0,
+                        erasing if is_training else None)
+
+
+def _erasing(re_prob, re_mode, re_count, re_split, re_max):
+    if re_prob <= 0.0:
+        return None
+    return dict(probability=re_prob, max_area=re_max, mode=re_mode,
+                max_count=re_count, num_splits=2 if re_split else 0)
+
+
+def create_loader(dataset, batch_size: int, is_training: bool, device,
+                  img_num: int = 1, re_prob: float = 0.0,
+                  re_mode: str = "const", re_count: int = 1,
+                  re_split: bool = False, re_max: float = 0.02,
+                  num_workers: int = 1,
+                  collate_mixup: Optional[FastCollateMixup] = None,
+                  seed: int = 42, prefetch_depth: int = 2) -> DeviceLoader:
+    """A loader for a dataset that takes no transform (the synthetic one):
+    collate, the host mixup blend, normalize and erase."""
+    return _build_loader(
+        dataset, None, batch_size, is_training, device, collate_mixup, seed,
+        num_workers, prefetch_depth, img_num, None, None, 0.0,
+        _erasing(re_prob, re_mode, re_count, re_split, re_max))
+
+
+def create_deepfake_loader_v3(
+        dataset, input_size, batch_size: int, is_training: bool = False,
+        device="cuda", re_prob: float = 0.0, re_mode: str = "const",
+        re_count: int = 1, re_split: bool = False, re_max: float = 0.02,
+        color_jitter: Any = 0.4, num_workers: int = 1,
+        collate_mixup: Optional[FastCollateMixup] = None,
+        flicker: float = 0.0, rotate_range: float = 0,
+        blur_radius: Optional[float] = None, blur_prob: float = 0.0,
+        seed: int = 42, prefetch_depth: int = 2, eval_crop: str = "random",
+        augment_device: bool = True) -> DeviceLoader:
+    """The clip dataset's loader, ``input_size`` ``(C, H, W)``.
+
+    Train: the passthrough on the host and the whole chain on the device;
+    jitter (three values, or one for all three) and flicker go to the
+    device, and the collate mixup draws ``lam`` and the targets only
+    (``blend=False``).  Hue jitter and ``augment_device=False`` need the
+    host Pillow chain, which is not ported.  Eval: a random or centre crop
+    on the host, normalize on the device."""
+    c, h, w = input_size
+    img_num = max(1, c // 3)
+    size = (h, w)
+    if not is_training:
+        return _build_loader(
+            dataset, transforms_deepfake_eval_v3(
+                h if h == w else size, crop=eval_crop),
+            batch_size, False, device, None, seed, num_workers,
+            prefetch_depth, img_num, None, None, 0.0, None)
+    if not augment_device:
+        raise NotImplementedError(f"--augment-device off: {HOST_CHAIN_ITEM}")
+    cj = None
+    if color_jitter is not None:
+        cj = (tuple(color_jitter) if isinstance(color_jitter, (list, tuple))
+              else (float(color_jitter),) * 3)
+        assert len(cj) in (3, 4)
+        if len(cj) == 4 and float(cj[3]) > 0:
+            raise NotImplementedError(f"hue jitter: {HOST_CHAIN_ITEM}")
+        cj = tuple(float(v) for v in cj[:3])
+    spec = DeviceAugmentSpec(
+        size=size, rotate_range=int(rotate_range),
+        blur_prob=float(blur_prob), blur_radius=float(blur_radius or 0.0),
+        img_num=img_num, mixup=collate_mixup is not None,
+        mixup_alpha=getattr(collate_mixup, "mixup_alpha", 0.0))
+    if collate_mixup is not None:
+        collate_mixup.blend = False
+    transform = transforms_deepfake_train_passthrough(
+        h if h == w else size, rotate_range=rotate_range,
+        blur_prob=blur_prob)
+    return _build_loader(
+        dataset, transform, batch_size, True, device, collate_mixup, seed,
+        num_workers, prefetch_depth, img_num, spec, cj, flicker,
+        _erasing(re_prob, re_mode, re_count, re_split, re_max))

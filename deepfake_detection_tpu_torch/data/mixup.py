@@ -3,7 +3,10 @@
 Counterpart of ``deepfake_detection_tpu/data/mixup.py``: the collate-time
 :class:`FastCollateMixup` (numpy on the host, a copy of the JAX package's)
 mixes the uint8 batch with its reversed self under one Beta-drawn ``lam``
-and emits label-smoothed soft targets; :func:`mixup_batch` is the in-loop
+and emits label-smoothed soft targets (with ``blend=False``, as the loader
+sets under the device augment chain, it draws ``lam`` and computes the
+targets only, and the device prologue blends with the same ``lam``);
+:func:`mixup_batch` is the in-loop
 version on tensors, drawing ``lam`` from an explicit ``torch.Generator``.
 """
 
@@ -39,14 +42,16 @@ class FastCollateMixup:
     """Collate-time uint8 mixup with an explicit numpy generator.
 
     Call with the stacked uint8 batch ``(B, H, W, C)`` and int labels;
-    returns the mixed uint8 batch and float32 soft targets."""
+    returns the mixed uint8 batch (unmixed when ``blend`` is off) and
+    float32 soft targets."""
 
     def __init__(self, mixup_alpha: float = 1.0, label_smoothing: float = 0.1,
-                 num_classes: int = 1000):
+                 num_classes: int = 1000, blend: bool = True):
         self.mixup_alpha = mixup_alpha
         self.label_smoothing = label_smoothing
         self.num_classes = num_classes
         self.mixup_enabled = True
+        self.blend = blend
 
     def __call__(self, images: np.ndarray, targets: np.ndarray,
                  rng: np.random.Generator) -> Tuple[np.ndarray, np.ndarray]:
@@ -55,7 +60,7 @@ class FastCollateMixup:
             lam = float(rng.beta(self.mixup_alpha, self.mixup_alpha))
         soft = mixup_target_np(targets, self.num_classes, lam,
                                self.label_smoothing)
-        if lam == 1.0:
+        if lam == 1.0 or not self.blend:
             return images, soft
         mixed = images.astype(np.float32) * lam + \
             images[::-1].astype(np.float32) * (1.0 - lam)

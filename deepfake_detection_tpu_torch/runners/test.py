@@ -25,29 +25,12 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..data.dataset import read_rgb
 from ..models import create_deepfake_model_v4, load_checkpoint
 from ..params import (image_max_height, img_num, make_score_fn,
                       normalize_concat, normalize_replicate, prepare_canvas)
 
 __all__ = ["test_img", "preprocess", "preprocess_clip", "read_rgb", "main"]
-
-
-def read_rgb(img_file) -> np.ndarray:
-    """uint8 HWC RGB frame from a ``.npy`` file (numpy) or any format
-    Pillow reads."""
-    if str(img_file).endswith(".npy"):
-        img = np.load(img_file, allow_pickle=False)
-        if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
-            raise ValueError(f"{img_file}: expected uint8 (H, W, 3), got "
-                             f"{img.dtype} {img.shape}")
-        return img
-    try:
-        from PIL import Image
-    except ImportError as e:
-        ext = os.path.splitext(str(img_file))[1] or "(no extension)"
-        raise ImportError(f"reading {ext} images needs Pillow, which is not "
-                          f"installed; .npy frames need only numpy") from e
-    return np.asarray(Image.open(img_file).convert("RGB"), np.uint8)
 
 
 def preprocess(img_file, size: int = image_max_height,

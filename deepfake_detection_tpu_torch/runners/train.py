@@ -1,26 +1,34 @@
 """Training runner.
 
-Counterpart of ``deepfake_detection_tpu/runners/train.py`` for one card and
-the synthetic dataset: build the model, optimizer (linear LR scaling),
-schedule, EMA, loaders and steps; then per epoch train, validate (the EMA's
-metrics replace the model's when it is kept), step the schedule on the eval
+Counterpart of ``deepfake_detection_tpu/runners/train.py`` for one card:
+build the model, optimizer (linear LR scaling), schedule, EMA, datasets,
+loaders and steps; then per epoch train, validate (the EMA's metrics
+replace the model's when it is kept), step the schedule on the eval
 metric, and write the epoch's checkpoints.
 
-Usage (the flagship's ``scripts/train.sh`` config on synthetic data)::
+Usage, ``scripts/train.sh``'s flags on a clip tree (``--amp``,
+``--auto-resume`` and ``--recovery-interval`` are not ported yet)::
 
     python -m deepfake_detection_tpu_torch.runners.train \\
-        --dataset synthetic --model efficientnet_deepfake_v4 \\
-        --model-version v4 --input-size-v2 12,600,600 -b 3 \\
-        --opt rmsproptf --basic-lr 5e-7 --sched step --decay-epochs 2 \\
-        --decay-rate .92 --bn-momentum 0.001 --mixup 0.1 --model-ema \\
-        --epochs 200 --output ./output [--device cuda]
+        --data ROOT --model efficientnet_deepfake_v4 --model-version v4 \\
+        --input-size-v2 12,600,600 -b 3 --opt rmsproptf --basic-lr 5e-7 \\
+        --sched step --decay-epochs 2 --decay-rate .92 --epochs 200 \\
+        --reprob 0.2 --remax 0.05 --flicker 0.05 --rotate-range 5 \\
+        --blur-prob 0.05 --bn-momentum 0.001 --mixup 0.1 --label-balance \\
+        --eval-metric loss --workers 8 --experiment flagship
 
-and the TimeSformer on the same clips with the flash-attention kernels::
+``ROOT`` holds ``real_list.txt``/``fake_list.txt`` (``name:num`` lines) and
+``{real,fake}/<clip>/<i>.npy`` frames (``<i>.jpg`` needs Pillow);
+``--data-packed DIR`` reads a pack of it instead (``data/packed.py``).
+``--dataset synthetic`` trains on seeded noise clips (no augmentation), and
+the TimeSformer runs with ``--model timesformer_base_patch25_600
+--model-version "" --attn-impl flash``.
 
-    python -m deepfake_detection_tpu_torch.runners.train \\
-        --dataset synthetic --model timesformer_base_patch25_600 \\
-        --model-version "" --input-size-v2 12,600,600 --attn-impl flash \\
-        -b 8 --opt rmsproptf --model-ema --epochs 1 --log-interval 1
+The augment chain runs on the device only: the port's ``--augment-device``
+defaults to ``on``, where the JAX package's defaults to ``off`` (its host
+Pillow chain, which the card's machine cannot run); ``off`` raises, naming
+its ROADMAP item.  Jitter/flicker and erasing draw from torch generators,
+not ``jax.random`` (``data/loader.py``).
 
 Compute is f32 with TF32 off.  Training runs on ``--device cuda`` unless
 the caller asks for ``cpu`` (the plain PyTorch path the tests use).  Flags
@@ -41,9 +49,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..data.dataset import SyntheticDataset
-from ..data.loader import Loader
+from ..data.dataset import DeepFakeClipDataset, SyntheticDataset
+from ..data.loader import (HOST_CHAIN_ITEM, DeviceLoader, create_loader,
+                           create_deepfake_loader_v3)
 from ..data.mixup import FastCollateMixup
+from ..data.packed import PackedDataset
 from ..losses import create_loss_fn, cross_entropy
 from ..models import (create_deepfake_model, create_deepfake_model_v3,
                       create_deepfake_model_v4, create_model)
@@ -57,8 +67,8 @@ from ..train.trainer import train_one_epoch, validate
 
 _logger = logging.getLogger("train")
 
-__all__ = ["TrainConfig", "Run", "parse_args", "setup", "main",
-           "launch_main"]
+__all__ = ["TrainConfig", "Run", "parse_args", "setup", "build_datasets",
+           "build_loaders", "main", "launch_main"]
 
 _MODEL_FACTORIES = {"": create_model, "v1": create_deepfake_model,
                     "v3": create_deepfake_model_v3,
@@ -66,15 +76,7 @@ _MODEL_FACTORIES = {"": create_model, "v1": create_deepfake_model,
 
 #: flags of scripts/train.sh that are not ported yet → their ROADMAP item
 UNPORTED = {
-    "data": "the clip dataset (ROADMAP Queue 1 item 7)",
     "amp": "bf16/AMP training (ROADMAP Queue 1 item 6)",
-    "reprob": "RandomErasing (ROADMAP Queue 1 item 7)",
-    "remax": "RandomErasing (ROADMAP Queue 1 item 7)",
-    "flicker": "the augment chain (ROADMAP Queue 1 item 7)",
-    "rotate_range": "the augment chain (ROADMAP Queue 1 item 7)",
-    "blur_prob": "the augment chain (ROADMAP Queue 1 item 7)",
-    "label_balance": "the clip dataset (ROADMAP Queue 1 item 7)",
-    "workers": "the multi-worker loader (ROADMAP Queue 1 item 7)",
     "auto_resume": "resume and recovery snapshots (ROADMAP Queue 1 item 8)",
     "recovery_interval": "resume and recovery snapshots "
                          "(ROADMAP Queue 1 item 8)",
@@ -85,10 +87,31 @@ UNPORTED = {
 @dataclass
 class TrainConfig:
     """The ported subset of the JAX package's ``TrainConfig``, with its
-    defaults.  Fields without a flag in :func:`parse_args` (num_classes,
-    drop, optimizer and schedule constants, the EMA decay) keep the
-    reference's defaults; the optimizer and schedule factories read them."""
-    dataset: str = "synthetic"
+    defaults, except ``augment_device`` (see the module docstring).
+    Fields without a flag in :func:`parse_args` (num_classes, drop,
+    optimizer and schedule constants, the EMA decay) keep the reference's
+    defaults; the optimizer and schedule factories read them."""
+    data: str = ""
+    eval_data: str = ""
+    dataset: str = "deepfake_v3"
+    data_packed: str = ""
+    train_split: float = 0.95
+    split_seed: int = 42
+    label_balance: bool = False
+    noise_fake: float = 0.0
+    workers: int = 8
+    prefetch_depth: int = 2
+    color_jitter: float = 0.4
+    reprob: float = 0.0
+    remode: str = "const"
+    recount: int = 1
+    resplit: bool = False
+    remax: float = 0.4
+    flicker: float = 0.0
+    rotate_range: float = 0.0
+    blur_prob: float = 0.0
+    augment_device: str = "on"
+    eval_crop: str = "random"
     model: str = "efficientnet_deepfake_v4"
     model_version: str = "v4"
     num_classes: int = 2
@@ -147,12 +170,36 @@ def _ints(s: str) -> Tuple[int, ...]:
 
 def parse_args(argv=None) -> TrainConfig:
     """``argv`` → :class:`TrainConfig`; raises ``NotImplementedError`` for
-    a flag of :data:`UNPORTED` and for ``--dataset`` other than
-    synthetic."""
+    a flag of :data:`UNPORTED` and for ``--augment-device off``."""
     d = TrainConfig()
     p = argparse.ArgumentParser(
         description="deepfake training (PyTorch port, one card)")
-    p.add_argument("--dataset", default=d.dataset)
+    p.add_argument("--data", default=d.data,
+                   help="clip root(s), ':'-separated")
+    p.add_argument("--eval-data", default=d.eval_data)
+    p.add_argument("--dataset", choices=["deepfake_v3", "synthetic"],
+                   default=d.dataset)
+    p.add_argument("--data-packed", default=d.data_packed,
+                   help="a pack of --data (data/packed.py)")
+    p.add_argument("--train-split", type=float, default=d.train_split)
+    p.add_argument("--split-seed", type=int, default=d.split_seed)
+    p.add_argument("--label-balance", action="store_true")
+    p.add_argument("--noise-fake", type=float, default=d.noise_fake)
+    p.add_argument("--workers", type=int, default=d.workers)
+    p.add_argument("--prefetch-depth", type=int, default=d.prefetch_depth)
+    p.add_argument("--color-jitter", type=float, default=d.color_jitter)
+    p.add_argument("--reprob", type=float, default=d.reprob)
+    p.add_argument("--remode", default=d.remode)
+    p.add_argument("--recount", type=int, default=d.recount)
+    p.add_argument("--resplit", action="store_true")
+    p.add_argument("--remax", type=float, default=d.remax)
+    p.add_argument("--flicker", type=float, default=d.flicker)
+    p.add_argument("--rotate-range", type=float, default=d.rotate_range)
+    p.add_argument("--blur-prob", type=float, default=d.blur_prob)
+    p.add_argument("--augment-device", choices=["on", "off"],
+                   default=d.augment_device)
+    p.add_argument("--eval-crop", choices=["random", "center"],
+                   default=d.eval_crop)
     p.add_argument("--model", default=d.model)
     p.add_argument("--model-version", default=d.model_version)
     p.add_argument("--bn-momentum", type=float, default=d.bn_momentum)
@@ -183,7 +230,7 @@ def parse_args(argv=None) -> TrainConfig:
                    help="ViT/TimeSformer attention: full | flash")
     for name in UNPORTED:
         flag = "--" + name.replace("_", "-")
-        if name in ("amp", "label_balance", "auto_resume"):
+        if name in ("amp", "auto_resume"):
             p.add_argument(flag, action="store_true", default=None)
         else:
             p.add_argument(flag, default=None)
@@ -192,10 +239,8 @@ def parse_args(argv=None) -> TrainConfig:
         if ns.pop(name) is not None:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} is not ported yet: {item}")
-    if ns["dataset"] != "synthetic":
-        raise NotImplementedError(
-            f"--dataset {ns['dataset']}: only 'synthetic' is ported; "
-            f"{UNPORTED['data']}")
+    if ns["augment_device"] == "off":
+        raise NotImplementedError(f"--augment-device off: {HOST_CHAIN_ITEM}")
     return TrainConfig(**ns)
 
 
@@ -208,8 +253,8 @@ class Run:
     train_step: Any
     eval_step: Any
     eval_step_ema: Any
-    train_loader: Loader
-    eval_loader: Loader
+    train_loader: DeviceLoader
+    eval_loader: DeviceLoader
     lr_scheduler: Any
     num_epochs: int
 
@@ -246,7 +291,6 @@ def setup(cfg: TrainConfig) -> Run:
         # f32 parity: cuDNN convolutions would otherwise run in TF32
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    c, h, w = cfg.input_size()
     model = build_model(cfg, device)
     _logger.info("Model %s created, param count: %d", cfg.model,
                  sum(p.numel() for p in model.parameters()))
@@ -255,16 +299,8 @@ def setup(cfg: TrainConfig) -> Run:
                                with_ema=cfg.model_ema,
                                ema_decay=cfg.model_ema_decay)
     lr_scheduler, num_epochs = create_scheduler(cfg, base_lr=lr)
-    n = max(cfg.batch_size * 8, 16)
-    train_ds = SyntheticDataset(n, (h, w, c), cfg.num_classes, cfg.seed)
-    eval_ds = SyntheticDataset(max(n // 2, 8), (h, w, c), cfg.num_classes,
-                               cfg.seed + 1)
-    mixup = FastCollateMixup(cfg.mixup, cfg.smoothing, cfg.num_classes) \
-        if cfg.mixup > 0 else None
-    train_loader = Loader(train_ds, cfg.batch_size, True, device, cfg.seed,
-                          collate_mixup=mixup)
-    eval_loader = Loader(eval_ds, cfg.batch_size * 2, False, device,
-                         cfg.seed)
+    train_loader, eval_loader = build_loaders(cfg, device,
+                                              *build_datasets(cfg))
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     train_step = make_train_step(
         create_loss_fn(cfg), clip_grad=cfg.clip_grad,
@@ -276,9 +312,82 @@ def setup(cfg: TrainConfig) -> Run:
                train_loader, eval_loader, lr_scheduler, num_epochs)
 
 
+def build_datasets(cfg: TrainConfig):
+    """(train, eval) datasets, as the JAX runner's ``build_datasets``:
+    seeded noise clips, or the clip dataset of ``--data`` (through its pack
+    with ``--data-packed``), its eval split seeded out of the same roots
+    unless ``--eval-data`` names others (read from the frames)."""
+    c, h, w = cfg.input_size()
+    if cfg.dataset == "synthetic":
+        if cfg.data_packed:
+            raise ValueError("--data-packed requires --dataset deepfake_v3")
+        n = max(cfg.batch_size * 8, 16)
+        return (SyntheticDataset(n, (h, w, c), cfg.num_classes, cfg.seed),
+                SyntheticDataset(max(n // 2, 8), (h, w, c), cfg.num_classes,
+                                 cfg.seed + 1))
+    if cfg.dataset != "deepfake_v3":
+        raise ValueError(f"unknown dataset {cfg.dataset!r}")
+    if not (cfg.data or cfg.data_packed):
+        raise ValueError("--dataset deepfake_v3 needs --data (or "
+                         "--data-packed)")
+    frames = max(1, c // 3)
+    common = dict(frames_per_clip=frames, label_balance=cfg.label_balance,
+                  noise_fake=cfg.noise_fake > 0, split_seed=cfg.split_seed)
+    if cfg.data_packed:
+        def make_train(**kw):
+            return PackedDataset(cfg.data_packed, roots=cfg.data or None,
+                                 **kw)
+    else:
+        def make_train(**kw):
+            return DeepFakeClipDataset(cfg.data, **kw)
+    if cfg.eval_data:
+        return (make_train(**common),
+                DeepFakeClipDataset(cfg.eval_data, frames_per_clip=frames,
+                                    split_seed=cfg.split_seed))
+    return (make_train(train_split=True, train_ratio=cfg.train_split,
+                       is_training=True, **common),
+            make_train(train_split=True, train_ratio=cfg.train_split,
+                       is_training=False, frames_per_clip=frames,
+                       split_seed=cfg.split_seed))
+
+
+def build_loaders(cfg: TrainConfig, device, train_ds, eval_ds
+                  ) -> Tuple[DeviceLoader, DeviceLoader]:
+    """(train, eval) loaders: the clip dataset's with the device augment
+    chain (``blur_radius`` 1, as the JAX runner passes), or, for the
+    synthetic set, collate, host mixup, normalize and erase."""
+    c, h, w = cfg.input_size()
+    mixup = FastCollateMixup(cfg.mixup, cfg.smoothing, cfg.num_classes) \
+        if cfg.mixup > 0 else None
+    erase = dict(re_prob=cfg.reprob, re_mode=cfg.remode,
+                 re_count=cfg.recount, re_split=cfg.resplit,
+                 re_max=cfg.remax)
+    common = dict(num_workers=cfg.workers, seed=cfg.seed,
+                  prefetch_depth=cfg.prefetch_depth)
+    if cfg.dataset == "synthetic":
+        img_num = max(1, c // 3)
+        return (create_loader(train_ds, cfg.batch_size, True, device,
+                              img_num=img_num, collate_mixup=mixup, **erase,
+                              **common),
+                create_loader(eval_ds, cfg.batch_size * 2, False, device,
+                              img_num=img_num, **common))
+    return (create_deepfake_loader_v3(
+                train_ds, (c, h, w), cfg.batch_size, is_training=True,
+                device=device, color_jitter=cfg.color_jitter,
+                collate_mixup=mixup, flicker=cfg.flicker,
+                rotate_range=cfg.rotate_range, blur_radius=1,
+                blur_prob=cfg.blur_prob,
+                augment_device=cfg.augment_device == "on", **erase,
+                **common),
+            create_deepfake_loader_v3(
+                eval_ds, (c, h, w), cfg.batch_size * 2, is_training=False,
+                device=device, eval_crop=cfg.eval_crop, **common))
+
+
 def _outdir(cfg: TrainConfig) -> str:
-    name = cfg.experiment or "-".join([cfg.model_version or cfg.model,
-                                       cfg.dataset])
+    name = cfg.experiment or "-".join([
+        cfg.model_version or cfg.model,
+        os.path.basename(cfg.data.split(":")[0]) or cfg.dataset])
     base = os.path.join(cfg.output, name)
     path, i = base, 1
     while os.path.exists(path):
@@ -289,7 +398,9 @@ def _outdir(cfg: TrainConfig) -> str:
 
 def main(cfg: TrainConfig) -> Dict[str, Any]:
     """Train ``cfg.epochs`` epochs; returns the best eval metric and epoch,
-    the last eval and train metrics, and the run's output directory."""
+    the last eval and train metrics, the train loader's counters
+    (``loader``: batches, the train loop's wait for the host and the host
+    threads' load + collate seconds) and the run's output directory."""
     run = setup(cfg)
     state = run.state
     output_dir = _outdir(cfg)
@@ -320,6 +431,9 @@ def main(cfg: TrainConfig) -> Dict[str, Any]:
                      best_epoch)
     return {"best_metric": best_metric, "best_epoch": best_epoch,
             "eval": dict(eval_metrics), "train": dict(train_metrics),
+            "loader": {"batches": run.train_loader.stats.batches,
+                       "host_wait_s": run.train_loader.stats.host_wait_s,
+                       "fetch_s": run.train_loader.loader.stats.fetch_s},
             "output_dir": output_dir}
 
 

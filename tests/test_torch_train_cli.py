@@ -8,13 +8,32 @@
   JAX model, whose eval logits then match the port's within 1e-4 of the
   logit scale (f32 through 16 blocks, summed in different orders).
 * A flag of ``scripts/train.sh`` that the port does not have raises,
-  naming its ROADMAP item; a flag of the JAX runner outside that subset is
-  an argparse error.
-* A NaN batch through the guarded train step leaves every parameter, BN
-  buffer, optimizer moment, EMA tensor and the step counter bitwise
-  unchanged, reports ``nonfinite == 1``, and the next finite step trains.
+  naming its ROADMAP item, as does ``--augment-device off``; the data and
+  augment flags of ``scripts/train.sh`` parse into ``TrainConfig`` with
+  their values, and the data fields default as the JAX ``TrainConfig``'s
+  (``augment_device`` aside); a flag of the JAX runner outside that subset
+  is an argparse error.
+* From a clip tree (``test_torch_data.make_clip_tree``): the port's runner
+  (``setup``, its loader and train step) on ``efficientnet_b0`` at 12×64²
+  (at 32² the last stage's train-mode BN over 3 values of a channel is too
+  ill-conditioned to compare a fresh model at 1e-4), batch 3, with
+  ``--label-balance --rotate-range 5 --blur-prob 0.5 --mixup 0.1 --workers
+  2 --color-jitter 0 --reprob 0`` and ``--lr 1e-2 --clip-grad 0.5`` (the
+  clipped norm bounds the leaves whose gradient is rounding noise, as in
+  ``test_torch_train.py``), against the JAX runner's
+  ``build_datasets``, ``create_deepfake_loader_v3(...,
+  augment_device=True, dtype=float32)`` and ``make_train_step`` from the
+  same weights across the bridge.  The batches: labels and soft targets
+  bitwise, images within the fractional warp's tolerance of
+  ``test_torch_device_augment.py`` (the JAX warp's FMA flips a rounding by
+  one grey level in a few values, and one such value can move a fresh
+  model's train-mode loss past 1e-4 relative).  The steps, the JAX one fed the
+  port's batches: the loss of each of 3 steps within 1e-4 relative, and
+  every parameter after 1 and 3 steps within 1e-4 of its change (plus 2
+  f32 ulps a step and the noise floor, as ``test_torch_train.py``).
 """
 
+import dataclasses
 import os
 
 import jax
@@ -23,8 +42,18 @@ import numpy as np
 import pytest
 import torch
 
+from deepfake_detection_tpu import config as j_config
+from deepfake_detection_tpu import losses as j_losses
+from deepfake_detection_tpu.data import loader as j_loader
+from deepfake_detection_tpu.data import mixup as j_mixup
 from deepfake_detection_tpu.models import create_model as j_create_model
+from deepfake_detection_tpu.models import init_model as j_init_model
+from deepfake_detection_tpu.optim import create_optimizer as j_create_opt
+from deepfake_detection_tpu.runners import train as j_runner
+from deepfake_detection_tpu.train import create_train_state as j_state
+from deepfake_detection_tpu.train import make_train_step as j_make_step
 from deepfake_detection_tpu_torch import losses
+from deepfake_detection_tpu_torch.convert import state_dict_from_flax
 from deepfake_detection_tpu_torch.models import create_model
 from deepfake_detection_tpu_torch.models.helpers import (load_checkpoint,
                                                          load_state_dict)
@@ -33,6 +62,7 @@ from deepfake_detection_tpu_torch.runners import train as runner
 from deepfake_detection_tpu_torch.train.checkpoint import CheckpointSaver
 from deepfake_detection_tpu_torch.train.state import create_train_state
 from deepfake_detection_tpu_torch.train.steps import make_train_step
+from test_torch_data import make_clip_tree
 from tools.convert_torch_checkpoint import convert_state_dict
 
 torch.set_num_threads(2)
@@ -94,14 +124,41 @@ def test_checkpoint_loads_into_port_and_jax_with_equal_logits(trained):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--amp"], ["--reprob", "0.2"], ["--remax", "0.05"],
-    ["--flicker", "0.05"], ["--rotate-range", "5"], ["--blur-prob", "0.05"],
-    ["--label-balance"], ["--data", "/data"], ["--workers", "8"],
-    ["--auto-resume"], ["--recovery-interval", "500"],
-    ["--dataset", "deepfake_v3"]])
+    ["--amp"], ["--auto-resume"], ["--recovery-interval", "500"],
+    ["--augment-device", "off"]])
 def test_unported_flags_raise_naming_their_roadmap_item(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         runner.parse_args(ARGS + flag)
+
+
+@pytest.mark.parametrize("flag,field,value", [
+    (["--reprob", "0.2"], "reprob", 0.2),
+    (["--remax", "0.05"], "remax", 0.05),
+    (["--flicker", "0.05"], "flicker", 0.05),
+    (["--rotate-range", "5"], "rotate_range", 5.0),
+    (["--blur-prob", "0.05"], "blur_prob", 0.05),
+    (["--label-balance"], "label_balance", True),
+    (["--data", "/data"], "data", "/data"),
+    (["--workers", "8"], "workers", 8),
+    (["--dataset", "deepfake_v3"], "dataset", "deepfake_v3")])
+def test_train_sh_data_flags_parse_into_the_config(flag, field, value):
+    """``scripts/train.sh``'s value of each flag reaches the config
+    (``ARGS`` sets ``--dataset synthetic``; the flag comes after it)."""
+    assert getattr(runner.parse_args(ARGS + flag), field) == value
+
+
+def test_data_fields_default_as_the_jax_config():
+    want = j_config.TrainConfig()
+    got = runner.TrainConfig()
+    names = [f.name for f in dataclasses.fields(got)
+             if hasattr(want, f.name) and f.name not in (
+                 "augment_device", "guard_nonfinite", "device",
+                 "input_size_v2")]
+    assert len(names) > 40
+    for name in names:
+        assert getattr(got, name) == getattr(want, name), name
+    assert (got.augment_device, want.augment_device) == ("on", "off")
+    assert runner.parse_args([]).dataset == "deepfake_v3"
 
 
 @pytest.mark.parametrize("flag", [["--opt", "adamw"], ["--opt", "nvnovograd"]])
@@ -178,3 +235,121 @@ def test_checkpoint_saver_keeps_the_top_k(tmp_path):
                      "last.pth.tar", "model_best.pth.tar"]
     assert torch.load(tmp_path / "model_best.pth.tar",
                       weights_only=True)["epoch"] == 3
+
+
+TREE_ARGS = ["--model", "efficientnet_b0", "--model-version", "",
+             "--input-size-v2", "12,64,64", "-b", "3", "--opt", "rmsproptf",
+             "--lr", "1e-2", "--clip-grad", "0.5", "--bn-momentum", "0.1",
+             "--label-balance",
+             "--rotate-range", "5", "--blur-prob", "0.5", "--mixup", "0.1",
+             "--workers", "2", "--color-jitter", "0", "--reprob", "0",
+             "--seed", "4"]
+TREE_STEPS = 3
+# test_torch_train.py's floor: leaves whose gradient is rounding noise (a BN
+# bias feeding the next BN) move by lr × 1e-7 of the clipped norm a step
+TREE_FLOOR = 1e-2 * 1e-7 * 0.5
+
+
+def _close_change(got, want, init, name, steps):
+    got, want, init = (np.asarray(a, np.float64) for a in (got, want, init))
+    err = np.abs(got - want).max()
+    bound = 1e-4 * np.abs(want - init).max() \
+        + 2 * steps * np.finfo(np.float32).eps * np.abs(want).max() \
+        + TREE_FLOOR * steps
+    assert err <= bound, (name, err, bound)
+
+
+@pytest.fixture(scope="module")
+def tree_run(tmp_path_factory):
+    """Each runner's first batches from one clip tree, and three train
+    steps of each on the port's batches from one set of weights."""
+    root = make_clip_tree(str(tmp_path_factory.mktemp("clips")), n_real=6,
+                          n_fake=12)
+    argv = TREE_ARGS + ["--data", root]
+    # JAX: its runner's datasets, loader factory (device augment) and step;
+    # f32 compute (the JAX runner's default compute dtype is bf16)
+    jcfg = j_config.TrainConfig.from_args(
+        argv + ["--augment-device", "on", "--compute-dtype", "float32"])
+    jm = j_runner.build_model(jcfg, 12)
+    variables = j_init_model(jm, jax.random.PRNGKey(4), (1, 64, 64, 12),
+                             training=True)
+    variables = jax.tree.map(lambda a: np.array(a, np.float32), variables)
+    jtrain, _ = j_runner.build_datasets(jcfg, (12, 64, 64))
+    jl = j_loader.create_deepfake_loader_v3(
+        jtrain, (12, 64, 64), 3, is_training=True,
+        re_prob=jcfg.reprob, color_jitter=jcfg.color_jitter,
+        collate_mixup=j_mixup.FastCollateMixup(jcfg.mixup, jcfg.smoothing, 2),
+        flicker=jcfg.flicker, rotate_range=jcfg.rotate_range, blur_radius=1,
+        blur_prob=jcfg.blur_prob, augment_device=True, dtype=jnp.float32,
+        num_workers=jcfg.workers, seed=jcfg.seed)
+    jl.set_epoch(0)
+    j_batches = [(np.asarray(x), np.asarray(y))
+                 for x, y in list(jl)[:TREE_STEPS]]
+    tx = j_create_opt(jcfg, learning_rate=jcfg.lr)
+    jstep = j_make_step(jm, tx, j_losses.create_loss_fn(jcfg),
+                        clip_grad=jcfg.clip_grad, nonfinite_guard=True,
+                        donate=False)
+    js = j_state(jax.tree.map(jnp.asarray, variables), tx, donate=False)
+    # port: its runner's setup with the same weights
+    cfg = runner.parse_args(argv + ["--device", "cpu"])
+    init = state_dict_from_flax(variables)
+    build = runner.build_model
+
+    def build_from_jax(c, device):
+        model = build(c, device)
+        model.load_state_dict(init, strict=True)
+        return model
+    runner.build_model = build_from_jax
+    try:
+        run = runner.setup(cfg)
+    finally:
+        runner.build_model = build
+    run.train_loader.set_epoch(0)
+    assert len(run.train_loader) == len(jl) >= TREE_STEPS
+    t_batches = list(run.train_loader)[:TREE_STEPS]
+    j_out, t_out, gnorm = [], [], []
+    for x, y in t_batches:
+        js, m = jstep(js, jnp.asarray(x.permute(0, 2, 3, 1).numpy()),
+                      jnp.asarray(y.numpy()), jax.random.PRNGKey(0))
+        j_out.append((float(m["loss"]), {
+            k: v.numpy() for k, v in state_dict_from_flax(jax.tree.map(
+                lambda a: np.array(a, np.float32),
+                {"params": js.params,
+                 "batch_stats": js.batch_stats})).items()}))
+        m = run.train_step(run.state, x, y)
+        gnorm.append(float(m["gnorm"]))
+        t_out.append((float(m["loss"]), {
+            k: v.detach().numpy().copy()
+            for k, v in run.state.model.state_dict().items()}))
+    return dict(j=j_out, t=t_out, gnorm=gnorm,
+                init={k: v.numpy() for k, v in init.items()},
+                j_batches=j_batches,
+                t_batches=[(x.permute(0, 2, 3, 1).numpy(), y.numpy())
+                           for x, y in t_batches])
+
+
+def test_runner_batches_from_a_clip_tree_match_jax(tree_run):
+    std = np.tile(np.asarray([0.229, 0.224, 0.225], np.float32) * 255.0, 4)
+    for (xj, yj), (xt, yt) in zip(tree_run["j_batches"],
+                                  tree_run["t_batches"]):
+        np.testing.assert_array_equal(yt, yj)
+        d = np.abs(xt - xj) * std                  # grey levels
+        assert (d > 1e-3).mean() <= 1e-3 and d.max() <= 1.0 + 1e-3, \
+            ((d > 1e-3).mean(), d.max())
+
+
+@pytest.mark.parametrize("after", [1, TREE_STEPS])
+def test_runner_from_a_clip_tree_matches_jax(tree_run, after):
+    for i in range(after):
+        lt, lj = tree_run["t"][i][0], tree_run["j"][i][0]
+        assert np.isfinite(lt) and abs(lt - lj) <= 1e-4 * abs(lj), (i, lt, lj)
+    got, want = tree_run["t"][after - 1][1], tree_run["j"][after - 1][1]
+    init = tree_run["init"]
+    moved = 0
+    for k, w in want.items():
+        if k.endswith(("running_mean", "running_var",
+                       "num_batches_tracked")):
+            continue
+        _close_change(got[k], w, init[k], k, after)
+        moved += bool(np.any(w != init[k]))
+    assert moved > 100
