@@ -56,7 +56,17 @@ before the result line:
    resident blocks per SM and SASS HMMA count (every instantiation must have
    HMMA); ``flash_attention`` forward and backward on the card against
    ``torch.autograd`` through the plain forward;
-7. inference path: the flagship at full width and depth (12×600², 55
+7. bf16 kernel rows (the ``--amp`` path's instantiations): the three
+   depthwise kernels at every flagship shape (the forward at batch 3 and 1,
+   dx and dw at batch 3) and the three flash kernels at (384, 576, 64), each
+   against its plain version on the same inputs (bf16 outputs within one
+   bf16 rounding; dw and the flash gradients at their f32 tolerances, which
+   holds only if the f32 operands made inside the flash kernels, q·scale, P
+   and dS, are split into TF32 terms), two calls bitwise equal, dw from bf16
+   x bitwise the dw from x widened to f32; kernel, plain, library (cuDNN in
+   bf16; SDPA in bf16 with its flash and its memory-efficient backends) and
+   bound times;
+8. inference path: the flagship at full width and depth (12×600², 55
    blocks) with seeded weights and BN calibrated on the CPU by one
    train-mode pass over the inputs at 600², scoring seeded frames of mixed
    aspect ratios through ``runners.test.test_img`` on the card, single and
@@ -64,41 +74,63 @@ before the result line:
    all 0.5, and matching the same weights run on the CPU (plain path); then
    clips/s at batch 1 and 8, and the device time by kernel kind at batch 8
    (torch.profiler);
-8. training path: ``runners.train`` in-process on the flagship at full width
-   and depth, 12×600², batch 3 (``scripts/train.sh``'s config on synthetic
-   data: 8 steps, validation of the model and its EMA, checkpoints); 55
-   forward, 55 dx and 55 dw-gradient launches per step; loss finite; params, BN stats and EMA moved; the inference
-   path scores a frame with the checkpoint; ms per step, samples/s, peak
-   memory, the loader's host wait, and the device time per step by kernel
-   kind;
-9. training from a clip tree (``train_data``): a seeded tree of uint8
+9. training path: ``runners.train`` in-process on the flagship at full width
+   and depth, 12×600², batch 3, f32 (``scripts/train.sh``'s config on
+   synthetic data: 8 steps, validation of the model and its EMA,
+   checkpoints); 55 forward, 55 dx and 55 dw-gradient launches per step;
+   loss finite; params, BN stats and EMA moved; the inference path scores a
+   frame with the checkpoint; ms per step, samples/s, peak memory, the
+   loader's host wait, and the device time per step by kernel kind;
+10. training from a clip tree (``train_data``, f32): a seeded tree of uint8
    ``.npy`` frames at 640² under ``build/chip_smoke/tree`` (more fakes than
    reals, some clips shorter than 4 frames), ``runners.train`` in-process
-   on the flagship at 12×600², batch 3, with ``scripts/train.sh``'s flags
-   (``--amp``, ``--auto-resume`` and ``--recovery-interval`` are not ported;
-   one epoch, which gives ≥ 8 steps): 55/55/55 depthwise launches a step,
-   loss finite, no guarded step, params and BN stats moved, the checkpoint
-   scores a frame; one prologue batch on the card against the same batch
-   rendered on the CPU, stage by stage (draws made on the CPU); a pack of
-   the tree (``data/packed.py``) whose first two training batches equal the
-   tree's bitwise; ms per step, samples/s, peak memory, the loader's host
-   wait, each prologue stage's device ms (torch.profiler) and the idle
-   share of profiled steps, beside the synthetic phase's;
-10. TimeSformer training path: ``runners.train`` in-process on
+   on the flagship at 12×600², batch 3, with ``scripts/train.sh``'s data
+   and augment flags, one epoch (≥ 8 steps): 55/55/55 depthwise launches a
+   step, loss finite, no guarded step, params and BN stats moved, the
+   checkpoint scores a frame; one prologue batch on the card against the
+   same batch rendered on the CPU, stage by stage (draws made on the CPU);
+   a pack of the tree (``data/packed.py``) whose first two training
+   batches equal the tree's bitwise; ms per step, samples/s, peak memory,
+   the loader's host wait, each prologue stage's device ms (torch.profiler)
+   and the idle share of profiled steps, beside the synthetic phase's;
+11. ``train_amp``: the same tree with ``scripts/train.sh``'s whole argument
+   list (``--amp``, ``--auto-resume``, ``--recovery-interval`` 3, one
+   epoch): every depthwise launch of the bf16 instantiations (55/55/55 a
+   step), loss finite, no guarded step, params and BN stats moved, recovery
+   snapshots written, the checkpoint scores a frame; the numbers of
+   ``train_data`` beside the f32 phase's;
+12. ``resume``: the same bf16 run in-process (``DFD_CHAOS`` set and cleared
+   around each call, ``SystemExit`` caught): an uninterrupted epoch twice;
+   ``sigterm@5`` → exit 75 with the snapshot ``recovery-0-4``; the snapshot
+   reloaded and saved again is itself, bitwise; ``--auto-resume`` to the
+   end; a ``nanbatch`` burst → one rewind, then to the end; the resumed and
+   rewound states bitwise the uninterrupted one where the two uninterrupted
+   runs agree bitwise, else within twice their spread;
+13. TimeSformer training path: ``runners.train`` in-process on
    ``timesformer_base_patch25_600`` (full width and depth) at 12×600²,
-   batch 8, ``--attn-impl flash``: 8 steps, validation of the model and its
-   EMA, a checkpoint; 12 forward, 12 dQ and 12 dK/dV launches a step and 12
-   forward launches an eval forward; loss finite, params and EMA moved; the
-   EMA reloaded from the checkpoint scores the eval set as the run did; ms
-   per step, samples/s, peak memory, the device time per step by kernel kind
+   batch 8, ``--attn-impl flash``, in f32 and then with ``--amp``: 8 steps,
+   validation of the model and its EMA, a checkpoint; 12 forward, 12 dQ and
+   12 dK/dV launches a step and 12 forward launches an eval forward, all of
+   the dtype's instantiation; loss finite, params and EMA moved; the EMA
+   reloaded from the checkpoint scores the eval set as the run did; ms per
+   step, samples/s, peak memory, the device time per step by kernel kind
    and the eval forward's clips/s at batch 16;
-11. card against CPU: one guarded train step of the full flagship at
+14. card against CPU: one guarded train step of the full flagship at
    12×224², batch 2, and of the full TimeSformer at 12×300², batch 2, from
    the same weights on the card and on the CPU (loss, every parameter's
    update, BN running stats); then a NaN batch through each card step must
-   leave the whole state bitwise unchanged;
-12. the ``kernels`` line (all six kernels), the ``nvidia-smi`` line, and
-   last ``{"ok": true, "device": {...}}``.
+   leave the whole state bitwise unchanged; then the bf16 steps: the full
+   flagship's beside its f32 steps, reported and not held (fresh and 55
+   blocks deep, its bf16 update is about as far from the f32 update as the
+   update is long), and its NaN guard; the bf16 gate (``_bf16_checks``) on
+   the flagship at full width cut to 10 blocks and on the full TimeSformer:
+   each parameter's update card bf16 against CPU bf16 against its own norm,
+   the loss and the BN stats likewise, the whole update by the method of
+   ``tests/test_torch_amp.py``, and a bound that the card computed in bf16;
+   an unchanged state and the f32 step in the bf16 step's place must each
+   fail it; and a NaN batch through each bf16 card step;
+15. the ``kernels`` line (all six kernels, each with its bf16 status), the
+   ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or in a directory that holds only this file, it exits
 non-zero and prints no result.  Its files go to ``build/chip_smoke/``.
@@ -137,12 +169,14 @@ from deepfake_detection_tpu_torch.data.random_erasing import \
 from deepfake_detection_tpu_torch.data.packed import write_pack
 from deepfake_detection_tpu_torch.models import (create_deepfake_model_v4,
                                                  create_model)
+from deepfake_detection_tpu_torch.models.helpers import set_compute_dtype
 from deepfake_detection_tpu_torch.ops import depthwise as dw
 from deepfake_detection_tpu_torch.ops import flash_attention as fa
 from deepfake_detection_tpu_torch.ops.conv import explicit_padding
 from deepfake_detection_tpu_torch.optim import create_optimizer
 from deepfake_detection_tpu_torch.runners import test as runner
 from deepfake_detection_tpu_torch.runners import train as train_runner
+from deepfake_detection_tpu_torch.train import checkpoint as ckpt
 from deepfake_detection_tpu_torch.train.state import create_train_state
 from deepfake_detection_tpu_torch.train.steps import make_train_step
 from deepfake_detection_tpu_torch.train.trainer import validate
@@ -170,11 +204,24 @@ GRAD_TOL = 1e-5
 BF16_GRAD_TOL = 2.0 ** -7
 LOSS_TOL = 1e-4                   # card vs CPU train step, relative
 UPDATE_TOL = 1e-3                 # of each parameter update's own max |·|
+# the bf16 gate, card bf16 against CPU bf16 (the same code, the same
+# weights and inputs): each leaf's update within BF16_LEAF_TOL of its own
+# norm, the loss within BF16_LOSS_TOL, BN statistics within BF16_BN_TOL of
+# their layer's scale; each twice the largest value measured on an H100
+# (the 10-block flagship 0.080, 0.0080, 0.0065; the TimeSformer 0.031,
+# 0.0020, no BN)
+BF16_LEAF_TOL = 0.16
+BF16_LOSS_TOL = 0.016
+BF16_BN_TOL = 0.013
+
+# the f32 phases keep the compute of the earlier runs: the runner's default
+# compute dtype is bf16 now, as the JAX runner's
+F32 = ["--compute-dtype", "float32"]
 
 # scripts/train.sh's flags that the port has, on synthetic data, one epoch
 # (24 samples: 8 steps); --log-interval 1 reads each step's metrics back,
 # so each step's host time is its device time
-TRAIN_FLAGS = ["--dataset", "synthetic", "--model", "efficientnet_deepfake_v4",
+TRAIN_FLAGS = F32 + ["--dataset", "synthetic", "--model", "efficientnet_deepfake_v4",
                "--model-version", "v4", "--input-size-v2", "12,600,600",
                "-b", str(TRAIN_BATCH), "--opt", "rmsproptf", "--basic-lr",
                "5e-7", "--sched", "step", "--decay-epochs", "2",
@@ -206,12 +253,13 @@ FLASH_L, FLASH_D = 576, 64
 FLASH_TOL = (2e-5, 2e-5)
 FLASH_GRAD_TOL = 1e-5
 
-# training from a clip tree: scripts/train.sh's flags (--amp, --auto-resume
-# and --recovery-interval are not ported) with one epoch; --log-interval 1,
-# as the synthetic phase, reads each step's metrics back
+# training from a clip tree: scripts/train.sh's data and augment flags in
+# f32 with one epoch; --log-interval 1, as the synthetic phase, reads each
+# step's metrics back
 TREE_HW = 640                     # uniform source frames, larger than 600
 TREE_REALS, TREE_FAKES = 14, 30   # label balance: 26 train samples, 8 steps
-DATA_FLAGS = ["--model", "efficientnet_deepfake_v4", "--model-version", "v4",
+DATA_FLAGS = F32 + [
+              "--model", "efficientnet_deepfake_v4", "--model-version", "v4",
               "--input-size-v2", "12,600,600", "-b", str(TRAIN_BATCH),
               "--opt", "rmsproptf", "--basic-lr", "5e-7", "--sched", "step",
               "--decay-epochs", "2", "--decay-rate", ".92", "--epochs", "1",
@@ -671,6 +719,103 @@ def phase_dx(shapes: Counter) -> dict:
     return dict(max_rel_err=worst, max_abs_err=worst_abs, **tot)
 
 
+def _bound(nbytes: float, ops: float, flop_per_s: float):
+    """(bound ms, "bytes" or "operations")."""
+    b_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    o_ms = ops / flop_per_s * 1e3
+    return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
+
+
+def phase_depthwise_bf16(shapes: Counter) -> dict:
+    """The three depthwise kernels' bf16 instantiations (the ``--amp``
+    path's) at every flagship shape: the forward at batch 3 (a train step)
+    and 1 (inference), dx and dw at batch 3, each against its plain version
+    on the same inputs (y and dx within one bf16 rounding, dw, an f32 sum,
+    within GRAD_TOL of its max), two calls bitwise equal, and dw from bf16 x
+    bitwise the dw from x widened to f32 (the JAX backward widens x first);
+    device times of kernel, plain version and library (cuDNN in bf16: x,
+    weights and, for dx and dw, dz in bf16) beside the bound (x, y and dx
+    two bytes an element, dz and dw four).  Returns the count-weighted sums
+    and the largest errors."""
+    bf16 = torch.bfloat16
+    tot = {key: Counter() for key in ("fwd_b3", "fwd_b1", "dx", "dwgrad")}
+    errs = Counter()
+
+    def add(key, count, **row):
+        for name, v in row.items():
+            if isinstance(v, float):
+                tot[key][name] += count * v
+
+    for i, ((h, c, k, s), count) in enumerate(sorted(shapes.items())):
+        p = ((s - 1) + (k - 1)) // 2
+        for batch in (TRAIN_BATCH, MAIN_BATCH):
+            x, w, scale, bias = _case((batch, h, h, c), k, bf16,
+                                      1100 + 10 * i + batch)
+            err = check(f"bf16 b{batch} {h}x{h}x{c} k{k} s{s}", x, w, scale,
+                        bias, s, "", "silu", BF16_TOL)
+            errs["fwd"] = max(errs["fwd"], err)
+            xc = x.permute(0, 3, 1, 2)
+            w_lib = (w * scale).permute(2, 0, 1).unsqueeze(1).to(
+                bf16).contiguous()
+            b_lib = bias.to(bf16)
+            bound, by = _bound(*stage_cost(batch, h, c, k, s, 2),
+                               F32_FLOP_PER_S)
+            row = dict(
+                ms=device_ms(lambda: dw.fused_depthwise(
+                    x, w, scale, bias, s, "", "silu")),
+                plain_ms=device_ms(lambda: dw.fused_depthwise_reference(
+                    x, w, scale, bias, s, "", "silu")),
+                library_ms=device_ms(lambda: F.silu(F.conv2d(
+                    xc, w_lib, b_lib, s, p, 1, c))),
+                bound_ms=bound)
+            emit(phase="kernel_row_bf16", kernel="depthwise_fwd", h=h, c=c,
+                 k=k, stride=s, count=count, batch=batch, max_abs_err=err,
+                 bound_by=by, bound_share=bound / row["ms"], **row)
+            add(f"fwd_b{batch}", count, **row)
+        x, dz, pads = _grad_case((TRAIN_BATCH, h, h, c), k, s, "", bf16,
+                                 1200 + i)
+        w = torch.randn((k, k, c), device="cuda") * 0.2
+        shape = tuple(x.shape)
+        rel, abs_err = check_dx(f"bf16 dx {h}x{h}x{c} k{k} s{s}", dz, w,
+                                shape, s, pads, bf16)
+        errs["dx"] = max(errs["dx"], abs_err)
+        errs["dx_rel"] = max(errs["dx_rel"], rel)
+        errs["dwgrad"] = max(errs["dwgrad"], check_dwgrad(
+            f"bf16 x dw {h}x{h}x{c} k{k} s{s}", x, dz, k, s, pads))
+        if not torch.equal(dw.depthwise_dwgrad(x, dz, k, s, pads),
+                           dw.depthwise_dwgrad(x.float(), dz, k, s, pads)):
+            raise AssertionError(f"{h}x{h}x{c} k{k} s{s}: dw of bf16 x is "
+                                 f"not the dw of x widened to f32")
+        w_lib = w.permute(2, 0, 1).unsqueeze(1).to(bf16).contiguous()
+        xc, dzc = x.permute(0, 3, 1, 2), dz.to(bf16).permute(0, 3, 1, 2)
+        for key, fn, plain, lib, nbytes in (
+                ("dx", lambda: dw.depthwise_dx(dz, w, shape, s, pads, bf16),
+                 lambda: dw.depthwise_dx_reference(dz, w, shape, s, pads,
+                                                   bf16),
+                 lambda: torch.nn.grad.conv2d_input(
+                     (TRAIN_BATCH, c, h, h), w_lib, dzc, s, pads[0], 1, c),
+                 dz.numel() * 4 + x.numel() * 2 + k * k * c * 4),
+                ("dwgrad", lambda: dw.depthwise_dwgrad(x, dz, k, s, pads),
+                 lambda: dw.depthwise_dwgrad_reference(x, dz, k, s, pads),
+                 lambda: torch.nn.grad.conv2d_weight(
+                     xc, (c, 1, k, k), dzc, s, pads[0], 1, c),
+                 x.numel() * 2 + dz.numel() * 4 + k * k * c * 4)):
+            bound, by = _bound(nbytes, 2 * k * k * dz.numel(),
+                               F32_FLOP_PER_S)
+            row = dict(ms=device_ms(fn), plain_ms=device_ms(plain),
+                       library_ms=device_ms(lib), bound_ms=bound)
+            emit(phase="kernel_row_bf16", kernel=f"depthwise_{key}", h=h,
+                 c=c, k=k, stride=s, count=count, batch=TRAIN_BATCH,
+                 bound_by=by, bound_share=bound / row["ms"], **row)
+            add(key, count, **row)
+    out = {key: dict(v) for key, v in tot.items()}
+    emit(phase="depthwise_bf16", rows=len(shapes),
+         stages=sum(shapes.values()), max_abs_err=dict(errs),
+         bitwise=True, dw_of_bf16_x_is_dw_of_widened_x=True,
+         tol=dict(y=BF16_TOL, dx=BF16_GRAD_TOL, dw=GRAD_TOL), **out)
+    return dict(errs=dict(errs), **out)
+
+
 def phase_backward(shapes: Counter) -> dict:
     """The forward with a gradient wanted and the full backward against the
     plain version at every flagship shape at the training batch, identity
@@ -826,7 +971,7 @@ def _kernel_kind(name: str) -> str:
     if "multi_tensor_apply" in n:
         return "foreach (optimizer, EMA, guard copy)"
     if any(t in n for t in ("conv", "cudnn", "gemm", "xmma", "implicit",
-                            "sm90", "cutlass", "dgrad", "wgrad")):
+                            "sm90", "cutlass", "dgrad", "wgrad", "nvjet")):
         return "conv_gemm"
     if "reduce" in n:
         return "reduce"
@@ -835,26 +980,54 @@ def _kernel_kind(name: str) -> str:
     return "other"
 
 
+def _device_events(prof):
+    """The device's events of a torch.profiler run: kernels, copies and
+    memsets, without the device-side spans of user annotations (the
+    optimizer's ``Optimizer.step#...`` range), which would count the time of
+    the kernels they enclose a second time."""
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def _emit_kinds(phase: str, prof, n: int, wall_us: float, **extra) -> None:
-    """Device time and launches per iteration by kernel kind, and the
-    device's idle share of the wall time, from a torch.profiler run of
-    ``n`` iterations; returns what it printed."""
+    """Device time and launches per iteration by kernel kind, the device's
+    idle share of the wall time, and the host's CPU time by op (the dtype
+    casts apart), from a torch.profiler run of ``n`` iterations; returns
+    what it printed."""
     kinds = Counter()
     launches = Counter()
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            kinds[_kernel_kind(e.key)] += e.self_device_time_total
-            launches[_kernel_kind(e.key)] += e.count
+    top = Counter()
+    for e in _device_events(prof):
+        kind = _kernel_kind(e.key)
+        kinds[kind] += e.self_device_time_total
+        launches[kind] += e.count
+        top[f"{kind}: {e.key[:70]}"] += e.self_device_time_total
     busy_us = sum(kinds.values())
     if busy_us == 0:
         emit(phase=phase, device_time="not measured", **extra)
         return {}
+    # the host side: each op's own CPU time (its children's apart) and
+    # calls an iteration, and the dtype casts with their children and their
+    # backward nodes
+    host, calls, total = Counter(), Counter(), {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            host[e.key] += e.self_cpu_time_total
+            calls[e.key] += e.count
+            total[e.key] = e.cpu_time_total
+    casts = {k: dict(calls=calls[k] / n, ms=total[k] / n / 1e3)
+             for k in ("aten::to", "ToCopyBackward0") if k in total}
     out = dict(phase=phase, iterations=n,
                ms_per_iteration={k: v / n / 1e3 for k, v in kinds.items()},
                launches_per_iteration={k: v / n for k, v in launches.items()},
                busy_ms_per_iteration=busy_us / n / 1e3,
                wall_ms_per_iteration=wall_us / n / 1e3,
-               idle_share=max(0.0, 1.0 - busy_us / wall_us), **extra)
+               idle_share=max(0.0, 1.0 - busy_us / wall_us),
+               top_kernels={k: v / n / 1e3 for k, v in top.most_common(8)},
+               host_op_ms_per_iteration=sum(host.values()) / n / 1e3,
+               top_host_ops={k: dict(ms=v / n / 1e3, calls=calls[k] / n)
+                             for k, v in host.most_common(10)},
+               casts=casts, **extra)
     emit(**out)
     return out
 
@@ -879,18 +1052,24 @@ _COUNTED = (dw.fused_depthwise, dw.depthwise_dx, dw.depthwise_dwgrad,
 def _reset_counts() -> None:
     for fn in _COUNTED:
         fn.launches = 0
+        fn.launches_by_dtype.clear()
 
 
-def _counts():
-    """Launches of (depthwise forward, dx, dw gradient) since the reset."""
-    return (dw.fused_depthwise.launches, dw.depthwise_dx.launches,
-            dw.depthwise_dwgrad.launches)
+def _launches(fns, dtype=None):
+    return tuple(fn.launches if dtype is None
+                 else fn.launches_by_dtype[dtype] for fn in fns)
 
 
-def _flash_counts():
-    """Launches of (flash forward, dQ, dK/dV) since the reset."""
-    return (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
-            fa.flash_bwd_dkv.launches)
+def _counts(dtype=None):
+    """Launches of (depthwise forward, dx, dw gradient) since the reset, of
+    every instantiation or of ``dtype``'s ("float32", "bfloat16")."""
+    return _launches(_COUNTED[:3], dtype)
+
+
+def _flash_counts(dtype=None):
+    """Launches of (flash forward, dQ, dK/dV) since the reset, of every
+    instantiation or of ``dtype``'s."""
+    return _launches(_COUNTED[3:], dtype)
 
 
 def phase_train(frame: str) -> dict:
@@ -1014,8 +1193,8 @@ def _stage_ms(fn, iters: int = 5) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / iters / 1e3
+    return sum(e.self_device_time_total
+               for e in _device_events(prof)) / iters / 1e3
 
 
 def _grey_diff(got: torch.Tensor, want: torch.Tensor):
@@ -1103,15 +1282,14 @@ def phase_prologue(run) -> dict:
     return out
 
 
-def phase_train_data(frame: str, synthetic: dict) -> dict:
-    """``runners.train`` from a clip tree with ``scripts/train.sh``'s flags
-    on the flagship; the prologue card against CPU; a pack of the tree
-    against the tree."""
-    root = make_clip_tree(OUT / "tree")
-    out = OUT / "train_data"
-    shutil.rmtree(out, ignore_errors=True)
-    cfg = train_runner.parse_args(DATA_FLAGS + ["--data", str(root),
-                                                "--output", str(out)])
+def _tree_train(name: str, cfg, frame: str, dtype: str) -> dict:
+    """``runners.train`` in-process on the flagship from a clip tree, one
+    epoch: 55/55/55 depthwise launches a step and 55 forward launches an
+    eval batch, every one of ``dtype``'s instantiation; loss finite, no
+    guarded step, params and BN stats moved, the checkpoint scores a frame;
+    then one step's launches and a profile of three steps fed by the
+    loader.  Returns the numbers, the profile's, the launches and the
+    profiled run (for more checks)."""
     train_ds, eval_ds = train_runner.build_datasets(cfg)
     want_steps = len(train_ds) // TRAIN_BATCH
     eval_batches = math.ceil(len(eval_ds) / (2 * TRAIN_BATCH))
@@ -1122,24 +1300,24 @@ def phase_train_data(frame: str, synthetic: dict) -> dict:
     result = train_runner.main(cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fwd, dxl, dwg = _counts()
+    launches = _counts()
     flash = _flash_counts()
     peak = torch.cuda.max_memory_allocated()
     steps = len(result["train"]["step_s"])
+    want = (55 * (steps + eval_batches), 55 * steps, 55 * steps)
     if steps < 8 or steps != want_steps or flash != (0, 0, 0) or \
-            (fwd, dxl, dwg) != (55 * (steps + eval_batches), 55 * steps,
-                                55 * steps):
+            launches != want or _counts(dtype) != want:
         raise AssertionError(
-            f"train_data: {steps} steps, {fwd} forward, {dxl} dx, {dwg} "
-            f"dw-gradient and {flash} flash launches; expected {want_steps} "
-            f"(≥ 8), {55 * (steps + eval_batches)}, {55 * steps}, "
-            f"{55 * steps} and none")
+            f"{name}: {steps} steps, (forward, dx, dw-gradient) launches "
+            f"{launches}, {_counts(dtype)} of them {dtype}, flash {flash}; "
+            f"expected {want_steps} (≥ 8), {want}, all {dtype}, none")
     if not (np.isfinite(result["train"]["loss"])
             and np.isfinite(result["eval"]["loss"])):
         raise AssertionError(f"non-finite loss: {result}")
     if result["train"]["nonfinite"]:
         raise AssertionError(f"{result['train']['nonfinite']} guarded steps")
-    last = Path(result["output_dir"]) / "last.pth.tar"
+    out_dir = Path(result["output_dir"])
+    last = out_dir / "last.pth.tar"
     sd = torch.load(last, map_location="cpu", weights_only=True)["state_dict"]
     stats = ("running_mean", "running_var")
     counters = stats + ("num_batches_tracked",)
@@ -1150,7 +1328,7 @@ def phase_train_data(frame: str, synthetic: dict) -> dict:
     if not all(moved.values()):
         raise AssertionError(f"state did not move in training: {moved}")
     score = runner.test_img(str(last), [frame], size=600,
-                           device=DATA_DEVICE)
+                            device=DATA_DEVICE)
     if not (len(score) == 1 and 0.0 <= score[0] <= 1.0):
         raise AssertionError(f"checkpoint scored {score}")
     step_s = result["train"]["step_s"][1:]
@@ -1164,6 +1342,11 @@ def phase_train_data(frame: str, synthetic: dict) -> dict:
                    / loader["batches"] * 1e3,
                    fetch_ms_per_batch=loader["fetch_s"]
                    / loader["batches"] * 1e3)
+    info = dict(steps=steps, eval_batches=eval_batches,
+                train_samples=len(train_ds), eval_samples=len(eval_ds),
+                moved_leaves=moved, checkpoint=str(last.relative_to(ROOT)),
+                score=score[0], step_ms=[v * 1e3 for v in step_s],
+                wall_s=wall, files=sorted(p.name for p in out_dir.iterdir()))
     del result, sd, init
     gc.collect()
     torch.cuda.empty_cache()
@@ -1177,8 +1360,9 @@ def phase_train_data(frame: str, synthetic: dict) -> dict:
     _reset_counts()
     run.train_step(run.state, *next(it))
     torch.cuda.synchronize()
-    if _counts() != (55, 55, 55):
-        raise AssertionError(f"one train step launched {_counts()}")
+    if _counts(dtype) != (55, 55, 55):
+        raise AssertionError(f"one train step launched {_counts()}, "
+                             f"{_counts(dtype)} of them {dtype}")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1187,10 +1371,30 @@ def phase_train_data(frame: str, synthetic: dict) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     it.close()
-    kinds = _emit_kinds("train_data_profile", prof, 3, wall_us,
-                        batch=TRAIN_BATCH)
-    prologue = phase_prologue(run)
-    del run, it
+    kinds = _emit_kinds(name + "_profile", prof, 3, wall_us,
+                        batch=TRAIN_BATCH, dtype=dtype)
+    numbers.update(idle_share=kinds.get("idle_share"),
+                   busy_ms_per_step=kinds.get("busy_ms_per_iteration"),
+                   launches_per_step=sum(kinds.get(
+                       "launches_per_iteration", {}).values()) or None,
+                   device_ms_by_kind=kinds.get("ms_per_iteration"))
+    return dict(numbers=numbers, info=info, run=run,
+                launches=dict(zip(("forward_launches", "dx_launches",
+                                   "dwgrad_launches"), launches)))
+
+
+def phase_train_data(frame: str, synthetic: dict) -> dict:
+    """``runners.train`` from a clip tree with ``scripts/train.sh``'s data
+    and augment flags on the flagship, f32; the prologue card against CPU;
+    a pack of the tree against the tree."""
+    root = make_clip_tree(OUT / "tree")
+    out = OUT / "train_data"
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = train_runner.parse_args(DATA_FLAGS + ["--data", str(root),
+                                                "--output", str(out)])
+    tr = _tree_train("train_data", cfg, frame, "float32")
+    prologue = phase_prologue(tr["run"])
+    del tr["run"]
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1211,21 +1415,191 @@ def phase_train_data(frame: str, synthetic: dict) -> dict:
                        for a, b in zip(*pairs))
     if not packed_equal or len(pairs[1]) != 2:
         raise AssertionError("packed batches differ from the tree's")
-    emit(phase="train_data", steps=steps, forward_launches=fwd,
-         dx_launches=dxl, dwgrad_launches=dwg, eval_batches=eval_batches,
-         train_samples=len(train_ds), eval_samples=len(eval_ds),
-         moved_leaves=moved, checkpoint=str(last.relative_to(ROOT)),
-         score=score[0], step_ms=[v * 1e3 for v in step_s], wall_s=wall,
-         idle_share=kinds.get("idle_share"), prologue=prologue,
+    info = tr["info"]
+    emit(phase="train_data", dtype="float32", **tr["launches"], **info,
+         prologue=prologue,
          pack={"write_s": pack_s, "clips": len(index["clips"]),
                "bytes": sum(int(s_["num_samples"]) for s_ in index["shards"])
                * TREE_HW * TREE_HW * 12, "first_two_batches_bitwise": True},
-         synthetic=synthetic, **numbers)
-    return dict(forward_launches=fwd, dx_launches=dxl, dwgrad_launches=dwg)
+         synthetic=synthetic, **tr["numbers"])
+    return dict(root=root, numbers=tr["numbers"], **tr["launches"])
+
+
+def train_sh_flags(root: Path) -> list:
+    """``scripts/train.sh``'s argument list for the runner, as that script
+    passes it (``--amp``, ``--auto-resume``, ``--recovery-interval 500``,
+    ...), with ``root`` as its clip tree."""
+    text = (ROOT / "scripts" / "train.sh").read_text()
+    body = text.split(".runners.train \\\n", 1)[1].split('"${@:2}"')[0]
+    words = [w.strip('"') for w in body.replace("\\\n", " ").split()]
+    return [{"$1": str(root), "${DFD_EXPERIMENT:-flagship}": "flagship"}.get(
+        w, w) for w in words]
+
+
+# the bf16 runs from the tree: train.sh's whole argument list, then one
+# epoch (8 steps), a recovery snapshot every 3 batches and each step's
+# metrics read back
+AMP_OVERRIDES = ["--epochs", "1", "--recovery-interval", "3",
+                 "--log-interval", "1"]
+
+
+def _amp_cfg(root: Path, out: Path):
+    cfg = train_runner.parse_args(train_sh_flags(root) + AMP_OVERRIDES
+                                  + ["--output", str(out)])
+    if not (cfg.amp and cfg.auto_resume and cfg.recovery_interval == 3
+            and train_runner.model_dtype(cfg) == torch.bfloat16):
+        raise AssertionError(f"train.sh's flags parsed to {cfg}")
+    return cfg
+
+
+def phase_train_amp(frame: str, root: Path, f32: dict) -> dict:
+    """The flagship at 12×600², batch 3, from the seeded tree with
+    ``scripts/train.sh``'s whole argument list (``--amp``, ``--auto-resume``,
+    ``--recovery-interval 3``), one epoch: every depthwise launch of the
+    bf16 instantiations (55/55/55 a step), recovery snapshots written, and
+    the numbers beside the f32 tree phase's of the same run."""
+    out = OUT / "train_amp"
+    shutil.rmtree(out, ignore_errors=True)
+    tr = _tree_train("train_amp", _amp_cfg(root, out), frame, "bfloat16")
+    snaps = [f for f in tr["info"]["files"] if f.startswith("recovery-")]
+    if not snaps:
+        raise AssertionError(f"no recovery snapshot in {tr['info']['files']}")
+    del tr["run"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase="train_amp", dtype="bfloat16", **tr["launches"],
+         **tr["info"], recovery_snapshots=snaps, train_data_f32=f32,
+         **tr["numbers"])
+    shutil.rmtree(out, ignore_errors=True)
+    return dict(numbers=tr["numbers"], **tr["launches"])
+
+
+def _final_state(run_dir: Path) -> dict:
+    """Every tensor of a run's ``last.pth.tar``: params and BN stats, the
+    optimizer's moments, the step."""
+    ck = torch.load(run_dir / "last.pth.tar", map_location="cpu",
+                    weights_only=True)
+    out = {f"model/{k}": v for k, v in ck["state_dict"].items()}
+    for i, st in ck["optimizer"]["state"].items():
+        out.update({f"opt/{i}/{k}": v for k, v in st.items()})
+    out["step"] = torch.tensor(ck["step"])
+    return out
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max((x.double() - b[k].double()).abs().max().item()
+               for k, x in a.items() if x.is_floating_point())
+
+
+def phase_resume(root: Path) -> dict:
+    """The bf16 flagship from the tree with train.sh's flags, in-process:
+    an uninterrupted epoch twice; ``sigterm@5`` → exit 75 and a snapshot,
+    then ``--auto-resume`` to the end; a ``nanbatch`` burst → one rewind,
+    then to the end.  If the two uninterrupted runs agree bitwise, the
+    resumed and the rewound runs must agree with them bitwise; if not (the
+    card is not deterministic), the state reloaded from the snapshot must
+    be the state saved, bitwise, and the final params within twice the
+    run-to-run spread."""
+    base = OUT / "resume"
+    shutil.rmtree(base, ignore_errors=True)
+
+    def run(tag: str, chaos: str = "", fresh: bool = True):
+        out = base / tag
+        if fresh:
+            shutil.rmtree(out, ignore_errors=True)
+        cfg = _amp_cfg(root, out)
+        os.environ.pop("DFD_CHAOS", None)
+        if chaos:
+            os.environ["DFD_CHAOS"] = chaos
+        t0 = time.perf_counter()
+        try:
+            return 0, train_runner.main(cfg), out / "flagship", \
+                time.perf_counter() - t0
+        except SystemExit as e:
+            return e.code, None, out / "flagship", time.perf_counter() - t0
+        finally:
+            os.environ.pop("DFD_CHAOS", None)
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    _reset_counts()
+    walls, states = {}, {}
+    for tag in ("uninterrupted", "again"):
+        code, result, run_dir, walls[tag] = run(tag)
+        if code or result["train"]["nonfinite"]:
+            raise AssertionError(f"{tag}: exit {code}, {result}")
+        states[tag] = _final_state(run_dir)
+        shutil.rmtree(run_dir.parent)
+    spread = _max_diff(states["again"], states["uninterrupted"])
+    deterministic = all(torch.equal(v, states["uninterrupted"][k])
+                        for k, v in states["again"].items())
+    # preemption after update 5 (batch 4): exit 75, the synchronous
+    # snapshot, and the relaunch continues from it
+    code, _, run_dir, walls["preempted"] = run("preempt", "sigterm@5")
+    snap = run_dir / "recovery-0-4.pth.tar"
+    if code != 75 or not snap.is_file():
+        raise AssertionError(f"sigterm@5: exit {code}, files "
+                             f"{sorted(p.name for p in run_dir.iterdir())}")
+    # the snapshot, loaded into a fresh state and saved again, is itself
+    reload = train_runner.setup(_amp_cfg(root, base / "reload"))
+    meta = ckpt.restore_train_state(str(snap), reload.state)
+    again = ckpt.checkpoint_payload(reload.state, meta["epoch"], {})
+    saved = ckpt.load_checkpoint_file(str(snap))
+    reload_bitwise = all(
+        torch.equal(again["state_dict"][k], v)
+        for k, v in saved["state_dict"].items()) and all(
+        torch.equal(again["optimizer"]["state"][i][k], v)
+        for i, st in saved["optimizer"]["state"].items()
+        for k, v in st.items())
+    del reload, again, saved
+    code, result, _, walls["resumed"] = run("preempt", fresh=False)
+    if code or result["train"]["nonfinite"]:
+        raise AssertionError(f"auto-resume: exit {code}, {result}")
+    states["resumed"] = _final_state(run_dir)
+    shutil.rmtree(run_dir.parent)
+    # batches 3, 4, 5 poisoned: three bad steps in a row rewind to the
+    # snapshot of batch 2, from where the span replays clean
+    code, result, run_dir, walls["rewound"] = run("nanbatch", "nanbatch@3x3")
+    if code or result["rewinds"] != 1:
+        raise AssertionError(f"nanbatch: exit {code}, {result}")
+    states["rewound"] = _final_state(run_dir)
+    shutil.rmtree(base)
+    launches = _counts()
+    diffs = {tag: _max_diff(states[tag], states["uninterrupted"])
+             for tag in ("resumed", "rewound")}
+    bitwise = {tag: all(torch.equal(v, states["uninterrupted"][k])
+                        for k, v in states[tag].items())
+               for tag in ("resumed", "rewound")}
+    if deterministic and not all(bitwise.values()):
+        raise AssertionError(f"resume/rewind not bitwise the uninterrupted "
+                             f"run: {bitwise}, max diff {diffs}")
+    if not deterministic and not (reload_bitwise and all(
+            d <= 2 * spread for d in diffs.values())):
+        raise AssertionError(f"resume/rewind: snapshot reload bitwise "
+                             f"{reload_bitwise}, max diff {diffs} against a "
+                             f"run-to-run spread of {spread}")
+    emit(phase="resume", dtype="bfloat16", deterministic=deterministic,
+         run_to_run_max_diff=spread, bitwise=bitwise, max_diff=diffs,
+         snapshot_reload_bitwise=reload_bitwise, wall_s=walls,
+         forward_launches=launches[0], dx_launches=launches[1],
+         dwgrad_launches=launches[2], bf16_launches=_counts("bfloat16"))
+    return dict(zip(("forward_launches", "dx_launches", "dwgrad_launches"),
+                    launches))
 
 
 def _flagship(device: str):
     return create_deepfake_model_v4(device=device, seed=1, bn_momentum=0.1)
+
+
+# the bf16 gate's flagship: full width, its first 10 blocks (depth
+# multiplier 0.34 for 3.1), where a fresh model's bf16 step is about 10% of
+# its update off the f32 step (55 blocks: about 90%; ``bf16_noise``)
+FLAGSHIP_CUT = "flagship_10_blocks"
+
+
+def _flagship_cut(device: str):
+    return create_deepfake_model_v4(device=device, seed=1, bn_momentum=0.1,
+                                    depth_multiplier=0.34)
 
 
 def _timesformer(size: int):
@@ -1237,13 +1611,15 @@ def _timesformer(size: int):
 
 
 def _train_one_step(build, device: str, x: np.ndarray, y: np.ndarray,
-                    threads: int = 0):
-    """One guarded rmsproptf step of the seeded model ``build(device)``;
-    returns the loss, the state dict before and after (CPU), and the live
-    state and step for more steps."""
+                    threads: int = 0, dtype=None):
+    """One guarded rmsproptf step of the seeded model ``build(device)``,
+    computing in ``dtype`` (None: f32); returns the loss, the state dict
+    before and after (CPU), and the live state and step for more steps."""
     if threads:
         torch.set_num_threads(threads)
-    model = build(device)
+    torch.backends.cudnn.allow_tf32 = False     # f32 as f32, as the runners
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = set_compute_dtype(build(device), dtype)
     state = create_train_state(model, create_optimizer(
         train_runner.TrainConfig(opt="rmsproptf"), model, 1e-3),
         with_ema=True)
@@ -1262,14 +1638,28 @@ def _train_one_step(build, device: str, x: np.ndarray, y: np.ndarray,
                 state=state, step=step, x=xd, y=yd)
 
 
-def phase_card_vs_cpu(name: str = "flagship", build=_flagship,
-                      size: int = 224, batch: int = 2) -> None:
-    """One guarded rmsproptf step of a full-width, full-depth model from the
-    same weights on the card and on the CPU (all cores, and one core for the
-    CPU's own f32 rounding noise); then a NaN batch on the card."""
+def _gate_inputs(size: int, batch: int):
     rng = np.random.default_rng(7)
     x = rng.standard_normal((batch, 12, size, size)).astype(np.float32)
-    y = np.array([[0.9, 0.1], [0.2, 0.8]], np.float32)[:batch]
+    y = np.tile(np.array([[0.9, 0.1], [0.2, 0.8]], np.float32),
+                ((batch + 1) // 2, 1))[:batch]
+    return x, y
+
+
+def _updates(run) -> dict:
+    """Each floating parameter's update of a step (BN stats aside)."""
+    return {k: run["after"][k] - v for k, v in run["before"].items()
+            if v.is_floating_point()
+            and not k.endswith(("running_mean", "running_var"))}
+
+
+def phase_card_vs_cpu(name: str = "flagship", build=_flagship,
+                      size: int = 224, batch: int = 2) -> dict:
+    """One guarded rmsproptf step of a full-width model from the same
+    weights on the card and on the CPU (all cores, and one core for the
+    CPU's own f32 rounding noise); then a NaN batch on the card.  Returns
+    both steps' losses, updates and states, for the bf16 gate."""
+    x, y = _gate_inputs(size, batch)
     gpu = _train_one_step(build, "cuda", x, y)
     cpu = _train_one_step(build, "cpu", x, y, threads=os.cpu_count() or 1)
     cpu1 = _train_one_step(build, "cpu", x, y, threads=1)
@@ -1328,8 +1718,16 @@ def phase_card_vs_cpu(name: str = "flagship", build=_flagship,
          max_bn_stat_rel_diff=worst_bn, leaves=len(upd), gpu_s=gpu["s"],
          cpu_s=cpu["s"], cpu_1_thread_s=cpu1["s"],
          tol=dict(loss=LOSS_TOL, update=UPDATE_TOL, bn_stats=1e-4))
-    # the guard: a NaN batch through the card's step changes nothing
-    state, step = gpu["state"], gpu["step"]
+    _nan_guard(name, gpu, "float32")
+    return dict(cpu=dict(loss=cpu["loss"], updates=_updates(cpu),
+                         after=cpu["after"], s=cpu["s"]),
+                gpu=dict(loss=gpu["loss"], updates=_updates(gpu),
+                         after=gpu["after"]))
+
+
+def _nan_guard(name: str, gpu: dict, dtype: str) -> None:
+    """A NaN batch through the card's guarded step changes nothing."""
+    state, step = gpu.pop("state"), gpu.pop("step")
     before = [t.clone() for t in state.tensors()]
     m = step(state, torch.full_like(gpu["x"], float("nan")), gpu["y"])
     torch.cuda.synchronize()
@@ -1340,8 +1738,173 @@ def phase_card_vs_cpu(name: str = "flagship", build=_flagship,
         raise AssertionError(f"NaN batch: nonfinite {float(m['nonfinite'])},"
                              f" {same}/{len(before)} tensors unchanged, "
                              f"step {int(state.step)}")
-    emit(phase="guard", model=name, nonfinite=float(m["nonfinite"]),
-         tensors_unchanged=same, tensors=len(before), step=int(state.step))
+    emit(phase="guard", model=name, dtype=dtype,
+         nonfinite=float(m["nonfinite"]), tensors_unchanged=same,
+         tensors=len(before), step=int(state.step))
+
+
+def _vec(d: dict, keys) -> torch.Tensor:
+    return torch.cat([d[k].double().flatten() for k in keys])
+
+
+def _norm(t: torch.Tensor) -> float:
+    return torch.linalg.vector_norm(t.double()).item()
+
+
+def _bf16_ref(gpu_f32: dict, cpu_f32: dict, cpu: dict) -> dict:
+    """What the bf16 gate holds a card bf16 step against: the CPU's bf16
+    step (``cpu``), both f32 steps, the leaves whose f32 update is not
+    zero, and each side's BN statistics."""
+    fg, fc, uc = gpu_f32["updates"], cpu_f32["updates"], _updates(cpu)
+    largest = max(_norm(u) for u in fc.values())
+    live = sorted(k for k, u in fc.items() if _norm(u) > 1e-6 * largest)
+    return dict(fg=fg, fc=fc, uc=uc, largest=largest, live=live,
+                cancelled=sorted(set(fc) - set(live)), lc=cpu["loss"],
+                lcf=cpu_f32["loss"], lgf=gpu_f32["loss"],
+                after_c=cpu["after"], after_fc=cpu_f32["after"],
+                after_fg=gpu_f32["after"])
+
+
+def _bn_rel(a: dict, b: dict, scales: dict) -> float:
+    """The largest BN-statistic difference of two state dicts, each against
+    its layer's scale (a mean against the channel spread, a var against
+    var)."""
+    return max((a[k] - b[k]).abs().max().item() / sc
+               for k, sc in scales.items())
+
+
+def _bf16_checks(ug: dict, loss: float, after: dict, ref: dict):
+    """The bf16 gate on one card step (its updates ``ug``, loss and
+    state ``after``) against ``ref`` (``_bf16_ref``): returns the numbers
+    and the names of the checks that failed.
+
+    * ``whole``: the whole update (every leaf, one vector, its 2-norm)
+      ``|card bf16 - card f32| <= 2 |CPU bf16 - CPU f32| + 2^-8 |CPU f32|
+      + |card f32 - CPU f32|`` (the f32 noise), the method of
+      ``tests/test_torch_amp.py``;
+    * ``bf16``: ``|card bf16 - card f32| >= 1/4 |CPU bf16 - CPU f32|``:
+      the card's step computed in bf16;
+    * ``leaves``: each leaf whose f32 update is not zero, against its own
+      CPU bf16 update: ``|card bf16 - CPU bf16| <= BF16_LEAF_TOL |CPU
+      bf16|``, the same code on both sides from the same weights and
+      inputs, apart by accumulation order only;
+    * ``cancelled``: a leaf whose f32 update is zero (a BN bias in front of
+      a training-mode BN: its gradient cancels) moves by at most 2^-8 of
+      the largest update;
+    * ``loss``: ``|card bf16 - CPU bf16| <= BF16_LOSS_TOL`` of the loss;
+    * ``bn``: every BN statistic, card bf16 against CPU bf16, within
+      ``BF16_BN_TOL`` of its layer's scale.
+    """
+    fg, fc, uc, live = ref["fg"], ref["fc"], ref["uc"], ref["live"]
+    keys = sorted(fc)
+    e_card = _norm(_vec(ug, keys) - _vec(fg, keys))
+    e_cpu = _norm(_vec(uc, keys) - _vec(fc, keys))
+    scale = _norm(_vec(fc, keys))
+    f32_noise = _norm(_vec(fg, keys) - _vec(fc, keys))
+    leaf = {k: _norm(ug[k] - uc[k]) / max(_norm(uc[k]), 1e-30)
+            for k in live}
+    noise = [_norm(uc[k] - fc[k]) / max(_norm(uc[k]), 1e-30) for k in live]
+    worst = max(leaf, key=leaf.get)
+    moved = max((_norm(ug[k]) for k in ref["cancelled"]), default=0.0)
+    scales = {}
+    for k, v in ref["after_fc"].items():
+        if k.endswith("running_var"):
+            spread = float(v.max().sqrt())
+            base = k[:-len("running_var")]
+            scales[base + "running_mean"] = spread
+            scales[k] = spread ** 2
+    loss_rel = abs(loss - ref["lc"]) / abs(ref["lc"])
+    bn = _bn_rel(after, ref["after_c"], scales) if scales else 0.0
+    numbers = dict(
+        whole_card=e_card / scale, whole_cpu=e_cpu / scale,
+        whole_bound=(2 * e_cpu + 2.0 ** -8 * scale + f32_noise) / scale,
+        f32_noise=f32_noise / scale, leaves=len(live),
+        leaf_rel_quantiles=[float(np.quantile(list(leaf.values()), q))
+                            for q in (0.5, 0.9, 0.99, 1.0)],
+        worst_leaf=worst, leaf_bf16_noise_quantiles=[
+            float(np.quantile(noise, q)) for q in (0.5, 0.9, 0.99, 1.0)],
+        cancelled=len(ref["cancelled"]),
+        cancelled_moved=moved / ref["largest"], loss_rel=loss_rel, bn=bn)
+    failed = []
+    if not (np.isfinite(e_card) and np.isfinite(loss)):
+        failed.append("finite")
+    if e_card > 2 * e_cpu + 2.0 ** -8 * scale + f32_noise:
+        failed.append("whole")
+    if e_card < e_cpu / 4:
+        failed.append("bf16")
+    if leaf[worst] > BF16_LEAF_TOL:
+        failed.append("leaves")
+    if moved > 2.0 ** -8 * ref["largest"]:
+        failed.append("cancelled")
+    if loss_rel > BF16_LOSS_TOL:
+        failed.append("loss")
+    if bn > BF16_BN_TOL:
+        failed.append("bn")
+    return numbers, failed
+
+
+def _bf16_steps(build, f32: dict, size: int, batch: int):
+    """The bf16 step of ``build`` on the card and on the CPU from the same
+    weights and inputs as the f32 gate's steps ``f32``; returns the card's
+    step, ``_bf16_ref`` and ``_bf16_checks``' numbers and failed checks."""
+    x, y = _gate_inputs(size, batch)
+    gpu = _train_one_step(build, "cuda", x, y, dtype=torch.bfloat16)
+    cpu = _train_one_step(build, "cpu", x, y, os.cpu_count() or 1,
+                          dtype=torch.bfloat16)
+    del cpu["state"]
+    ref = _bf16_ref(f32["gpu"], f32["cpu"], cpu)
+    numbers, failed = _bf16_checks(_updates(gpu), gpu["loss"], gpu["after"],
+                                   ref)
+    numbers.update(loss_gpu_bf16=gpu["loss"], loss_cpu_bf16=cpu["loss"],
+                   loss_gpu_f32=ref["lgf"], loss_cpu_f32=ref["lcf"],
+                   gpu_s=gpu["s"], cpu_s=cpu["s"])
+    return gpu, ref, numbers, failed
+
+
+def phase_bf16_noise(name: str, build, f32: dict, size: int = 224,
+                     batch: int = 2) -> None:
+    """The full flagship's bf16 step beside its f32 steps (``f32``, the f32
+    gate's), reported and not held: at full depth and fresh weights, a
+    bf16 step's update is about as far from the f32 update as the update is
+    long, on the card and on the CPU alike, so no bound on it could fail a
+    wrong step (``card_vs_cpu_bf16`` holds a cut of it instead).  Then a NaN
+    batch through the card's bf16 step must change nothing."""
+    gpu, _, numbers, failed = _bf16_steps(build, f32, size, batch)
+    emit(phase="bf16_noise", model=name, size=size, batch=batch,
+         held=False, checks_that_would_fail=failed, **numbers)
+    _nan_guard(name, gpu, "bfloat16")
+
+
+def phase_card_vs_cpu_bf16(name: str, build, f32: dict, size: int,
+                           batch: int = 2) -> None:
+    """The bf16 gate: one guarded step of a model from the same weights and
+    inputs in bf16 on the card and on the CPU, held by ``_bf16_checks``
+    against the CPU's bf16 step and both f32 steps (``f32``, the f32 gate's
+    of the same model); then two planted faults must each fail it: an
+    unchanged state (the card's update zero) and the card's f32 step in the
+    bf16 step's place.  Then a NaN batch through the card's bf16 step must
+    leave the state bitwise unchanged."""
+    gpu, ref, numbers, failed = _bf16_steps(build, f32, size, batch)
+    controls = {
+        "unchanged": _bf16_checks({k: torch.zeros_like(u) for k, u in
+                                   ref["fc"].items()}, gpu["loss"],
+                                  gpu["after"], ref),
+        "f32_step": _bf16_checks(ref["fg"], ref["lgf"], ref["after_fg"],
+                                 ref)}
+    emit(phase="card_vs_cpu_bf16", model=name, size=size, batch=batch,
+         **numbers, failed=failed,
+         controls={c: dict(failed=f, whole_card=n["whole_card"],
+                           worst_leaf_rel=n["leaf_rel_quantiles"][-1])
+                   for c, (n, f) in controls.items()},
+         tol=dict(leaf=BF16_LEAF_TOL, loss=BF16_LOSS_TOL, bn=BF16_BN_TOL))
+    if failed:
+        raise AssertionError(f"{name} bf16 card step failed {failed}: "
+                             f"{numbers}")
+    passed = [c for c, (_, f) in controls.items() if not f]
+    if passed:
+        raise AssertionError(f"{name} bf16 gate passed the planted faults "
+                             f"{passed}")
+    _nan_guard(name, gpu, "bfloat16")
 
 
 def _flash_inputs(bh, l, d, dtype, seed):
@@ -1579,6 +2142,77 @@ def phase_flash() -> dict:
                 max_abs_err=dict(errs))
 
 
+def sdpa_flash(q, k, v):
+    """SDPA pinned to its flash backend (bf16 only; P·V in bf16), on (B·H,
+    L, D) as (1, B·H, L, D)."""
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        return F.scaled_dot_product_attention(q[None], k[None], v[None])[0]
+
+
+def flash_bf16_costs(bh, l, d):
+    """(bytes, operations) of each flash kernel's bf16 instantiation: q, k,
+    v, o and dO two bytes an element, lse, delta and the f32 gradients
+    four; the operations are the TF32 products it runs, each 2·BH·L²·D:
+    an operand read from bf16 is exact in TF32 (one term with an exact
+    partner), one made in f32 inside the kernel (q·scale, P, dS) is split
+    (two): forward S 2 + PV 2, dQ S 1 + dP 1 + dS·K 2, dK/dV S 1 + dP 1 +
+    Pᵀ·dO 2 + dSᵀ·q 2 (f32 inputs: three terms each, 6, 9 and 12)."""
+    x, row, g = bh * l * d * 2, bh * l * 4, bh * l * d * 4
+    mm = 2 * bh * l * l * d
+    return dict(fwd=(4 * x + row, 4 * mm), dq=(4 * x + 2 * row + g, 4 * mm),
+                dkv=(4 * x + 2 * row + 2 * g, 6 * mm))
+
+
+def phase_flash_bf16() -> dict:
+    """The three flash kernels' bf16 instantiations (the ``--amp`` path's)
+    at the TimeSformer's train-step shape (B·H 384, L 576, D 64): against
+    their plain versions (O within one bf16 rounding, lse and the f32
+    gradients at the f32 tolerances: the operands built in f32 inside, q·
+    scale, P and dS, are split into TF32 terms as for f32 inputs), two calls
+    bitwise; device times of kernel, plain and SDPA in bf16 with its flash
+    backend (P·V in bf16) and its memory-efficient one, forward and
+    backward, beside the bound of the TF32 products the kernels run."""
+    bf16, bh = torch.bfloat16, FLASH_BH[0]
+    err = check_flash(f"bf16 path BH {bh}", bh, FLASH_L, FLASH_D, FLASH_L,
+                      dtype=bf16, seed=1300)
+    q, k, v, do = _flash_inputs(bh, FLASH_L, FLASH_D, bf16, 1310)
+    scale, lq = FLASH_D ** -0.5, FLASH_L
+    o, lse = fa.flash_fwd(q, k, v, scale, lq)
+    delta = (do.float() * o.float()).sum(-1)
+    bw = (q, k, v, do, lse, delta, scale, lq)
+    row = dict(
+        fwd_ms=device_ms(lambda: fa.flash_fwd(q, k, v, scale, lq)),
+        fwd_plain_ms=device_ms(lambda: fa.flash_fwd_reference(
+            q, k, v, scale, lq)),
+        fwd_library_ms=device_ms(lambda: sdpa(q, k, v)),
+        fwd_library_flash_ms=device_ms(lambda: sdpa_flash(q, k, v)),
+        dq_ms=device_ms(lambda: fa.flash_bwd_dq(*bw)),
+        dq_plain_ms=device_ms(lambda: fa.flash_bwd_dq_reference(*bw)),
+        dkv_ms=device_ms(lambda: fa.flash_bwd_dkv(*bw)),
+        dkv_plain_ms=device_ms(lambda: fa.flash_bwd_dkv_reference(*bw)))
+    row["bwd_ms"], _, row["bwd_kernels"] = backward_device_ms(
+        lambda a, b, c: fa.FlashAttentionFunction.apply(a, b, c, scale,
+                                                        False), q, k, v, do)
+    (row["library_bwd_ms"], row["library_backend"],
+     row["library_bwd_kernels"]) = backward_device_ms(sdpa, q, k, v, do)
+    (row["library_flash_bwd_ms"], row["library_flash_backend"],
+     row["library_flash_bwd_kernels"]) = backward_device_ms(sdpa_flash, q,
+                                                             k, v, do)
+    if "Efficient" not in row["library_backend"] or \
+            "Flash" not in row["library_flash_backend"]:
+        raise AssertionError(f"SDPA ran {row['library_backend']} and "
+                             f"{row['library_flash_backend']}")
+    for kind, (nbytes, ops) in flash_bf16_costs(bh, FLASH_L,
+                                                FLASH_D).items():
+        row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = _bound(
+            nbytes, ops, TF32_FLOP_PER_S)
+        row[f"{kind}_bound_share"] = row[f"{kind}_bound_ms"] \
+            / row[f"{kind}_ms"]
+    emit(phase="flash_row_bf16", bh=bh, l=FLASH_L, d=FLASH_D,
+         dtype="bfloat16", max_abs_err=err, **row)
+    return dict(row=row, max_abs_err=err)
+
+
 _FLASH_KERNEL = re.compile(r"(flash_(?:fwd|bwd_dq|bwd_dkv))_kernelI"
                            r"(f|13__nv_bfloat16)Li(\d+)E")
 
@@ -1731,17 +2365,21 @@ def phase_flash_autograd() -> float:
     return worst
 
 
-def phase_tsf_train() -> dict:
+def phase_tsf_train(amp: bool = False, beside: dict = None) -> dict:
     """``runners.train`` in-process on ``timesformer_base_patch25_600`` at
-    12×600², batch 8, ``--attn-impl flash``: 8 steps, validation of the
-    model and its EMA, a checkpoint; 12 forward, 12 dQ and 12 dK/dV kernel
-    launches a step and 12 forward launches an eval forward; the EMA
-    reloaded from the checkpoint scores the eval set as the run did; then
-    one step's device time by kernel kind and the eval forward's clips/s
-    at batch 16."""
-    out = OUT / "tsf_train"
+    12×600², batch 8, ``--attn-impl flash``, in f32 or (``amp``) bf16: 8
+    steps, validation of the model and its EMA, a checkpoint; 12 forward, 12
+    dQ and 12 dK/dV kernel launches a step and 12 forward launches an eval
+    forward, every one of the dtype's instantiation; the EMA reloaded from
+    the checkpoint scores the eval set as the run did; then one step's
+    device time by kernel kind and the eval forward's clips/s at batch
+    16.  ``beside``: the f32 phase's numbers, printed in the bf16 line."""
+    name = "tsf_train_amp" if amp else "tsf_train"
+    dtype = "bfloat16" if amp else "float32"
+    out = OUT / name
     shutil.rmtree(out, ignore_errors=True)
-    cfg = train_runner.parse_args(TSF_FLAGS + ["--output", str(out)])
+    cfg = train_runner.parse_args(TSF_FLAGS + (["--amp"] if amp else F32)
+                                  + ["--output", str(out)])
     init = train_runner.build_model(cfg, "cpu").state_dict()
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
@@ -1757,11 +2395,13 @@ def phase_tsf_train() -> dict:
     eval_forwards = 2 * math.ceil(n_eval / (2 * TSF_BATCH))  # model + EMA
     want = (TSF_BLOCKS * (steps + eval_forwards), TSF_BLOCKS * steps,
             TSF_BLOCKS * steps)
-    if steps != 8 or (fwd, dq, dkv) != want or _counts() != (0, 0, 0):
+    if steps != 8 or (fwd, dq, dkv) != want or _counts() != (0, 0, 0) \
+            or _flash_counts(dtype) != want:
         raise AssertionError(
             f"TimeSformer train path: {steps} steps, (forward, dQ, dK/dV) "
-            f"launches {(fwd, dq, dkv)}, depthwise {_counts()}; expected 8, "
-            f"{want}, (0, 0)")
+            f"launches {(fwd, dq, dkv)}, {_flash_counts(dtype)} of them "
+            f"{dtype}, depthwise {_counts()}; expected 8, {want}, all "
+            f"{dtype}, (0, 0)")
     if not (np.isfinite(result["train"]["loss"])
             and np.isfinite(result["eval"]["loss"])):
         raise AssertionError(f"non-finite loss: {result}")
@@ -1790,13 +2430,17 @@ def phase_tsf_train() -> dict:
     if rel > 1e-5:
         raise AssertionError(f"reloaded EMA eval loss {again['loss']} vs "
                              f"{result['eval']['loss']} in the run")
-    emit(phase="tsf_train", steps=steps, forward_launches=fwd,
+    numbers = dict(ms_per_step=ms_step,
+                   samples_per_s=TSF_BATCH / (ms_step / 1e3),
+                   peak_mem_gib=peak / 2 ** 30)
+    emit(phase=name, dtype=dtype, steps=steps, forward_launches=fwd,
          dq_launches=dq, dkv_launches=dkv, loss=result["train"]["loss"],
          eval_loss=result["eval"]["loss"], reloaded_eval_loss=again["loss"],
          moved_leaves=moved, checkpoint=str(last.relative_to(ROOT)),
-         ms_per_step=ms_step, step_ms=[v * 1e3 for v in step_s],
-         samples_per_s=TSF_BATCH / (ms_step / 1e3),
-         peak_mem_gib=peak / 2 ** 30, wall_s=wall)
+         step_ms=[v * 1e3 for v in step_s], wall_s=wall,
+         f32=beside and {k: beside[k] for k in (
+             "ms_per_step", "samples_per_s", "peak_mem_gib",
+             "busy_ms_per_step", "device_ms_by_kind")}, **numbers)
     del result, ckpt
 
     batches = list(itertools.islice(iter(run.train_loader), 4))
@@ -1805,9 +2449,10 @@ def phase_tsf_train() -> dict:
     _reset_counts()
     run.train_step(run.state, *batches[1])
     torch.cuda.synchronize()
-    if _flash_counts() != (TSF_BLOCKS,) * 3:
+    if _flash_counts(dtype) != (TSF_BLOCKS,) * 3:
         raise AssertionError(f"one train step launched {_flash_counts()} "
-                             f"(forward, dQ, dK/dV); expected 12 each")
+                             f"(forward, dQ, dK/dV); expected 12 each of "
+                             f"the {dtype} instantiation")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1815,8 +2460,8 @@ def phase_tsf_train() -> dict:
             run.train_step(run.state, x, y)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    _emit_kinds("tsf_train_profile", prof, len(batches) - 2, wall_us,
-                batch=TSF_BATCH)
+    kinds = _emit_kinds(name + "_profile", prof, len(batches) - 2, wall_us,
+                        batch=TSF_BATCH, dtype=dtype)
     del batches
 
     model = run.state.model.eval()
@@ -1833,34 +2478,39 @@ def phase_tsf_train() -> dict:
             model(x)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-    if _flash_counts() != (TSF_BLOCKS * iters, 0, 0):
+    if _flash_counts(dtype) != (TSF_BLOCKS * iters, 0, 0):
         raise AssertionError(f"{iters} eval forwards launched "
                              f"{_flash_counts()}")
-    emit(phase="tsf_eval_throughput", batch=2 * TSF_BATCH,
+    emit(phase="tsf_eval_throughput", dtype=dtype, batch=2 * TSF_BATCH,
          clips_per_s=2 * TSF_BATCH * iters / dt,
          ms_per_forward=dt / iters * 1e3)
     del run, model, x
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(forward_launches=fwd, dq_launches=dq, dkv_launches=dkv)
+    return dict(forward_launches=fwd, dq_launches=dq, dkv_launches=dkv,
+                busy_ms_per_step=kinds.get("busy_ms_per_iteration"),
+                device_ms_by_kind=kinds.get("ms_per_iteration"), **numbers)
 
 
-def flash_entries(fl: dict, autograd_err: float, tsf: dict) -> list:
+def flash_entries(fl: dict, autograd_err: float, tsf: dict, tsfa: dict,
+                  flb: dict) -> list:
     """The ``kernels`` line's entries of the three flash kernels: launches
-    from the TimeSformer's training path, times per call at its train
-    step's shape."""
-    row, ev = fl["row"], fl["eval_row"]
+    from the TimeSformer's training paths (f32 and bf16), times per call at
+    its train step's shape, f32 and (``bf16``) the bf16 instantiation."""
+    row, ev, rb = fl["row"], fl["eval_row"], flb["row"]
     out = []
-    for kind, line, launches in (("fwd", 106, tsf["forward_launches"]),
-                                 ("dq", 272, tsf["dq_launches"]),
-                                 ("dkv", 216, tsf["dkv_launches"])):
+    for kind, line, key in (("fwd", 106, "forward_launches"),
+                            ("dq", 272, "dq_launches"),
+                            ("dkv", 216, "dkv_launches")):
         name = {"fwd": "flash_fwd", "dq": "flash_bwd_dq",
                 "dkv": "flash_bwd_dkv"}[kind]
         out.append(dict(
             name=name, route="cuda",
             source=f"deepfake_detection_tpu_torch/csrc/{name}.cu",
             replaces=f"deepfake_detection_tpu/ops/flash_attention.py:{line}",
-            launches=launches, launches_by_path={"tsf_train": launches},
+            launches=tsf[key] + tsfa[key],
+            launches_by_path={"tsf_train": tsf[key],
+                              "tsf_train_amp": tsfa[key]},
             max_abs_err=fl["max_abs_err"][kind], ms=row[f"{kind}_ms"],
             plain_ms=row[f"{kind}_plain_ms"],
             bound_ms=row[f"{kind}_bound_ms"],
@@ -1871,17 +2521,30 @@ def flash_entries(fl: dict, autograd_err: float, tsf: dict) -> list:
             bound_share=row[f"{kind}_bound_share"],
             library_ms=row["fwd_library_ms"] if kind == "fwd" else None,
             eval_ms=ev[f"{kind}_ms"], eval_bound_ms=ev[f"{kind}_bound_ms"],
+            bf16=dict(
+                launches=tsfa[key], max_abs_err=flb["max_abs_err"][kind],
+                ms=rb[f"{kind}_ms"], plain_ms=rb[f"{kind}_plain_ms"],
+                bound_ms=rb[f"{kind}_bound_ms"],
+                bound_by=rb[f"{kind}_bound_by"],
+                bound_share=rb[f"{kind}_bound_share"],
+                library_ms=rb["fwd_library_ms"] if kind == "fwd" else None,
+                library_flash_ms=rb["fwd_library_flash_ms"]
+                if kind == "fwd" else None),
             timing="device time per call (CUDA graph replay between CUDA "
                    f"events) at (B·H, L, D) = ({FLASH_BH[0]}, {FLASH_L}, "
                    f"{FLASH_D}) f32, a train step's spatial attention; "
                    f"eval_*: ({FLASH_BH[1]}, ...), an eval forward at batch "
                    f"{2 * TSF_BATCH}; library: SDPA, memory-efficient "
-                   f"backend"))
+                   f"backend (bf16 also its flash backend); bf16 bound: the "
+                   f"TF32 products the bf16 instantiation runs"))
     for entry in out[1:]:
         entry.update(library_bwd_ms=row["library_bwd_ms"],
                      library_backend=row["library_backend"],
                      bwd_pair_ms=row["bwd_pair_ms"], bwd_ms=row["bwd_ms"],
                      eval_library_bwd_ms=ev["library_bwd_ms"])
+        entry["bf16"].update(
+            bwd_ms=rb["bwd_ms"], library_bwd_ms=rb["library_bwd_ms"],
+            library_flash_bwd_ms=rb["library_flash_bwd_ms"])
     out[0]["autograd_max_rel_err"] = autograd_err
     return out
 
@@ -1917,6 +2580,8 @@ def main() -> int:
     b = phase_backward(shapes)
     fl = phase_flash()
     fl_autograd = phase_flash_autograd()
+    kb = phase_depthwise_bf16(shapes)
+    flb = phase_flash_bf16()
 
     # each path runs with the launch counts set to 0 just before it
     _reset_counts()
@@ -1929,19 +2594,44 @@ def main() -> int:
     td = phase_train_data(frame, {k: t[k] for k in (
         "ms_per_step", "samples_per_s", "peak_mem_gib",
         "host_wait_ms_per_step", "idle_share")})
+    ta = phase_train_amp(frame, td["root"], td["numbers"])
+    rs = phase_resume(td["root"])
     tsf = phase_tsf_train()
-    phase_card_vs_cpu()
-    phase_card_vs_cpu(TSF_MODEL, _timesformer(300), size=300, batch=2)
+    tsfa = phase_tsf_train(amp=True, beside=tsf)
+    f32_gate = phase_card_vs_cpu()
+    phase_bf16_noise("flagship", _flagship, f32_gate)
+    f32_gate = phase_card_vs_cpu(FLAGSHIP_CUT, _flagship_cut)
+    phase_card_vs_cpu_bf16(FLAGSHIP_CUT, _flagship_cut, f32_gate, 224)
+    f32_gate = phase_card_vs_cpu(TSF_MODEL, _timesformer(300), size=300,
+                                 batch=2)
+    phase_card_vs_cpu_bf16(TSF_MODEL, _timesformer(300), f32_gate, 300)
+    del f32_gate
+
+    dw_paths = {"train": t, "train_data": td, "train_amp": ta, "resume": rs}
+
+    def by_path(key, **extra):
+        out = dict(extra, **{p: r[key] for p, r in dw_paths.items()})
+        return sum(out.values()), out
+
+    fwd_launches, fwd_paths = by_path("forward_launches",
+                                      inference=infer_launches)
+    dx_launches, dx_paths = by_path("dx_launches")
+    dwg_launches, dwg_paths = by_path("dwgrad_launches")
+    amp_paths = ("train_amp", "resume")
+
+    def bf16(key, err, launch_key):
+        return dict(
+            launches=sum(dw_paths[p][launch_key] for p in amp_paths),
+            max_abs_err=err, **{f: kb[key][f] for f in (
+                "ms", "plain_ms", "library_ms", "bound_ms")},
+            timing="bf16 instantiation, device time summed over the 55 "
+                   "stages as the f32 row; library: cuDNN in bf16")
 
     emit(kernels=[
         dict(name="depthwise_fwd", route="cuda",
              source="deepfake_detection_tpu_torch/csrc/depthwise_fwd.cu",
              replaces="deepfake_detection_tpu/ops/depthwise_pallas.py:138",
-             launches=infer_launches + t["forward_launches"]
-             + td["forward_launches"],
-             launches_by_path={"inference": infer_launches,
-                               "train": t["forward_launches"],
-                               "train_data": td["forward_launches"]},
+             launches=fwd_launches, launches_by_path=fwd_paths,
              max_abs_err=max(k["max_abs_err"], b["y_max_abs_err"]),
              ms=k["ms"], kernel_ms=k["ms"],
              plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
@@ -1951,24 +2641,26 @@ def main() -> int:
              dx_source="deepfake_detection_tpu_torch/csrc/depthwise_dx.cu",
              dx_ms=d["ms"], dx_library_ms=d["library_ms"],
              dx_bound_ms=d["bound_ms"],
+             bf16=dict(bf16("fwd_b1", kb["errs"]["fwd"], "forward_launches"),
+                       train_batch=kb["fwd_b3"]),
              timing="device time (CUDA graph replay between CUDA events) "
                     "summed over the flagship's 55 depthwise stages at a "
                     f"600² input, f32: the forward at batch {MAIN_BATCH}, "
                     f"dx (its own kernel, no dilated copy) at batch "
-                    f"{TRAIN_BATCH}"),
+                    f"{TRAIN_BATCH}; bf16: the bf16 instantiation, forward "
+                    f"at batch {MAIN_BATCH} (train_batch: {TRAIN_BATCH})"),
         dict(name="depthwise_dx", route="cuda",
              source="deepfake_detection_tpu_torch/csrc/depthwise_dx.cu",
              replaces="deepfake_detection_tpu/ops/depthwise_pallas.py:138 "
                       "(reused for dx by _op_bwd, :387-403)",
-             launches=t["dx_launches"] + td["dx_launches"],
-             launches_by_path={"train": t["dx_launches"],
-                               "train_data": td["dx_launches"]},
+             launches=dx_launches, launches_by_path=dx_paths,
              max_abs_err=d["max_abs_err"], max_rel_err=d["max_rel_err"],
              ms=d["ms"], kernel_ms=d["ms"], plain_ms=d["plain_ms"],
              bound_ms=d["bound_ms"],
              bound_by="bytes" if d["bytes_ms"] >= d["ops_ms"]
              else "operations",
              library_ms=d["library_ms"],
+             bf16=bf16("dx", kb["errs"]["dx"], "dx_launches"),
              timing="device time (CUDA graph replay between CUDA events) "
                     "summed over the flagship's 55 depthwise stages at a "
                     f"600² input, batch {TRAIN_BATCH}, f32; max_abs_err "
@@ -1977,18 +2669,17 @@ def main() -> int:
         dict(name="depthwise_dwgrad", route="cuda",
              source="deepfake_detection_tpu_torch/csrc/depthwise_dwgrad.cu",
              replaces="deepfake_detection_tpu/ops/depthwise_pallas.py:214",
-             launches=t["dwgrad_launches"] + td["dwgrad_launches"],
-             launches_by_path={"train": t["dwgrad_launches"],
-                               "train_data": td["dwgrad_launches"]},
+             launches=dwg_launches, launches_by_path=dwg_paths,
              max_abs_err=g["max_abs_err"], ms=g["ms"], kernel_ms=g["ms"],
              plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
              bound_by="bytes" if g["bytes_ms"] >= g["ops_ms"]
              else "operations",
              library_ms=g["library_ms"],
+             bf16=bf16("dwgrad", kb["errs"]["dwgrad"], "dwgrad_launches"),
              timing="device time (CUDA graph replay between CUDA events) "
                     "summed over the flagship's 55 depthwise stages at a "
                     f"600² input, batch {TRAIN_BATCH}, f32"),
-        *flash_entries(fl, fl_autograd, tsf)])
+        *flash_entries(fl, fl_autograd, tsf, tsfa, flb)])
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

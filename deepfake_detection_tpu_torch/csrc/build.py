@@ -6,7 +6,8 @@ per source, all started together, into ``build/kernels/`` at the repository
 root.  A library's file name carries a hash of its source, the ``csrc/*.cuh``
 headers and the flags, so an edited source is rebuilt and a built one is
 reused.  Nothing is built or loaded at import: the ops call :func:`kernel`
-when they first launch on a CUDA tensor.
+when they first launch on a CUDA tensor, and :func:`count_launch` each time
+they launch.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
-__all__ = ["SOURCES", "build", "kernel"]
+__all__ = ["SOURCES", "build", "kernel", "count_launch"]
 
 _CSRC = Path(__file__).resolve().parent
 SOURCES = {path.stem: path for path in sorted(_CSRC.glob("*.cu"))}
@@ -102,3 +103,11 @@ def kernel(name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int):
             fn.restype = restype
             _fns[symbol] = fn
         return fn
+
+
+def count_launch(wrapper, dtype) -> None:
+    """One launch of ``wrapper``'s kernel, instantiated for ``dtype``: adds
+    one to ``wrapper.launches`` and to ``wrapper.launches_by_dtype["float32"
+    or "bfloat16"]``."""
+    wrapper.launches += 1
+    wrapper.launches_by_dtype[str(dtype).replace("torch.", "")] += 1

@@ -9,10 +9,15 @@ Counterpart of ``deepfake_detection_tpu/data/loader.py``:
   collate mixup runs with ``[seed, epoch, batch, 0x77]``, and the
   prologue's parameters are derived in the same thread, beside the batch;
   a bounded queue (``--prefetch-depth``) holds the batches ahead;
+  :meth:`DeviceLoader.fast_forward` resumes an epoch mid-way: every draw
+  is keyed by the batch's absolute index, so the tail is bitwise the tail
+  of a whole epoch; the ``stall_loader`` chaos point (``chaos.py``) probes
+  here;
 * :class:`Prologue`: on the device, on the current stream, in the host
-  chain's order: warp → blur → jitter/flicker → mixup blend → normalize →
-  erase (``data/device_augment.py``, ``data/random_erasing.py``); the
-  model gets NCHW in ``channels_last`` memory;
+  chain's order: warp → blur → jitter/flicker → mixup blend → cast to the
+  compute dtype → normalize → erase (``data/device_augment.py``,
+  ``data/random_erasing.py``); the model gets NCHW in ``channels_last``
+  memory;
 * :class:`DeviceLoader`: copies each host batch over with ``non_blocking``
   and runs the prologue; :class:`LoaderStats` counts the consumer's wait
   for the host;
@@ -32,6 +37,8 @@ the host side.
 
 from __future__ import annotations
 
+import logging
+import os
 import queue
 import threading
 import time
@@ -42,6 +49,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..chaos import CHAOS_ENV_VAR, chaos_from_env
 from ..params import img_mean, img_std
 from .device_augment import (DeviceAugmentSpec, apply_color_jitter,
                              derive_geometric_batch, derive_mixup_lam,
@@ -58,6 +66,8 @@ from .transforms_factory import (transforms_deepfake_eval_v3,
 __all__ = ["train_batches", "eval_batches", "HostBatch", "HostLoader",
            "LoaderStats", "Prologue", "DeviceLoader", "create_loader",
            "create_deepfake_loader_v3", "batch_generator"]
+
+_logger = logging.getLogger(__name__)
 
 _JITTER_TAG = 0x6A17           # per-batch generator tags
 _ERASE_TAG = 0xE2A5
@@ -140,10 +150,15 @@ class HostLoader:
         self.pin_memory = pin_memory
         self.prepare: Optional[Callable] = None
         self.epoch = 0
+        # mid-epoch resume: the batches before start_batch are not made;
+        # the rest keep their absolute index for every per-batch draw.
+        # set_epoch resets it
+        self.start_batch = 0
         self.stats = LoaderStats()
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
+        self.start_batch = 0
         self.sampler.set_epoch(epoch)
         if hasattr(self.dataset, "set_epoch"):
             self.dataset.set_epoch(epoch)
@@ -191,6 +206,10 @@ class HostLoader:
     def __iter__(self) -> Iterator[HostBatch]:
         batches, vms = epoch_batches(self.sampler, self.batch_size,
                                      self.valid_mask)
+        start = self.start_batch
+        # loader points count batches within an epoch: a fresh injector an
+        # epoch (none unless DFD_CHAOS is set)
+        chaos = chaos_from_env() if os.environ.get(CHAOS_ENV_VAR) else None
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch_depth)
         stop = threading.Event()
 
@@ -207,8 +226,16 @@ class HostLoader:
             try:
                 with ThreadPoolExecutor(self.num_workers) as pool:
                     for bi, idx in enumerate(batches):
+                        if bi < start:
+                            continue
                         if stop.is_set():
                             return
+                        if chaos is not None and chaos.fires("stall_loader",
+                                                             bi):
+                            secs = chaos.arg("stall_loader", 120.0)
+                            _logger.warning("chaos: stalling the loader "
+                                            "%.0fs at batch %d", secs, bi)
+                            time.sleep(secs)
                         t0 = time.perf_counter()
                         samples = list(pool.map(self._load_one, idx))
                         item = self._collate(
@@ -239,16 +266,24 @@ class HostLoader:
 
 class Prologue:
     """The device side of a batch, stage by stage (each stage is a method,
-    so a benchmark can time it alone)."""
+    so a benchmark can time it alone), in the compute ``dtype``."""
 
     def __init__(self, device, img_num: int = 4,
-                 spec: Optional[DeviceAugmentSpec] = None):
+                 spec: Optional[DeviceAugmentSpec] = None,
+                 dtype: torch.dtype = torch.float32):
         self.img_num = img_num
         self.spec = spec
-        # ImageNet's mean and std ×255, tiled to every frame; the JAX
+        self.dtype = dtype
+        # ImageNet's mean and std ×255, tiled to every frame.  f32: the JAX
         # DeviceLoader's compiled prologue divides by the constant std as a
-        # multiply by its f32 reciprocal, and so does this one
-        self.mean = torch.from_numpy(np.tile(img_mean, img_num)).to(device)
+        # multiply by its f32 reciprocal, and so does this one.  bf16: it
+        # rounds x, mean and std to bf16 (0.485·255 = 123.675 becomes
+        # 123.5) and rounds the difference before the true division, as XLA
+        # compiles it on the CPU (bitwise, tests/test_torch_amp.py)
+        mean = torch.from_numpy(np.tile(img_mean, img_num)).to(device)
+        std = torch.from_numpy(np.tile(img_std, img_num)).to(device)
+        self.mean = mean.to(dtype)
+        self.std = std.to(dtype)
         self.inv_std = torch.from_numpy(
             np.float32(1.0) / np.tile(img_std, img_num)).to(device)
 
@@ -265,15 +300,17 @@ class Prologue:
         return device_mixup_blend(x, lam[0], lam[1], self.spec.mixup_blocks)
 
     def normalize(self, x: torch.Tensor) -> torch.Tensor:
-        return (x.to(torch.float32) - self.mean) * self.inv_std
+        if self.dtype == torch.float32:
+            return (x.to(torch.float32) - self.mean) * self.inv_std
+        return (x.to(self.dtype) - self.mean) / self.std
 
     def erase(self, x: torch.Tensor, boxes: List[EraseBox]):
         return apply_random_erasing(x, boxes, self.img_num)
 
     def __call__(self, images: torch.Tensor,
                  params: Dict[str, Any]) -> torch.Tensor:
-        """uint8 NHWC ``images`` on the device → normalized f32 NCHW in
-        ``channels_last`` memory."""
+        """uint8 NHWC ``images`` on the device → normalized NCHW in the
+        compute dtype, ``channels_last`` memory."""
         x = images
         if "coeffs" in params:
             x = self.warp(x, params["coeffs"])
@@ -307,6 +344,13 @@ class DeviceLoader:
 
     def set_epoch(self, epoch: int) -> None:
         self.loader.set_epoch(epoch)
+
+    def fast_forward(self, start_batch: int) -> None:
+        """Resume mid-epoch: the next iteration yields the batches from
+        ``start_batch`` on, bitwise the tail of a whole epoch (the samples,
+        the mixup and the prologue's draws are keyed by the absolute batch
+        index).  Call after :meth:`set_epoch`; the next one clears it."""
+        self.loader.start_batch = max(0, int(start_batch))
 
     def __len__(self) -> int:
         return len(self.loader)
@@ -381,7 +425,7 @@ def _build_loader(dataset, transform, batch_size: int, is_training: bool,
                   device, collate_mixup, seed: int, num_workers: int,
                   prefetch_depth: int, img_num: int,
                   spec: Optional[DeviceAugmentSpec], color_jitter, flicker,
-                  erasing) -> DeviceLoader:
+                  erasing, dtype: torch.dtype) -> DeviceLoader:
     """Shared tail of the factories: transform, sampler, host threads,
     prologue."""
     if transform is not None:
@@ -397,7 +441,7 @@ def _build_loader(dataset, transform, batch_size: int, is_training: bool,
                       collate_mixup=collate_mixup if is_training else None,
                       valid_mask=not is_training,
                       pin_memory=device.type == "cuda")
-    prologue = Prologue(device, img_num, spec)
+    prologue = Prologue(device, img_num, spec, dtype)
     return DeviceLoader(host, device, prologue,
                         color_jitter if is_training else None,
                         flicker if is_training else 0.0,
@@ -417,13 +461,14 @@ def create_loader(dataset, batch_size: int, is_training: bool, device,
                   re_split: bool = False, re_max: float = 0.02,
                   num_workers: int = 1,
                   collate_mixup: Optional[FastCollateMixup] = None,
-                  seed: int = 42, prefetch_depth: int = 2) -> DeviceLoader:
+                  seed: int = 42, prefetch_depth: int = 2,
+                  dtype: torch.dtype = torch.float32) -> DeviceLoader:
     """A loader for a dataset that takes no transform (the synthetic one):
-    collate, the host mixup blend, normalize and erase."""
+    collate, the host mixup blend, normalize and erase, in ``dtype``."""
     return _build_loader(
         dataset, None, batch_size, is_training, device, collate_mixup, seed,
         num_workers, prefetch_depth, img_num, None, None, 0.0,
-        _erasing(re_prob, re_mode, re_count, re_split, re_max))
+        _erasing(re_prob, re_mode, re_count, re_split, re_max), dtype)
 
 
 def create_deepfake_loader_v3(
@@ -435,8 +480,10 @@ def create_deepfake_loader_v3(
         flicker: float = 0.0, rotate_range: float = 0,
         blur_radius: Optional[float] = None, blur_prob: float = 0.0,
         seed: int = 42, prefetch_depth: int = 2, eval_crop: str = "random",
-        augment_device: bool = True) -> DeviceLoader:
-    """The clip dataset's loader, ``input_size`` ``(C, H, W)``.
+        augment_device: bool = True,
+        dtype: torch.dtype = torch.float32) -> DeviceLoader:
+    """The clip dataset's loader, ``input_size`` ``(C, H, W)``, batches in
+    the compute ``dtype``.
 
     Train: the passthrough on the host and the whole chain on the device;
     jitter (three values, or one for all three) and flicker go to the
@@ -452,7 +499,7 @@ def create_deepfake_loader_v3(
             dataset, transforms_deepfake_eval_v3(
                 h if h == w else size, crop=eval_crop),
             batch_size, False, device, None, seed, num_workers,
-            prefetch_depth, img_num, None, None, 0.0, None)
+            prefetch_depth, img_num, None, None, 0.0, None, dtype)
     if not augment_device:
         raise NotImplementedError(f"--augment-device off: {HOST_CHAIN_ITEM}")
     cj = None
@@ -476,4 +523,4 @@ def create_deepfake_loader_v3(
     return _build_loader(
         dataset, transform, batch_size, True, device, collate_mixup, seed,
         num_workers, prefetch_depth, img_num, spec, cj, flicker,
-        _erasing(re_prob, re_mode, re_count, re_split, re_max))
+        _erasing(re_prob, re_mode, re_count, re_split, re_max), dtype)

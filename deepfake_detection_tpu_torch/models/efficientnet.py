@@ -19,6 +19,7 @@ import torch.nn as nn
 from ..ops.activations import get_act_fn
 from ..ops.conv import Conv2d, dense_init_goog
 from ..ops.drop import dropout
+from ..ops.linear import Linear
 from ..ops.norm import BatchNorm2d, resolve_bn_args
 from ..ops.pool import SelectAdaptivePool2d
 from ..registry import register_model
@@ -105,7 +106,7 @@ class EfficientNet(nn.Module):
         self.conv_head = Conv2d(chs, num_features, 1, padding=pad_type)
         self.bn2 = _norm(norm_layer, num_features, bn_momentum, bn_eps)
         self.global_pool = SelectAdaptivePool2d(global_pool)
-        self.classifier = (nn.Linear(num_features
+        self.classifier = (Linear(num_features
                                      * self.global_pool.feat_mult(),
                                      num_classes)
                            if num_classes > 0 else None)

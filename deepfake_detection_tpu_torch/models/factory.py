@@ -13,6 +13,9 @@ and reaches only ViT and TimeSformer (dropped with a warning elsewhere);
 transformers need to size their position embeddings (the JAX modules size
 them from the first input), reaches only them.
 
+``dtype`` (every family) is the JAX factory's compute dtype
+(:func:`helpers.set_compute_dtype`); None keeps f32.
+
 Entry points default to ``device="cuda"`` and raise when CUDA is missing
 unless the caller asks for ``"cpu"``.
 """
@@ -20,13 +23,14 @@ unless the caller asks for ``"cpu"``.
 from __future__ import annotations
 
 import logging
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import torch
 import torch.nn as nn
 
 from ..registry import is_model, is_model_in_modules, model_entrypoint
 from . import efficientnet, timesformer, vit
+from .helpers import load_checkpoint, set_compute_dtype
 
 __all__ = ["resolve_device", "create_model", "create_deepfake_model",
            "create_deepfake_model_v3", "create_deepfake_model_v4",
@@ -113,18 +117,19 @@ def create_model(model_name: str, pretrained: bool = False,
                  num_classes: int = 1000, in_chans: int = 3,
                  checkpoint_path: str = "",
                  device: Union[str, torch.device] = "cuda", seed: int = 0,
+                 dtype: Optional[torch.dtype] = None,
                  **kwargs) -> nn.Module:
     """Build a registered model with seeded weights on ``device``, loading
     ``checkpoint_path`` (strict) when given, after the family rules;
-    keyword arguments set to None take the model's default."""
+    keyword arguments set to None take the model's default; ``dtype`` is
+    the compute dtype."""
     resolve_device(device)
     kwargs = _family_kwargs(model_name, dict(kwargs))
     model = model_entrypoint(model_name)(pretrained=pretrained,
                                          num_classes=num_classes,
                                          in_chans=in_chans, **kwargs)
-    model = init_model(model, seed, device)
+    model = set_compute_dtype(init_model(model, seed, device), dtype)
     if checkpoint_path:
-        from .helpers import load_checkpoint
         load_checkpoint(model, checkpoint_path)
     return model
 

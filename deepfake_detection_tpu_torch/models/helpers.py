@@ -1,4 +1,4 @@
-"""Checkpoint loading for timm-named torch files.
+"""Checkpoint loading for timm-named torch files, and the compute dtype.
 
 Counterpart of ``load_state_dict`` / ``load_checkpoint`` in
 ``deepfake_detection_tpu/models/helpers.py``.  The port reads torch files
@@ -7,20 +7,25 @@ state dict, or a dict holding ``state_dict`` and optionally
 ``state_dict_ema``, with DDP's ``module.`` prefix stripped.  Loading is
 strict: a missing, unexpected or mis-shaped key raises.  JAX (flax msgpack)
 checkpoints come across through :func:`convert.state_dict_from_flax`.
+
+:func:`set_compute_dtype` is the JAX ``build_model``'s ``dtype=``: the
+modules that cast (``ops.conv.Conv2d``, a transformer's patch embedding
+among them, ``ops.linear.Linear`` and ``ops.norm.LayerNorm``) compute in
+it; parameters stay f32.
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
 
 _logger = logging.getLogger(__name__)
 
-__all__ = ["load_state_dict", "load_checkpoint"]
+__all__ = ["load_state_dict", "load_checkpoint", "set_compute_dtype"]
 
 
 def load_state_dict(checkpoint_path: str,
@@ -57,4 +62,14 @@ def load_checkpoint(model: nn.Module, checkpoint_path: str,
             f"{len(mismatched)} shape mismatches "
             f"{[(k, tuple(sd[k].shape), tuple(own[k].shape)) for k in mismatched[:5]]}")
     model.load_state_dict(sd, strict=True)
+    return model
+
+
+def set_compute_dtype(model: nn.Module,
+                      dtype: Optional[torch.dtype]) -> nn.Module:
+    """Set ``compute_dtype`` on every module of ``model`` that has one
+    (None: compute in the input's dtype, the f32 path)."""
+    for m in model.modules():
+        if hasattr(type(m), "compute_dtype"):
+            m.compute_dtype = dtype
     return model

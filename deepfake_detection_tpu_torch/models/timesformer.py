@@ -8,7 +8,8 @@ C)`` position embedding and a ``(1, F, 1, C)`` time embedding, and runs
 blocks of temporal attention (each patch across its F frames, always
 dense), spatial attention (the patches of one frame, ``attn_impl`` full or
 flash) and an MLP, each pre-LN with stochastic depth.  The logits come from
-the mean over frames and patches.
+the mean over frames and patches.  Under a compute dtype the embeddings are
+cast to the tokens' dtype before they are added, as in the JAX model.
 
 TimeSformer has no timm counterpart, so the parameter names are the port's
 own, after the JAX module names: ``patch_embed.proj``, ``pos_embed``,
@@ -25,6 +26,8 @@ import torch
 import torch.nn as nn
 
 from ..ops.drop import drop_path
+from ..ops.linear import Linear
+from ..ops.norm import LayerNorm
 from ..registry import register_model
 from .vit import Attention, Mlp, PatchEmbed, _pair, init_weights
 
@@ -47,12 +50,12 @@ class DividedBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  drop_path_rate: float = 0.0, attn_impl: str = "full"):
         super().__init__()
-        self.norm_t = nn.LayerNorm(dim, eps=1e-5)
+        self.norm_t = LayerNorm(dim, eps=1e-5)
         # F is tiny (4): the dense kernel, one batched matmul
         self.attn_t = Attention(dim, num_heads, attn_impl="full")
-        self.norm_s = nn.LayerNorm(dim, eps=1e-5)
+        self.norm_s = LayerNorm(dim, eps=1e-5)
         self.attn_s = Attention(dim, num_heads, attn_impl=attn_impl)
-        self.norm_mlp = nn.LayerNorm(dim, eps=1e-5)
+        self.norm_mlp = LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self.drop_path_rate = drop_path_rate
 
@@ -99,8 +102,8 @@ class TimeSformer(nn.Module):
             DividedBlock(embed_dim, num_heads, mlp_ratio,
                          drop_path_rate * i / max(depth - 1, 1), attn_impl)
             for i in range(depth))
-        self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
-        self.head = nn.Linear(embed_dim, num_classes) \
+        self.norm = LayerNorm(embed_dim, eps=1e-5)
+        self.head = Linear(embed_dim, num_classes) \
             if num_classes > 0 else None
 
     def forward(self, x: torch.Tensor,
@@ -118,8 +121,8 @@ class TimeSformer(nn.Module):
             raise ValueError(f"{n} patches a frame, but pos_embed was made "
                              f"for {self.pos_embed.shape[2]}: build the "
                              f"model with this input's img_size")
-        x = x.reshape(b, f, n, self.embed_dim) + self.pos_embed \
-            + self.time_embed
+        x = x.reshape(b, f, n, self.embed_dim) + self.pos_embed.to(x.dtype) \
+            + self.time_embed.to(x.dtype)
         for block in self.blocks:
             x = block(x, generator)
         feat = self.norm(x).mean(dim=(1, 2))               # frames, patches

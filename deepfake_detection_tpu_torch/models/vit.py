@@ -14,6 +14,11 @@ full_attention`) or ``'flash'`` (the CUDA kernels of
 ROADMAP Queue 1 item 13, and so are the JAX module's pipeline helpers
 ``prepare_vit_pipeline`` / ``vit_pipeline_forward``.
 
+Under a compute dtype (``models.helpers.set_compute_dtype``) the patch
+conv, every dense layer and LayerNorm compute as the JAX modules' ``dtype=``
+does, and the class token and position embedding are cast to the tokens'
+dtype before they are added, as the JAX model casts them.
+
 Where the JAX model sizes ``pos_embed`` from its first input, this one
 takes ``img_size`` at construction (the registered default, or the size the
 caller passes) and raises on an input of another token count.
@@ -28,8 +33,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.conv import Conv2d
 from ..ops.drop import drop_path, dropout
 from ..ops.flash_attention import flash_attention
+from ..ops.linear import Linear
+from ..ops.norm import LayerNorm
 from ..parallel.ring_attention import full_attention
 from ..registry import register_model
 
@@ -73,8 +81,8 @@ class Attention(nn.Module):
         check_attn_impl(attn_impl)
         self.num_heads = num_heads
         self.attn_impl = attn_impl
-        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, l, c = x.shape
@@ -91,8 +99,8 @@ class Mlp(nn.Module):
 
     def __init__(self, dim: int, hidden: int, drop_rate: float = 0.0):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc1 = Linear(dim, hidden)
+        self.fc2 = Linear(hidden, dim)
         self.drop_rate = drop_rate
 
     def forward(self, x: torch.Tensor,
@@ -110,9 +118,9 @@ class Block(nn.Module):
                  qkv_bias: bool = True, drop_rate: float = 0.0,
                  drop_path_rate: float = 0.0, attn_impl: str = "full"):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm1 = LayerNorm(dim, eps=1e-5)
         self.attn = Attention(dim, num_heads, qkv_bias, attn_impl)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm2 = LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), drop_rate)
         self.drop_rate = drop_rate
         self.drop_path_rate = drop_path_rate
@@ -134,7 +142,8 @@ class PatchEmbed(nn.Module):
     def __init__(self, in_chans: int, embed_dim: int, patch_size: int):
         super().__init__()
         self.patch_size = patch_size
-        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, patch_size)
+        self.proj = Conv2d(in_chans, embed_dim, patch_size, patch_size,
+                           padding="valid", bias=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NCHW → ``(B, N, C)``, tokens in row-major patch order."""
@@ -181,8 +190,8 @@ class VisionTransformer(nn.Module):
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, drop_rate,
                   drop_path_rate * i / max(depth - 1, 1), attn_impl)
             for i in range(depth))
-        self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
-        self.head = nn.Linear(embed_dim, num_classes) \
+        self.norm = LayerNorm(embed_dim, eps=1e-5)
+        self.head = Linear(embed_dim, num_classes) \
             if num_classes > 0 else None
 
     def forward(self, x: torch.Tensor,
@@ -192,12 +201,13 @@ class VisionTransformer(nn.Module):
                              f"(NCHW), got {tuple(x.shape)}")
         x = self.patch_embed(x)
         if self.class_token:
-            x = torch.cat([self.cls_token.expand(x.shape[0], -1, -1), x], 1)
+            cls = self.cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
+            x = torch.cat([cls, x], 1)
         if x.shape[1] != self.pos_embed.shape[1]:
             raise ValueError(f"{x.shape[1]} tokens, but pos_embed was made "
                              f"for {self.pos_embed.shape[1]}: build the "
                              f"model with this input's img_size")
-        x = dropout(x + self.pos_embed,
+        x = dropout(x + self.pos_embed.to(x.dtype),
                     self.drop_rate if self.training else 0.0, generator)
         for block in self.blocks:
             x = block(x, generator)
@@ -215,7 +225,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     embeddings N(0, 0.02²), a zero class token."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (nn.Linear, nn.Conv2d)):
+            if isinstance(m, (nn.Linear, Conv2d)):
                 fan_in = m.weight[0].numel()
                 m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in),
                                  generator=generator)

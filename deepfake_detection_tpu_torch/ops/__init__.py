@@ -6,7 +6,8 @@ from .conv import (Conv2d, conv_kernel_init_goog, create_conv2d,
 from .depthwise import (FUSED_DW_ACTS, fused_depthwise,
                         fused_depthwise_reference)
 from .drop import DropPath, drop_path, dropout
+from .linear import Linear
 from .norm import (BN_EPS_PT_DEFAULT, BN_EPS_TF_DEFAULT,
                    BN_MOMENTUM_PT_DEFAULT, BN_MOMENTUM_TF_DEFAULT,
-                   BatchNorm2d, resolve_bn_args)
+                   BatchNorm2d, LayerNorm, resolve_bn_args)
 from .pool import SelectAdaptivePool2d, adaptive_pool_feat_mult, global_pool_nchw

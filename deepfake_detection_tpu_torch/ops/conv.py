@@ -14,14 +14,14 @@ explicit symmetric padding.
 from __future__ import annotations
 
 import math
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 __all__ = ["resolve_padding", "explicit_padding", "conv_kernel_init_goog",
-           "dense_init_goog", "Conv2d", "create_conv2d"]
+           "dense_init_goog", "cast_compute", "Conv2d", "create_conv2d"]
 
 
 def _to_tuple(v) -> Tuple[int, int]:
@@ -68,6 +68,13 @@ def explicit_padding(padding, kernel_size, dilation, stride, h: int,
     return t, b, l, r
 
 
+def cast_compute(dtype: Optional[torch.dtype], *tensors):
+    """``tensors`` cast to ``dtype`` (None passes through as is); a
+    cast's gradient comes back in the source dtype."""
+    return tuple(t if t is None or dtype is None else t.to(dtype)
+                 for t in tensors)
+
+
 def conv_kernel_init_goog(weight: torch.Tensor,
                           generator: torch.Generator) -> torch.Tensor:
     """TF/EfficientNet conv init in place: N(0, sqrt(2/fan_out)),
@@ -91,6 +98,8 @@ def dense_init_goog(weight: torch.Tensor,
 class Conv2d(nn.Module):
     """Conv with reference padding semantics; depthwise via ``groups ==
     in_chs``.  Parameters ``weight`` (OIHW) and optional ``bias``."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, in_chs: int, out_chs: int, kernel_size=3, stride=1,
                  dilation=1, groups: int = 1,
@@ -119,12 +128,14 @@ class Conv2d(nn.Module):
         t, b, l, r = explicit_padding(self.padding, self.kernel_size,
                                       self.dilation, self.stride,
                                       x.shape[-2], x.shape[-1])
+        x, w, bias = cast_compute(self.compute_dtype, x, self.weight,
+                                  self.bias)
         if t == b and l == r:
-            return F.conv2d(x, self.weight, self.bias, self.stride, (t, l),
-                            self.dilation, self.groups)
+            return F.conv2d(x, w, bias, self.stride, (t, l), self.dilation,
+                            self.groups)
         x = F.pad(x, (l, r, t, b))
-        return F.conv2d(x, self.weight, self.bias, self.stride, 0,
-                        self.dilation, self.groups)
+        return F.conv2d(x, w, bias, self.stride, 0, self.dilation,
+                        self.groups)
 
 
 def create_conv2d(in_chs: int, out_chs: int, kernel_size, **kwargs) -> Conv2d:

@@ -31,7 +31,8 @@ instead of the padded copy of x the TPU version makes in XLA.
 * :func:`fused_depthwise`, :func:`depthwise_dx` and :func:`depthwise_dwgrad`
   send a CPU tensor to the plain version and a CUDA tensor to the kernel,
   or raise; there is no fallback.  Their ``launches`` attributes count
-  kernel launches.
+  kernel launches, and ``launches_by_dtype`` the same launches by the
+  dtype of the instantiation (``"float32"``, ``"bfloat16"``).
 * :func:`depthwise_backward` is the backward's glue (the counterpart of
   ``fused_depthwise::_op_bwd``): the epilogue cotangents, with the two
   device ops passed in.  The CUDA autograd node passes the kernels; the CPU
@@ -46,12 +47,13 @@ import.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
-from ..csrc.build import kernel
+from ..csrc.build import count_launch, kernel
 from .conv import explicit_padding
 
 __all__ = ["FUSED_DW_ACTS", "fused_depthwise", "fused_depthwise_reference",
@@ -201,7 +203,7 @@ def _launch(x, w, scale, bias, s: int, pads, act: str,
         raise RuntimeError(f"dfd_depthwise_fwd launch failed: cudaError_t "
                            f"{err} for x {tuple(x.shape)} {x.dtype}, "
                            f"k={k_h}, stride={s}")
-    fused_depthwise.launches += 1
+    count_launch(fused_depthwise, x.dtype)
     return y, z
 
 
@@ -274,11 +276,12 @@ def depthwise_dwgrad(x: torch.Tensor, dz: torch.Tensor, k: int, stride: int,
         raise RuntimeError(f"dfd_depthwise_dwgrad launch failed: cudaError_t "
                            f"{err} for x {tuple(x.shape)} {x.dtype}, "
                            f"dz {tuple(dz.shape)}, k={k}, stride={stride}")
-    depthwise_dwgrad.launches += 1
+    count_launch(depthwise_dwgrad, x.dtype)
     return dw
 
 
 depthwise_dwgrad.launches = 0
+depthwise_dwgrad.launches_by_dtype = Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -394,11 +397,12 @@ def depthwise_dx(dz: torch.Tensor, w: torch.Tensor, x_shape, stride: int,
                            f"{err} for dz {tuple(dz.shape)}, x "
                            f"{tuple(x_shape)} {dtype}, k={k}, "
                            f"stride={stride}")
-    depthwise_dx.launches += 1
+    count_launch(depthwise_dx, dtype)
     return dx
 
 
 depthwise_dx.launches = 0
+depthwise_dx.launches_by_dtype = Counter()
 
 
 def depthwise_backward(grad: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
@@ -498,3 +502,4 @@ def fused_depthwise(x: torch.Tensor, w: torch.Tensor,
 
 
 fused_depthwise.launches = 0
+fused_depthwise.launches_by_dtype = Counter()

@@ -25,7 +25,8 @@ softmax in f32 with the same guards); the CPU tests run them and
 ``chip_smoke.py`` holds the kernels against them.  A CPU tensor takes the
 plain version, a CUDA tensor the kernel, anything else raises; there is no
 fallback.  Each device function counts its kernel launches in its
-``launches`` attribute.
+``launches`` attribute, and by the instantiation's dtype in
+``launches_by_dtype``.
 
 :func:`flash_attention` is the public op, ``(B, L, H, D) → (B, L, H, D)``,
 self-attention shapes only, differentiable through
@@ -37,11 +38,12 @@ outside any kernel in the JAX package).
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Optional, Tuple
 
 import torch
 
-from ..csrc.build import kernel
+from ..csrc.build import count_launch, kernel
 
 __all__ = ["flash_attention", "FlashAttentionFunction", "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_reference",
@@ -196,11 +198,12 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
            lse.data_ptr(), *_ints(q, k, seq_len, causal, q_off, kv_off),
            scale))
-    flash_fwd.launches += 1
+    count_launch(flash_fwd, q.dtype)
     return o, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.launches_by_dtype = Counter()
 
 
 def _bwd_more(q, do, lse, delta):
@@ -223,11 +226,12 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, seq_len: int,
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
            *_ints(q, k, seq_len, causal, q_off, kv_off), scale))
-    flash_bwd_dq.launches += 1
+    count_launch(flash_bwd_dq, q.dtype)
     return dq
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.launches_by_dtype = Counter()
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, seq_len: int,
@@ -244,11 +248,12 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, seq_len: int,
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
            *_ints(q, k, seq_len, causal, q_off, kv_off), scale))
-    flash_bwd_dkv.launches += 1
+    count_launch(flash_bwd_dkv, q.dtype)
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches_by_dtype = Counter()
 
 
 # ---------------------------------------------------------------------------

@@ -13,18 +13,25 @@ Counterpart of ``BatchNorm2d`` / ``resolve_bn_args`` in
   so it is not used here.
 
 ``momentum`` is torch convention (default 0.1), as in the JAX package.
+
+Both norms follow flax's ``dtype=`` policy under a bf16 compute dtype:
+statistics and normalization in f32, the output in the compute dtype.
+:class:`BatchNorm2d` returns its input's dtype (the compute dtype on the
+policy's path, where every input already is); :class:`LayerNorm` takes its
+``compute_dtype`` as :mod:`ops.conv` does.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 __all__ = ["BN_MOMENTUM_TF_DEFAULT", "BN_EPS_TF_DEFAULT",
            "BN_MOMENTUM_PT_DEFAULT", "BN_EPS_PT_DEFAULT", "resolve_bn_args",
-           "BatchNorm2d"]
+           "BatchNorm2d", "LayerNorm"]
 
 BN_MOMENTUM_TF_DEFAULT = 0.01
 BN_EPS_TF_DEFAULT = 1e-3
@@ -99,3 +106,17 @@ class BatchNorm2d(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((xf - _channel(mean)) * _channel(mul)
                 + _channel(self.bias)).to(x.dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """torch's ``nn.LayerNorm`` (timm's names); with ``compute_dtype`` set,
+    flax's ``nn.LayerNorm(dtype=)``: f32 statistics and normalization of
+    the widened input, the output in the compute dtype."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype is None:
+            return super().forward(x)
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(self.compute_dtype)

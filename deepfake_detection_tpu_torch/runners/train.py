@@ -6,16 +6,17 @@ loaders and steps; then per epoch train, validate (the EMA's metrics
 replace the model's when it is kept), step the schedule on the eval
 metric, and write the epoch's checkpoints.
 
-Usage, ``scripts/train.sh``'s flags on a clip tree (``--amp``,
-``--auto-resume`` and ``--recovery-interval`` are not ported yet)::
+Usage, ``scripts/train.sh``'s command line on a clip tree (the restart
+loop around it is ``scripts/train_torch.sh``)::
 
     python -m deepfake_detection_tpu_torch.runners.train \\
         --data ROOT --model efficientnet_deepfake_v4 --model-version v4 \\
         --input-size-v2 12,600,600 -b 3 --opt rmsproptf --basic-lr 5e-7 \\
-        --sched step --decay-epochs 2 --decay-rate .92 --epochs 200 \\
+        --sched step --decay-epochs 2 --decay-rate .92 --epochs 200 --amp \\
         --reprob 0.2 --remax 0.05 --flicker 0.05 --rotate-range 5 \\
         --blur-prob 0.05 --bn-momentum 0.001 --mixup 0.1 --label-balance \\
-        --eval-metric loss --workers 8 --experiment flagship
+        --eval-metric loss --workers 8 --experiment flagship \\
+        --auto-resume --recovery-interval 500
 
 ``ROOT`` holds ``real_list.txt``/``fake_list.txt`` (``name:num`` lines) and
 ``{real,fake}/<clip>/<i>.npy`` frames (``<i>.jpg`` needs Pillow);
@@ -30,10 +31,29 @@ Pillow chain, which the card's machine cannot run); ``off`` raises, naming
 its ROADMAP item.  Jitter/flicker and erasing draw from torch generators,
 not ``jax.random`` (``data/loader.py``).
 
-Compute is f32 with TF32 off.  Training runs on ``--device cuda`` unless
-the caller asks for ``cpu`` (the plain PyTorch path the tests use).  Flags
-of ``scripts/train.sh`` that the port does not have yet raise, naming
-their ROADMAP item; an unknown flag is an argparse error.
+Compute follows the JAX runner's policy: the model computes in
+``--compute-dtype`` (default ``bfloat16``, as the JAX config's) when
+``--amp`` is set or that dtype is not ``float32``, so only
+``--compute-dtype float32`` without ``--amp`` is f32 (with TF32 off on the
+card).  Parameters, gradients, the optimizer, the EMA and the guard stay
+f32 (``models.helpers.set_compute_dtype``); the loaders hand over batches
+in the compute dtype.
+
+Recovery (``train/resilience.py``, ``train/checkpoint.py``): a recovery
+snapshot every ``--recovery-interval`` batches and at each epoch's last;
+``--auto-resume`` continues from the newest loadable one (falling back past
+corrupt files to the ``_bak`` and ``model_best`` copies) at its exact loop
+position, in a stable output directory; ``--resume PATH`` seeds from a
+checkpoint (``--no-resume-opt``, ``--start-epoch``).  SIGTERM/SIGINT stop
+at a step boundary with a snapshot on disk and exit 75; K bad steps in a
+row (``--guard-*``) rewind to the last snapshot; ``--watchdog-timeout``
+seconds without a step dump every thread's stack and exit 85.  The
+``DFD_CHAOS`` points of ``chaos.py`` inject those faults.
+
+Training runs on ``--device cuda`` unless the caller asks for ``cpu`` (the
+plain PyTorch path the tests use).  Every flag of ``scripts/train.sh``
+parses; ``--augment-device off`` raises, naming its ROADMAP item; an
+unknown flag is an argparse error.
 """
 
 from __future__ import annotations
@@ -60,28 +80,26 @@ from ..models import (create_deepfake_model, create_deepfake_model_v3,
 from ..models.factory import default_cfg, resolve_device
 from ..optim.factory import create_optimizer
 from ..scheduler.factory import create_scheduler
-from ..train.checkpoint import CheckpointSaver
+from ..train.checkpoint import (CheckpointCorrupt, CheckpointSaver,
+                                find_resume_candidates, restore_train_state,
+                                wait_pending_saves)
+from ..train.resilience import (EXIT_PREEMPTED, Preempted, Resilience,
+                                RewindRequested)
 from ..train.state import TrainState, create_train_state, set_learning_rate
 from ..train.steps import make_eval_step, make_train_step
 from ..train.trainer import train_one_epoch, validate
 
 _logger = logging.getLogger("train")
 
-__all__ = ["TrainConfig", "Run", "parse_args", "setup", "build_datasets",
-           "build_loaders", "main", "launch_main"]
+__all__ = ["TrainConfig", "Run", "parse_args", "setup", "build_model",
+           "build_datasets", "build_loaders", "main", "launch_main",
+           "model_dtype"]
 
 _MODEL_FACTORIES = {"": create_model, "v1": create_deepfake_model,
                     "v3": create_deepfake_model_v3,
                     "v4": create_deepfake_model_v4}
 
-#: flags of scripts/train.sh that are not ported yet → their ROADMAP item
-UNPORTED = {
-    "amp": "bf16/AMP training (ROADMAP Queue 1 item 6)",
-    "auto_resume": "resume and recovery snapshots (ROADMAP Queue 1 item 8)",
-    "recovery_interval": "resume and recovery snapshots "
-                         "(ROADMAP Queue 1 item 8)",
-    "resume": "resume and recovery snapshots (ROADMAP Queue 1 item 8)",
-}
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 @dataclass
@@ -141,7 +159,19 @@ class TrainConfig:
     smoothing: float = 0.1
     model_ema: bool = False
     model_ema_decay: float = 0.9998
+    amp: bool = False
+    compute_dtype: str = "bfloat16"
+    resume: str = ""
+    no_resume_opt: bool = False
+    start_epoch: Optional[int] = None
+    auto_resume: bool = False
+    recovery_interval: int = 0
     guard_nonfinite: str = "skip"
+    guard_spike_window: int = 0
+    guard_spike_zmax: float = 8.0
+    guard_rewind_after: int = 3
+    guard_rewind_limit: int = 2
+    watchdog_timeout: float = 0.0
     seed: int = 42
     log_interval: int = 50
     eval_metric: str = "loss"
@@ -168,9 +198,17 @@ def _ints(s: str) -> Tuple[int, ...]:
     return tuple(int(v) for v in s.split(","))
 
 
+def model_dtype(cfg: TrainConfig) -> Optional[torch.dtype]:
+    """The model's compute dtype by the JAX runner's rule: the compute
+    dtype under ``--amp`` or when it is not f32, else None (f32)."""
+    if cfg.amp or cfg.compute_dtype != "float32":
+        return _DTYPES[cfg.compute_dtype]
+    return None
+
+
 def parse_args(argv=None) -> TrainConfig:
     """``argv`` → :class:`TrainConfig`; raises ``NotImplementedError`` for
-    a flag of :data:`UNPORTED` and for ``--augment-device off``."""
+    ``--augment-device off``."""
     d = TrainConfig()
     p = argparse.ArgumentParser(
         description="deepfake training (PyTorch port, one card)")
@@ -216,8 +254,32 @@ def parse_args(argv=None) -> TrainConfig:
     p.add_argument("--mixup", type=float, default=d.mixup)
     p.add_argument("--smoothing", type=float, default=d.smoothing)
     p.add_argument("--model-ema", action="store_true")
+    p.add_argument("--amp", action="store_true",
+                   help="compute in --compute-dtype (the JAX runner's rule)")
+    p.add_argument("--compute-dtype", choices=sorted(_DTYPES),
+                   default=d.compute_dtype)
+    p.add_argument("--resume", default=d.resume,
+                   help="seed the run from this checkpoint")
+    p.add_argument("--no-resume-opt", action="store_true")
+    p.add_argument("--start-epoch", type=int, default=d.start_epoch)
+    p.add_argument("--auto-resume", action="store_true",
+                   help="continue from the run directory's newest snapshot")
+    p.add_argument("--recovery-interval", type=int,
+                   default=d.recovery_interval,
+                   help="a recovery snapshot every N batches (0: none)")
     p.add_argument("--guard-nonfinite", choices=["off", "skip"],
                    default=d.guard_nonfinite)
+    p.add_argument("--guard-spike-window", type=int,
+                   default=d.guard_spike_window)
+    p.add_argument("--guard-spike-zmax", type=float,
+                   default=d.guard_spike_zmax)
+    p.add_argument("--guard-rewind-after", type=int,
+                   default=d.guard_rewind_after)
+    p.add_argument("--guard-rewind-limit", type=int,
+                   default=d.guard_rewind_limit)
+    p.add_argument("--watchdog-timeout", type=float,
+                   default=d.watchdog_timeout,
+                   help="seconds without a step before exit 85 (0: off)")
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--log-interval", type=int, default=d.log_interval)
     p.add_argument("--eval-metric", choices=["loss", "prec1"],
@@ -228,17 +290,7 @@ def parse_args(argv=None) -> TrainConfig:
                    help="torch device; the CPU runs the plain PyTorch path")
     p.add_argument("--attn-impl", default=d.attn_impl,
                    help="ViT/TimeSformer attention: full | flash")
-    for name in UNPORTED:
-        flag = "--" + name.replace("_", "-")
-        if name in ("amp", "auto_resume"):
-            p.add_argument(flag, action="store_true", default=None)
-        else:
-            p.add_argument(flag, default=None)
     ns = vars(p.parse_args(argv))
-    for name, item in UNPORTED.items():
-        if ns.pop(name) is not None:
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} is not ported yet: {item}")
     if ns["augment_device"] == "off":
         raise NotImplementedError(f"--augment-device off: {HOST_CHAIN_ITEM}")
     return TrainConfig(**ns)
@@ -262,7 +314,7 @@ class Run:
 def build_model(cfg: TrainConfig, device) -> torch.nn.Module:
     """The model through the factory's family rules: BN arguments reach
     only EfficientNets, ``attn_impl`` and the input size only the
-    transformers."""
+    transformers; the compute dtype (:func:`model_dtype`) every family."""
     factory = _MODEL_FACTORIES.get(cfg.model_version)
     if factory is None:
         raise ValueError(f"--model-version {cfg.model_version!r}: one of "
@@ -281,7 +333,7 @@ def build_model(cfg: TrainConfig, device) -> torch.nn.Module:
                    drop_rate=cfg.drop, drop_path_rate=cfg.drop_path,
                    global_pool="avg", bn_momentum=cfg.bn_momentum,
                    bn_eps=cfg.bn_eps, img_size=(h, w), device=device,
-                   seed=cfg.seed, **kwargs)
+                   seed=cfg.seed, dtype=model_dtype(cfg), **kwargs)
 
 
 def setup(cfg: TrainConfig) -> Run:
@@ -295,13 +347,14 @@ def setup(cfg: TrainConfig) -> Run:
     _logger.info("Model %s created, param count: %d", cfg.model,
                  sum(p.numel() for p in model.parameters()))
     lr = cfg.resolved_lr(world_size=1)
+    generator = torch.Generator(device=device).manual_seed(cfg.seed)
     state = create_train_state(model, create_optimizer(cfg, model, lr),
                                with_ema=cfg.model_ema,
-                               ema_decay=cfg.model_ema_decay)
+                               ema_decay=cfg.model_ema_decay,
+                               generator=generator)
     lr_scheduler, num_epochs = create_scheduler(cfg, base_lr=lr)
     train_loader, eval_loader = build_loaders(cfg, device,
                                               *build_datasets(cfg))
-    generator = torch.Generator(device=device).manual_seed(cfg.seed)
     train_step = make_train_step(
         create_loss_fn(cfg), clip_grad=cfg.clip_grad,
         nonfinite_guard=cfg.guard_nonfinite == "skip", generator=generator)
@@ -355,7 +408,8 @@ def build_loaders(cfg: TrainConfig, device, train_ds, eval_ds
                   ) -> Tuple[DeviceLoader, DeviceLoader]:
     """(train, eval) loaders: the clip dataset's with the device augment
     chain (``blur_radius`` 1, as the JAX runner passes), or, for the
-    synthetic set, collate, host mixup, normalize and erase."""
+    synthetic set, collate, host mixup, normalize and erase; batches in
+    the compute dtype (the JAX runner's loader dtype)."""
     c, h, w = cfg.input_size()
     mixup = FastCollateMixup(cfg.mixup, cfg.smoothing, cfg.num_classes) \
         if cfg.mixup > 0 else None
@@ -363,7 +417,8 @@ def build_loaders(cfg: TrainConfig, device, train_ds, eval_ds
                  re_count=cfg.recount, re_split=cfg.resplit,
                  re_max=cfg.remax)
     common = dict(num_workers=cfg.workers, seed=cfg.seed,
-                  prefetch_depth=cfg.prefetch_depth)
+                  prefetch_depth=cfg.prefetch_depth,
+                  dtype=_DTYPES[cfg.compute_dtype])
     if cfg.dataset == "synthetic":
         img_num = max(1, c // 3)
         return (create_loader(train_ds, cfg.batch_size, True, device,
@@ -385,47 +440,154 @@ def build_loaders(cfg: TrainConfig, device, train_ds, eval_ds
 
 
 def _outdir(cfg: TrainConfig) -> str:
+    """The run's directory, made; ``-N`` appended to a name in use, except
+    under ``--auto-resume``, which must find its own run again."""
     name = cfg.experiment or "-".join([
         cfg.model_version or cfg.model,
         os.path.basename(cfg.data.split(":")[0]) or cfg.dataset])
     base = os.path.join(cfg.output, name)
     path, i = base, 1
-    while os.path.exists(path):
+    while os.path.exists(path) and not cfg.auto_resume:
         path, i = f"{base}-{i}", i + 1
-    os.makedirs(path)
+    os.makedirs(path, exist_ok=True)
     return path
 
 
+def _restore_with_fallback(output_dir: str, state: TrainState,
+                           load_opt: bool):
+    """The resume ladder: recovery snapshots newest first, then the
+    ``_bak`` and ``model_best`` copies, skipping corrupt files.  Returns
+    ``(meta, path)`` of the one loaded into ``state``, or None."""
+    wait_pending_saves()
+    for path in find_resume_candidates(
+            output_dir, bak_dir=os.path.join(output_dir, "_bak")):
+        try:
+            return restore_train_state(path, state, load_opt), path
+        except (CheckpointCorrupt, FileNotFoundError) as e:
+            _logger.warning("auto-resume: skipping unusable checkpoint %s "
+                            "(%s)", path, e)
+    return None
+
+
+def _position(meta: Dict[str, Any], num_batches: int) -> Tuple[int, int]:
+    """(epoch, batch) to continue from after loading ``meta``'s file: the
+    batch after a recovery snapshot's (the next epoch's first after an
+    epoch's last), else the epoch after an epoch checkpoint's."""
+    if "batch_idx" in meta:
+        epoch, batch = int(meta["epoch"]), int(meta["batch_idx"]) + 1
+        if batch >= num_batches > 0:
+            return epoch + 1, 0
+        return epoch, batch
+    return int(meta.get("epoch", -1)) + 1, 0
+
+
 def main(cfg: TrainConfig) -> Dict[str, Any]:
-    """Train ``cfg.epochs`` epochs; returns the best eval metric and epoch,
+    """Train to ``cfg.epochs``; returns the best eval metric and epoch,
     the last eval and train metrics, the train loader's counters
     (``loader``: batches, the train loop's wait for the host and the host
-    threads' load + collate seconds) and the run's output directory."""
+    threads' load + collate seconds), the number of ``rewinds`` and the
+    run's output directory.  Raises ``SystemExit(75)`` after a preemption
+    stop (the recovery snapshot on disk)."""
     run = setup(cfg)
     state = run.state
     output_dir = _outdir(cfg)
     args = dataclasses.asdict(cfg)
     with open(os.path.join(output_dir, "args.json"), "w") as f:
         json.dump(args, f, indent=2)
-    saver = CheckpointSaver(output_dir, decreasing=cfg.eval_metric == "loss")
+    saver = CheckpointSaver(output_dir, decreasing=cfg.eval_metric == "loss",
+                            bak_dir=os.path.join(output_dir, "_bak"))
+    num_batches = len(run.train_loader)
+    start_epoch, resume_batch = cfg.start_epoch or 0, 0
+    if cfg.resume:
+        meta = restore_train_state(cfg.resume, state, not cfg.no_resume_opt)
+        start_epoch = cfg.start_epoch if cfg.start_epoch is not None \
+            else int(meta.get("epoch", -1)) + 1
+        _logger.info("Resumed from %s (epoch %d)", cfg.resume, start_epoch)
+    if cfg.auto_resume:
+        # newer than --resume when present: a relaunch continues from its
+        # own snapshot, not from the checkpoint that seeded the run
+        restored = _restore_with_fallback(output_dir, state,
+                                          not cfg.no_resume_opt)
+        if restored is not None:
+            meta, path = restored
+            start_epoch, resume_batch = _position(meta, num_batches)
+            _logger.info("Auto-resumed from %s (epoch %d, batch %d)", path,
+                         start_epoch, resume_batch)
+        else:
+            _logger.info("--auto-resume: nothing to resume in %s; starting "
+                         "fresh", output_dir)
+    if run.lr_scheduler is not None and start_epoch > 0 and \
+            resume_batch == 0:
+        # an epoch-boundary resume re-derives the LR; a mid-epoch one keeps
+        # the snapshot's, which already holds any per-update scheduling
+        set_learning_rate(state, run.lr_scheduler.step(start_epoch))
     best_metric = best_epoch = None
     eval_metrics: Dict[str, float] = {}
     train_metrics: Dict[str, Any] = {}
-    for epoch in range(run.num_epochs):
-        run.train_loader.set_epoch(epoch)
-        state, train_metrics = train_one_epoch(
-            epoch, run.train_step, state, run.train_loader, cfg,
-            lr_scheduler=run.lr_scheduler)
-        eval_metrics = validate(run.eval_step, state, run.eval_loader, cfg)
-        if run.eval_step_ema is not None:
-            eval_metrics = validate(run.eval_step_ema, state,
-                                    run.eval_loader, cfg,
-                                    log_suffix=" (EMA)")
-        if run.lr_scheduler is not None:
-            set_learning_rate(state, run.lr_scheduler.step(
-                epoch + 1, eval_metrics[cfg.eval_metric]))
-        best_metric, best_epoch = saver.save_checkpoint(
-            state, args, epoch, metric=eval_metrics[cfg.eval_metric])
+    exit_code: Optional[int] = None
+    rewinds = 0
+    resilience = Resilience.from_config(cfg, output_dir=output_dir)
+    try:
+        with resilience:
+            epoch = start_epoch
+            while epoch < run.num_epochs:
+                run.train_loader.set_epoch(epoch)
+                run.train_loader.fast_forward(resume_batch)
+                # a note, not a beat: the first step's warm-up keeps the
+                # watchdog's first-window grace
+                resilience.note(f"epoch {epoch} start (batch "
+                                f"{resume_batch})")
+                try:
+                    state, train_metrics = train_one_epoch(
+                        epoch, run.train_step, state, run.train_loader, cfg,
+                        lr_scheduler=run.lr_scheduler, saver=saver,
+                        args=args, start_batch=resume_batch,
+                        resilience=resilience)
+                except RewindRequested as e:
+                    # K bad steps in a row: reload the last snapshot (the
+                    # run's own, so with its optimizer) and replay from it
+                    resilience.start_rewind(str(e))
+                    restored = _restore_with_fallback(output_dir, state,
+                                                      True)
+                    if restored is None:
+                        raise RuntimeError(
+                            "rewind requested but no loadable recovery "
+                            "snapshot exists: enable --recovery-interval so "
+                            "the guard has somewhere to rewind to") from e
+                    meta, path = restored
+                    rewinds += 1
+                    _logger.warning("rewound to %s", path)
+                    epoch, resume_batch = _position(meta, num_batches)
+                    if run.lr_scheduler is not None and resume_batch == 0 \
+                            and epoch > 0:
+                        set_learning_rate(state,
+                                          run.lr_scheduler.step(epoch))
+                    continue
+                resume_batch = 0
+                eval_metrics = validate(run.eval_step, state,
+                                        run.eval_loader, cfg,
+                                        resilience=resilience)
+                if run.eval_step_ema is not None:
+                    eval_metrics = validate(run.eval_step_ema, state,
+                                            run.eval_loader, cfg,
+                                            log_suffix=" (EMA)",
+                                            resilience=resilience)
+                if run.lr_scheduler is not None:
+                    set_learning_rate(state, run.lr_scheduler.step(
+                        epoch + 1, eval_metrics[cfg.eval_metric]))
+                best_metric, best_epoch = saver.save_checkpoint(
+                    state, args, epoch, metric=eval_metrics[cfg.eval_metric])
+                resilience.heartbeat(f"epoch {epoch} done")
+                epoch += 1
+    except Preempted as e:
+        # the snapshot is on disk: exit with the code the restart wrapper
+        # (scripts/train_torch.sh) relaunches into --auto-resume on
+        _logger.warning("%s; exiting with code %d", e, EXIT_PREEMPTED)
+        exit_code = EXIT_PREEMPTED
+    finally:
+        wait_pending_saves()
+    if exit_code is not None:
+        raise SystemExit(exit_code)
     if best_metric is not None:
         _logger.info("*** Best metric: %s (epoch %s)", best_metric,
                      best_epoch)
@@ -434,7 +596,7 @@ def main(cfg: TrainConfig) -> Dict[str, Any]:
             "loader": {"batches": run.train_loader.stats.batches,
                        "host_wait_s": run.train_loader.stats.host_wait_s,
                        "fetch_s": run.train_loader.loader.stats.fetch_s},
-            "output_dir": output_dir}
+            "rewinds": rewinds, "output_dir": output_dir}
 
 
 def launch_main(argv=None) -> Dict[str, Any]:

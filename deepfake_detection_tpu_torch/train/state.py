@@ -3,7 +3,10 @@
 Counterpart of ``deepfake_detection_tpu/train/state.py``.  Where the JAX
 package threads an immutable pytree through a donated jitted step, the port
 updates the model, optimizer and EMA in place; ``step`` is a device counter
-that only a finite step advances.
+that only a finite step advances.  ``generator``, when the run has one, is
+the drop-path/dropout generator the train step draws from (the JAX runner
+keys its draws by ``fold_in(rng, num_updates)``); checkpoints carry its
+state, so that a resumed run draws what the uninterrupted one would.
 
 :meth:`TrainState.flat_buffers` re-homes every tensor a step changes into
 one flat buffer per dtype (each parameter, buffer, moment and EMA tensor
@@ -33,6 +36,7 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     ema: Optional[ModelEma] = None
     step: torch.Tensor = field(default=None)
+    generator: Optional[torch.Generator] = None
 
     def __post_init__(self):
         if self.step is None:
@@ -101,10 +105,12 @@ class TrainState:
 
 
 def create_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
-                       with_ema: bool = False,
-                       ema_decay: float = 0.9998) -> TrainState:
+                       with_ema: bool = False, ema_decay: float = 0.9998,
+                       generator: Optional[torch.Generator] = None
+                       ) -> TrainState:
     return TrainState(model, optimizer,
-                      ModelEma(model, ema_decay) if with_ema else None)
+                      ModelEma(model, ema_decay) if with_ema else None,
+                      generator=generator)
 
 
 def set_learning_rate(state: TrainState, lr: float) -> TrainState:

@@ -294,9 +294,11 @@ def test_split_tf32_backward_matches_plain_and_jax(bh, l, d, seq_len, causal,
         assert jerr <= 5e-5, f"{name}: split vs JAX kernel {jerr:.3e} of max"
 
 
-def _split_forward(q, k, v, scale, seq_len, causal, q_off, kv_off):
+def _split_forward(q, k, v, scale, seq_len, causal, q_off, kv_off,
+                   split_q=True):
     """O and lse of the CUDA forward kernel's arithmetic, in numpy f32: q
-    times the scale split once; per 64-key tile S = (q scale) kᵀ as three
+    times the scale split once (``split_q=False``: taken as one TF32
+    operand, the small part dropped); per 64-key tile S = (q scale) kᵀ as three
     TF32 products with the small terms apart; the online softmax with
     ``ex2`` (exp2 in double) of ``s·log2 e − m_safe·log2 e``; then
     O = O·corr + P V, each 32-key half of P V in a fresh truncating
@@ -307,6 +309,8 @@ def _split_forward(q, k, v, scale, seq_len, causal, q_off, kv_off):
     hide = tfa._hidden(lq, k.shape[1], seq_len, causal, q_off, kv_off,
                        "cpu").numpy()
     qs = q * np.float32(scale)
+    if not split_q:
+        qs = _tf32(qs)
     m = np.full((bh, lq, 1), -np.inf, np.float32)
     l = np.zeros((bh, lq, 1), np.float32)
     o = np.zeros((bh, lq, d), np.float32)
@@ -376,3 +380,41 @@ def test_split_tf32_forward_matches_plain_and_jax(bh, l, d, seq_len, causal,
     np.testing.assert_array_equal(o[:, ~visible], 0.0)
     np.testing.assert_allclose(lse[:, ~visible], np.log(np.float32(1e-30)),
                                rtol=1e-6)
+
+
+@pytest.mark.parametrize("bh,l,d,seq_len,causal,q_off,kv_off",
+                         FWD_SPLIT_CASES[:3])
+def test_split_tf32_forward_of_bf16_inputs_is_f32_accurate(
+        bh, l, d, seq_len, causal, q_off, kv_off):
+    """The bf16 instantiation (the ``--amp`` path): q, k, v widened from
+    bf16 are exact in TF32 and their small terms are skipped, but q·scale
+    and P are made in f32 inside the kernel and are split as for f32
+    inputs (``flash_fwd.cu`` ``ld_q``, ``flash_tf32.cuh`` ``a_of_c``), so O
+    and lse stay within the f32 tolerance of the plain forward on the
+    widened inputs, lse of the JAX kernel's (which widens bf16 and computes
+    in f32), and O rounded to bf16 at most one bf16 ulp from its bf16 O, in
+    at most 1% of the values.  Taking q·scale as one TF32 operand instead
+    breaks the f32 tolerance where the scale is not a power of two."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+               for a in _qkv((bh, l, d), seed=7 * l + d))
+    scale = d ** -0.5
+    args = (scale, seq_len, causal, q_off, kv_off)
+    o, lse = _split_forward(q, k, v, *args)
+    ro, rlse = tfa.flash_fwd_reference(*map(torch.from_numpy, (q, k, v)),
+                                       *args)
+    np.testing.assert_allclose(o, ro.numpy(), **TOL)
+    np.testing.assert_allclose(lse, rlse.numpy(), **TOL)
+    pad = ((0, 0), (0, -l % 64), (0, 0))
+    jo, jlse = _jax_fwd(*(np.pad(a, pad).astype(jnp.bfloat16)
+                          for a in (q, k, v)), *args)
+    np.testing.assert_allclose(lse, np.asarray(jlse)[:, :l, 0], **TOL)
+    ob = torch.from_numpy(o).to(torch.bfloat16).float().numpy()
+    jo = np.asarray(jo, np.float32)[:, :l]
+    diff = np.abs(ob - jo)                  # O rounded to bf16 on both sides
+    assert np.all(diff <= 2.0 ** -7 * np.abs(jo) + 1e-6)   # one bf16 ulp
+    assert (diff > 0).mean() <= 1e-2
+    if np.log2(scale) % 1:    # at D = 64 the scale 1/8 keeps q·scale exact
+        unsplit, _ = _split_forward(q, k, v, *args, split_q=False)
+        err = np.abs(unsplit - ro.numpy()) - (
+            TOL["atol"] + TOL["rtol"] * np.abs(ro.numpy()))
+        assert err.max() > 0, "an unsplit q·scale should miss the f32 bound"

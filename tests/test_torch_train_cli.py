@@ -7,12 +7,14 @@
   through ``tools/convert_torch_checkpoint.convert_state_dict``, into the
   JAX model, whose eval logits then match the port's within 1e-4 of the
   logit scale (f32 through 16 blocks, summed in different orders).
-* A flag of ``scripts/train.sh`` that the port does not have raises,
-  naming its ROADMAP item, as does ``--augment-device off``; the data and
-  augment flags of ``scripts/train.sh`` parse into ``TrainConfig`` with
-  their values, and the data fields default as the JAX ``TrainConfig``'s
-  (``augment_device`` aside); a flag of the JAX runner outside that subset
-  is an argparse error.
+* ``--augment-device off`` raises, naming its ROADMAP item; the data,
+  augment, ``--amp`` and recovery flags of ``scripts/train.sh`` parse into
+  ``TrainConfig`` with their values, and so does its whole argument list
+  (as ``scripts/train_torch.sh`` passes it); the fields the JAX
+  ``TrainConfig`` shares default as its do (``augment_device`` aside), the
+  compute dtype to bf16; a flag of the JAX runner outside that subset is an
+  argparse error.  The runs here pass ``--compute-dtype float32``: they
+  are compared at f32 tolerances.
 * From a clip tree (``test_torch_data.make_clip_tree``): the port's runner
   (``setup``, its loader and train step) on ``efficientnet_b0`` at 12×64²
   (at 32² the last stage's train-mode BN over 3 values of a channel is too
@@ -71,7 +73,7 @@ ARGS = ["--device", "cpu", "--dataset", "synthetic", "--model",
         "efficientnet_b0", "--model-version", "", "--input-size-v2",
         "3,32,32", "-b", "2", "--epochs", "1", "--opt", "rmsproptf",
         "--lr", "1e-3", "--mixup", "0.1", "--model-ema", "--clip-grad", "5",
-        "--log-interval", "3", "--seed", "3"]
+        "--log-interval", "3", "--seed", "3", "--compute-dtype", "float32"]
 
 
 @pytest.fixture(scope="module")
@@ -123,9 +125,7 @@ def test_checkpoint_loads_into_port_and_jax_with_equal_logits(trained):
             (use_ema, np.abs(got - want).max(), scale)
 
 
-@pytest.mark.parametrize("flag", [
-    ["--amp"], ["--auto-resume"], ["--recovery-interval", "500"],
-    ["--augment-device", "off"]])
+@pytest.mark.parametrize("flag", [["--augment-device", "off"]])
 def test_unported_flags_raise_naming_their_roadmap_item(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         runner.parse_args(ARGS + flag)
@@ -140,11 +140,56 @@ def test_unported_flags_raise_naming_their_roadmap_item(flag):
     (["--label-balance"], "label_balance", True),
     (["--data", "/data"], "data", "/data"),
     (["--workers", "8"], "workers", 8),
-    (["--dataset", "deepfake_v3"], "dataset", "deepfake_v3")])
+    (["--dataset", "deepfake_v3"], "dataset", "deepfake_v3"),
+    (["--amp"], "amp", True),
+    (["--auto-resume"], "auto_resume", True),
+    (["--recovery-interval", "500"], "recovery_interval", 500)])
 def test_train_sh_data_flags_parse_into_the_config(flag, field, value):
     """``scripts/train.sh``'s value of each flag reaches the config
     (``ARGS`` sets ``--dataset synthetic``; the flag comes after it)."""
     assert getattr(runner.parse_args(ARGS + flag), field) == value
+
+
+def _train_sh_argv(script):
+    """The runner's argument list in ``scripts/<script>`` as written, and
+    the script's text."""
+    text = open(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", script)).read()
+    body = text.split(".runners.train \\\n", 1)[1].split('"${@:2}"')[0]
+    return [w.strip('"') for w in body.replace("\\\n", " ").split()
+            ], text
+
+
+@pytest.mark.parametrize("script", ["train.sh", "train_torch.sh"])
+def test_train_sh_whole_argument_list_parses(script):
+    raw, text = _train_sh_argv(script)
+    assert raw == _train_sh_argv("train.sh")[0]
+    argv = [{"$1": "/data", "${DFD_EXPERIMENT:-flagship}": "flagship"}.get(
+        a, a) for a in raw]
+    cfg = runner.parse_args(argv)
+    assert (cfg.amp, cfg.auto_resume, cfg.recovery_interval) == \
+        (True, True, 500)
+    assert (cfg.model, cfg.input_size(), cfg.batch_size, cfg.data) == (
+        "efficientnet_deepfake_v4", (12, 600, 600), 3, "/data")
+    assert runner.model_dtype(cfg) == torch.bfloat16
+    if script == "train_torch.sh":
+        assert "deepfake_detection_tpu_torch.runners.train" in text
+        assert "75|85) ;;" in text
+
+
+@pytest.mark.parametrize("flags,dtype", [
+    ([], torch.bfloat16), (["--amp"], torch.bfloat16),
+    (["--compute-dtype", "float32"], None),
+    (["--amp", "--compute-dtype", "float32"], torch.float32)])
+def test_compute_dtype_follows_the_jax_rule(flags, dtype):
+    """bf16 by default and under --amp; f32 only with --compute-dtype
+    float32 (the JAX runner's ``dtype=`` rule); the loaders' batches in the
+    compute dtype."""
+    cfg = runner.parse_args(ARGS[:-2] + flags)
+    assert runner.model_dtype(cfg) == dtype
+    model = runner.build_model(cfg, "cpu")
+    assert model.conv_stem.compute_dtype == dtype
+    assert all(p.dtype == torch.float32 for p in model.parameters())
 
 
 def test_data_fields_default_as_the_jax_config():
@@ -291,7 +336,8 @@ def tree_run(tmp_path_factory):
                         donate=False)
     js = j_state(jax.tree.map(jnp.asarray, variables), tx, donate=False)
     # port: its runner's setup with the same weights
-    cfg = runner.parse_args(argv + ["--device", "cpu"])
+    cfg = runner.parse_args(argv + ["--device", "cpu", "--compute-dtype",
+                                    "float32"])
     init = state_dict_from_flax(variables)
     build = runner.build_model
 

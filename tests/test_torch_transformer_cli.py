@@ -31,7 +31,8 @@ ARGS = ["--device", "cpu", "--dataset", "synthetic", "--model",
         "timesformer_tiny_patch16_224", "--model-version", "",
         "--input-size-v2", "12,32,32", "--attn-impl", "flash", "-b", "2",
         "--epochs", "1", "--opt", "rmsproptf", "--lr", "1e-3", "--mixup",
-        "0.1", "--model-ema", "--log-interval", "4", "--seed", "5"]
+        "0.1", "--model-ema", "--log-interval", "4", "--seed", "5",
+        "--compute-dtype", "float32"]
 
 
 @pytest.fixture(scope="module")
