@@ -74,14 +74,33 @@ before the result line:
    all 0.5, and matching the same weights run on the CPU (plain path); then
    clips/s at batch 1 and 8, and the device time by kernel kind at batch 8
    (torch.profiler);
-9. training path: ``runners.train`` in-process on the flagship at full width
+9. serving path (``serve``): the calibrated checkpoint of phase 8 behind
+   ``runners.serve.build_server`` on the card, uint8 and float32 wires,
+   buckets 1, 4, 16: programs and captures equal models × buckets ×
+   widths (55 depthwise launches captured in each), the peak memory of
+   warmup; one bucket-4 replay under torch.profiler names ``dw_fwd_kernel``
+   55 times; ``POST /score`` of phase 8's ``.npy`` frames and 4-frame
+   multipart clips within 1e-6 of the card CLI's P(fake) on both wires
+   (bitwise reported), padded rows bitwise, the graph within the score
+   tolerance of an eager forward on the plain depthwise version; batch-1
+   wall and device ms, graph replay against the eager forward; clips/s,
+   p50 and p99 at 1, 8 and 32 clients posting 4-frame ``.npy`` clips at
+   600² for 10 s each (a child interpreter's threads; the batch histogram
+   from ``/metrics``); a NaN batch (503, then 200), a hang (the watchdog
+   fails it 503, replays every graph, no capture), a perturbed checkpoint
+   hot-reloaded (the graph then equal to an eager forward of it), a torn
+   one rejected (scores bitwise); a second model added live under load
+   (``/readyz`` drops and returns, no request fails) and a cascade run
+   whose books balance; then bucket 64 alone, captured and replayed, for
+   its peak memory;
+10. training path: ``runners.train`` in-process on the flagship at full width
    and depth, 12×600², batch 3, f32 (``scripts/train.sh``'s config on
    synthetic data: 8 steps, validation of the model and its EMA,
    checkpoints); 55 forward, 55 dx and 55 dw-gradient launches per step;
    loss finite; params, BN stats and EMA moved; the inference path scores a
    frame with the checkpoint; ms per step, samples/s, peak memory, the
    loader's host wait, and the device time per step by kernel kind;
-10. training from a clip tree (``train_data``, f32): a seeded tree of uint8
+11. training from a clip tree (``train_data``, f32): a seeded tree of uint8
    ``.npy`` frames at 640² under ``build/chip_smoke/tree`` (more fakes than
    reals, some clips shorter than 4 frames), ``runners.train`` in-process
    on the flagship at 12×600², batch 3, with ``scripts/train.sh``'s data
@@ -93,20 +112,20 @@ before the result line:
    batches equal the tree's bitwise; ms per step, samples/s, peak memory,
    the loader's host wait, each prologue stage's device ms (torch.profiler)
    and the idle share of profiled steps, beside the synthetic phase's;
-11. ``train_amp``: the same tree with ``scripts/train.sh``'s whole argument
+12. ``train_amp``: the same tree with ``scripts/train.sh``'s whole argument
    list (``--amp``, ``--auto-resume``, ``--recovery-interval`` 3, one
    epoch): every depthwise launch of the bf16 instantiations (55/55/55 a
    step), loss finite, no guarded step, params and BN stats moved, recovery
    snapshots written, the checkpoint scores a frame; the numbers of
    ``train_data`` beside the f32 phase's;
-12. ``resume``: the same bf16 run in-process (``DFD_CHAOS`` set and cleared
+13. ``resume``: the same bf16 run in-process (``DFD_CHAOS`` set and cleared
    around each call, ``SystemExit`` caught): an uninterrupted epoch twice;
    ``sigterm@5`` → exit 75 with the snapshot ``recovery-0-4``; the snapshot
    reloaded and saved again is itself, bitwise; ``--auto-resume`` to the
    end; a ``nanbatch`` burst → one rewind, then to the end; the resumed and
    rewound states bitwise the uninterrupted one where the two uninterrupted
    runs agree bitwise, else within twice their spread;
-13. TimeSformer training path: ``runners.train`` in-process on
+14. TimeSformer training path: ``runners.train`` in-process on
    ``timesformer_base_patch25_600`` (full width and depth) at 12×600²,
    batch 8, ``--attn-impl flash``, in f32 and then with ``--amp``: 8 steps,
    validation of the model and its EMA, a checkpoint; 12 forward, 12 dQ and
@@ -115,7 +134,7 @@ before the result line:
    reloaded from the checkpoint scores the eval set as the run did; ms per
    step, samples/s, peak memory, the device time per step by kernel kind
    and the eval forward's clips/s at batch 16;
-14. card against CPU: one guarded train step of the full flagship at
+15. card against CPU: one guarded train step of the full flagship at
    12×224², batch 2, and of the full TimeSformer at 12×300², batch 2, from
    the same weights on the card and on the CPU (loss, every parameter's
    update, BN running stats); then a NaN batch through each card step must
@@ -129,7 +148,7 @@ before the result line:
    ``tests/test_torch_amp.py``, and a bound that the card computed in bf16;
    an unchanged state and the f32 step in the bf16 step's place must each
    fail it; and a NaN batch through each bf16 card step;
-15. the ``kernels`` line (all six kernels, each with its bf16 status), the
+16. the ``kernels`` line (all six kernels, each with its bf16 status), the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or in a directory that holds only this file, it exits
@@ -140,6 +159,8 @@ from __future__ import annotations
 
 import ctypes
 import gc
+import http.client
+import io
 import itertools
 import json
 import math
@@ -148,6 +169,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from collections import Counter
 from pathlib import Path
@@ -160,22 +182,34 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.profiler import ProfilerActivity, profile
 
 from deepfake_detection_tpu_torch import losses
+from deepfake_detection_tpu_torch.chaos import ChaosInjector
 from deepfake_detection_tpu_torch.csrc.build import _nvcc, build, kernel
 from deepfake_detection_tpu_torch.data.device_augment import (
     DeviceAugmentSpec, derive_geometric_batch)
 from deepfake_detection_tpu_torch.data.loader import Prologue
 from deepfake_detection_tpu_torch.data.random_erasing import \
     draw_random_erasing
+from deepfake_detection_tpu_torch.data.dataset import read_rgb
 from deepfake_detection_tpu_torch.data.packed import write_pack
 from deepfake_detection_tpu_torch.models import (create_deepfake_model_v4,
                                                  create_model)
+from deepfake_detection_tpu_torch.models import efficientnet_blocks as blocks
 from deepfake_detection_tpu_torch.models.helpers import set_compute_dtype
 from deepfake_detection_tpu_torch.ops import depthwise as dw
 from deepfake_detection_tpu_torch.ops import flash_attention as fa
 from deepfake_detection_tpu_torch.ops.conv import explicit_padding
 from deepfake_detection_tpu_torch.optim import create_optimizer
+from deepfake_detection_tpu_torch.params import (normalize_replicate,
+                                                 prepare_canvas)
+from deepfake_detection_tpu_torch.runners import serve as serve_runner
 from deepfake_detection_tpu_torch.runners import test as runner
 from deepfake_detection_tpu_torch.runners import train as train_runner
+from deepfake_detection_tpu_torch.serving.cascade import CascadeRouter
+from deepfake_detection_tpu_torch.serving.config import (ServeConfig,
+                                                         parse_model_spec)
+from deepfake_detection_tpu_torch.serving.engine import InferenceEngine
+from deepfake_detection_tpu_torch.serving.metrics import capture_count
+from deepfake_detection_tpu_torch.serving.resilience import torn_copy
 from deepfake_detection_tpu_torch.train import checkpoint as ckpt
 from deepfake_detection_tpu_torch.train.state import create_train_state
 from deepfake_detection_tpu_torch.train.steps import make_train_step
@@ -868,8 +902,8 @@ def _frames(rng):
 
 
 def phase_main_path(device: str = "cuda", size: int = 600):
-    """The inference path; returns its forward-kernel launches and one of
-    the frame files it scored."""
+    """The inference path; returns its forward-kernel launches, the frame
+    files it scored and the card's P(fake) of them (``single``, ``clip``)."""
     OUT.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(0)
     files = []
@@ -950,7 +984,523 @@ def phase_main_path(device: str = "cuda", size: int = 600):
              ms_per_clip=dt / (batch * iters) * 1e3,
              peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     phase_profile(model, x)
-    return launches, files[0]
+    return launches, files, results
+
+
+# ---------------------------------------------------------------------------
+# the serving replica (runners/serve.py): captured CUDA graphs per bucket
+# ---------------------------------------------------------------------------
+
+SERVE_BUCKETS = (1, 4, 16)        # the JAX default's first three
+SERVE_BIG_BUCKET = 64             # the JAX default's largest, captured alone
+SERVE_TOL = 1e-6                  # P(fake), server against the card CLI
+SERVE_CLIENTS = (1, 8, 32)
+SERVE_LOAD_S = 10.0
+SERVE_WATCHDOG_S = 5.0
+STUDENT = "student=efficientnet_deepfake_v4"    # at half the canvas
+# the CLI's eager numbers these stand beside (PERF.md §5, NVIDIA H100 80GB
+# HBM3, 700 W)
+CLI_CLIPS_PER_S = {"batch_1": 17.40, "batch_8": 114.67}
+
+
+def _npy_bytes(img: np.ndarray) -> bytes:
+    buf = io.BytesIO()
+    np.save(buf, img)
+    return buf.getvalue()
+
+
+def _multipart(blobs) -> tuple:
+    body = b"".join(b"--clip\r\nContent-Type: application/octet-stream"
+                    b"\r\n\r\n" + b + b"\r\n" for b in blobs) + b"--clip--\r\n"
+    return body, "multipart/form-data; boundary=clip"
+
+
+def _http(port: int, method: str, path: str, body: bytes = b"",
+          ctype: str = "application/octet-stream", timeout: float = 60.0):
+    """(status, parsed JSON or text) of one request to the local server."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body or None,
+                     headers={"Content-Type": ctype} if body else {})
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    text = data.decode()
+    try:
+        return resp.status, json.loads(text)
+    except ValueError:
+        return resp.status, text
+
+
+# the load generator: a child interpreter (stdlib only), so that its
+# threads do not take the server's interpreter lock
+_LOAD_CLIENTS = r"""
+import http.client, json, sys, threading, time
+port, clients, seconds = int(sys.argv[1]), int(sys.argv[2]), float(sys.argv[3])
+body, ctype = open(sys.argv[4], "rb").read(), sys.argv[5]
+lat, statuses, stages, lock = [], {}, {}, threading.Lock()
+stop_at = time.perf_counter() + seconds
+
+def client():
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    while time.perf_counter() < stop_at:
+        t0 = time.perf_counter()
+        conn.request("POST", "/score", body=body,
+                     headers={"Content-Type": ctype})
+        resp = conn.getresponse()
+        out = resp.read()
+        dt = time.perf_counter() - t0
+        with lock:
+            statuses[resp.status] = statuses.get(resp.status, 0) + 1
+            if resp.status == 200:
+                lat.append(dt)
+                for k, v in json.loads(out)["timings_ms"].items():
+                    stages[k] = stages.get(k, 0.0) + v
+        if resp.status != 200:
+            time.sleep(min(1.0, float(resp.getheader("Retry-After") or 1)))
+    conn.close()
+
+t0 = time.perf_counter()
+threads = [threading.Thread(target=client) for _ in range(clients)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+print(json.dumps(dict(lat=lat, statuses=statuses, stages=stages,
+                      wall=time.perf_counter() - t0)))
+"""
+
+
+def _load(port: int, body: bytes, ctype: str, clients: int,
+          seconds: float) -> dict:
+    """``clients`` threads of a child interpreter posting ``body`` back to
+    back on keep-alive connections for ``seconds`` (after a non-200 a
+    client waits what its ``Retry-After`` says, at most 1 s): clips/s,
+    latency percentiles and the server's mean stage ms (its ``timings_ms``:
+    preprocess, queue, device, total) of the 200s, and the count of each
+    status."""
+    path = OUT / f"serve_body_{threading.get_ident()}.bin"
+    path.write_bytes(body)
+    proc = subprocess.run(
+        [sys.executable, "-c", _LOAD_CLIENTS, str(port), str(clients),
+         str(seconds), str(path), ctype], capture_output=True, text=True,
+        timeout=seconds + 300)
+    if proc.returncode != 0:
+        raise AssertionError(f"load clients failed: {proc.stderr[-2000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    ms = np.asarray(got["lat"]) * 1e3
+    return dict(clients=clients, seconds=got["wall"],
+                clips_per_s=len(ms) / got["wall"],
+                p50_ms=float(np.percentile(ms, 50)) if len(ms) else None,
+                p99_ms=float(np.percentile(ms, 99)) if len(ms) else None,
+                stage_ms={k: v / max(1, len(ms))
+                          for k, v in got["stages"].items()},
+                statuses=dict(sorted(got["statuses"].items())))
+
+
+def _bucket_rows(port: int) -> Counter:
+    """``dfd_serving_bucket_rows_total`` from ``/metrics``: rows by
+    (model, bucket, real|pad)."""
+    _, text = _http(port, "GET", "/metrics")
+    out = Counter()
+    for m in re.finditer(r'^dfd_serving_bucket_rows_total\{model="([^"]+)",'
+                         r'bucket="(\d+)",kind="(\w+)"\} (\d+)', text, re.M):
+        out[(m[1], int(m[2]), m[3])] += int(m[4])
+    return out
+
+
+def _histogram(before: Counter, after: Counter) -> dict:
+    """Batches and real rows per bucket between two ``_bucket_rows``
+    readings (each batch of bucket b adds b rows, real plus pad)."""
+    out = {}
+    for b in sorted({k[1] for k in after}):
+        real = sum(after[k] - before[k] for k in after
+                   if k[1] == b and k[2] == "real")
+        pad = sum(after[k] - before[k] for k in after
+                  if k[1] == b and k[2] == "pad")
+        if real + pad:
+            out[str(b)] = dict(batches=(real + pad) // b, real_rows=real,
+                               mean_real_rows=real * b / (real + pad))
+    return out
+
+
+def _serve_server(ckpt_path: Path, wire: str, size: int, device: str, **kw):
+    cfg = ServeConfig(model_path=str(ckpt_path), port=0, wire=wire,
+                      buckets=SERVE_BUCKETS, device=device, image_size=size,
+                      watchdog_timeout_s=SERVE_WATCHDOG_S, **kw)
+    srv = serve_runner.build_server(cfg)
+    srv.engine.start(srv.batcher)
+    threading.Thread(target=srv.serve_forever, kwargs={"poll_interval": 0.1},
+                     daemon=True, name=f"serve-{wire}").start()
+    return srv
+
+
+def _close_server(srv) -> None:
+    srv.shutdown()
+    srv.engine.stop()
+    srv.batcher.close()
+    srv.server_close()
+
+
+def _profile_kernels(fn, iters: int = 1):
+    """(busy device ms per call, Counter of kernel names) of ``iters``
+    calls of ``fn`` under torch.profiler."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    names = Counter()
+    busy = 0.0
+    for e in _device_events(prof):
+        names[e.key] += e.count
+        busy += e.self_device_time_total
+    return busy / iters / 1e3, names
+
+
+def _peak_gib(base: int) -> float:
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def _replay_kernels(eng) -> dict:
+    """One bucket-4 replay of ``eng``'s single-frame program, profiled:
+    its depthwise forward kernels, all its kernels, its busy ms."""
+    prog = eng.entry().compiled[(4, 3)]
+    with eng._device_lock, torch.cuda.stream(eng._stream):
+        busy, names = _profile_kernels(prog.graph.replay)
+    return dict(depthwise_fwd_kernels=sum(
+        n for k, n in names.items() if "dw_fwd_kernel" in k),
+        kernels=sum(names.values()), busy_ms=busy,
+        top=dict(names.most_common(6)))
+
+
+def _batch1(fe) -> dict:
+    """Wall and device (profiler busy) ms of one batch-1 forward of the
+    float32 engine: its bucket-1 graph replayed against the same function
+    run eagerly."""
+    prog = fe.entry().compiled[(1, 12)]
+    fn = fe._make_program(fe.entry(), 12)
+
+    def replay():
+        with torch.cuda.stream(fe._stream):
+            prog.graph.replay()
+
+    def eager():
+        with torch.no_grad():
+            fn(prog.x)
+
+    with fe._device_lock:
+        return dict(graph_wall_ms=_wall_ms(replay),
+                    eager_wall_ms=_wall_ms(eager),
+                    graph_device_ms=_profile_kernels(replay, 5)[0],
+                    eager_device_ms=_profile_kernels(eager, 5)[0])
+
+
+def _wall_ms(fn, iters: int = 20) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def _perturbed_file(ckpt_path: Path, dst: Path, seed: int) -> None:
+    """The checkpoint with every conv and linear weight scaled by 1 + 2 %
+    noise, written to ``dst`` atomically (temporary name, rename)."""
+    sd = torch.load(ckpt_path, weights_only=True)
+    g = torch.Generator().manual_seed(seed)
+    for k, v in sd.items():
+        if k.endswith("weight") and v.dim() >= 2:
+            sd[k] = v * (1 + 0.02 * torch.randn(v.shape, generator=g))
+    tmp = dst.with_suffix(".tmp")
+    torch.save(sd, tmp)
+    os.replace(tmp, dst)
+
+
+def phase_serve(ckpt_path: Path, files: list, cli: dict, size: int = 600,
+                device: str = "cuda") -> dict:
+    """The serving replica on the card: the calibrated flagship of
+    ``phase_main_path`` behind ``runners.serve.build_server`` on the uint8
+    and the float32 wire, buckets 1, 4, 16; captures, the kernel inside a
+    replay, parity with the card CLI, speed under load, resilience and a
+    model added live.  Returns the engines' replay launch counts."""
+    old_switch = sys.getswitchinterval()
+    sys.setswitchinterval(0.002)            # as runners/serve.py's main
+    reload_dir = OUT / "serve_reload"
+    shutil.rmtree(reload_dir, ignore_errors=True)
+    reload_dir.mkdir(parents=True)
+    caps0 = capture_count()
+
+    # 1. captures, and the peak memory of warmup
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    u8 = _serve_server(ckpt_path, "uint8", size, device,
+                       reload_dir=str(reload_dir), reload_interval_s=0.2)
+    u8_s = time.perf_counter() - t0
+    u8_peak = _peak_gib(base_mem)
+    eng = u8.engine
+    want = 1 * len(SERVE_BUCKETS) * 2                 # widths 3 and 12
+    if eng.compile_count != want or capture_count() - caps0 != want:
+        raise AssertionError(f"uint8 server: {eng.compile_count} programs, "
+                             f"{capture_count() - caps0} captures, expected "
+                             f"{want}")
+    t0 = time.perf_counter()
+    f32 = _serve_server(ckpt_path, "float32", size, device)
+    f32_s = time.perf_counter() - t0
+    if f32.engine.compile_count != len(SERVE_BUCKETS):
+        raise AssertionError(f"float32 server: {f32.engine.compile_count} "
+                             f"programs")
+    caps_ready = capture_count()
+    emit(phase="serve_captures", uint8=dict(
+        programs=eng.compile_count, expected=want, build_s=u8_s,
+        peak_mem_gib_over_base=u8_peak,
+        capture_s={f"{b}x{c}": s for (b, c), s in
+                   eng.warm_compile_walls.items()}),
+        float32=dict(programs=f32.engine.compile_count, build_s=f32_s),
+        launches_per_capture={f"{b}x{c}": p.launches for (b, c), p in
+                              eng.entry().compiled.items()})
+    for (b, c), p in eng.entry().compiled.items():
+        if p.launches.get("depthwise_fwd") != 55:
+            raise AssertionError(f"bucket {b} ({c}ch): {p.launches} "
+                                 f"launches captured, expected 55")
+
+    # 2. the kernel inside the replay: one bucket-4 replay, profiled
+    traced = _replay_kernels(eng)
+    emit(phase="serve_replay_profile", bucket=4, chans=3, **traced)
+    if traced["depthwise_fwd_kernels"] != 55:
+        raise AssertionError(f"a profiled bucket-4 replay ran the depthwise "
+                             f"forward kernel {traced['depthwise_fwd_kernels']}"
+                             f" times, not 55")
+
+    # 3. parity: the card CLI's P(fake) on the same .npy frames
+    diffs, bitwise = {}, True
+    for srv in (u8, f32):
+        worst = 0.0
+        port = srv.server_address[1]
+        for i, f in enumerate(files):
+            st, out = _http(port, "POST", "/score", Path(f).read_bytes())
+            if st != 200:
+                raise AssertionError(f"/score {f}: {st} {out}")
+            d = abs(out["fake_score"] - cli["single"][i])
+            worst, bitwise = max(worst, d), bitwise and d == 0.0
+        for j in range(len(cli["clip"])):
+            body, ctype = _multipart(Path(f).read_bytes()
+                                     for f in files[4 * j:4 * j + 4])
+            st, out = _http(port, "POST", "/score", body, ctype)
+            if st != 200 or out["frames"] != 4:
+                raise AssertionError(f"/score clip {j}: {st} {out}")
+            d = abs(out["fake_score"] - cli["clip"][j])
+            worst, bitwise = max(worst, d), bitwise and d == 0.0
+        diffs[srv.engine.wire] = worst
+    canv = [prepare_canvas(read_rgb(f), size) for f in files[:4]]
+    padded = eng.score_batch(canv[:3])
+    full = eng.score_batch(canv)
+    pad_bitwise = bool(np.array_equal(padded, full[:3]))
+    x = torch.from_numpy(np.stack(canv)).to(eng.device)
+    fn = eng._make_program(eng.entry(), 3)
+    plain_fwd = blocks.fused_depthwise
+    blocks.fused_depthwise = dw.fused_depthwise_reference
+    try:
+        with torch.no_grad():
+            plain = fn(x).cpu().numpy()
+    finally:
+        blocks.fused_depthwise = plain_fwd
+    plain_diff = float(np.abs(full - plain).max())
+    emit(phase="serve_parity", max_abs_diff_vs_cli=diffs, tol=SERVE_TOL,
+         bitwise_vs_cli=bitwise, padded_rows_bitwise=pad_bitwise,
+         graph_vs_plain_depthwise=plain_diff, plain_tol=SCORE_TOL)
+    if max(diffs.values()) > SERVE_TOL or not pad_bitwise \
+            or plain_diff > SCORE_TOL:
+        raise AssertionError(f"serve parity: {diffs}, padded bitwise "
+                             f"{pad_bitwise}, plain {plain_diff}")
+
+    # 4. speed: batch 1, graph replay against the eager forward, then load
+    batch1 = _batch1(f32.engine)
+    rng = np.random.default_rng(7)
+    clip = [np.clip(127 + 60 * rng.standard_normal((size, size, 3)), 0,
+                    255).astype(np.uint8) for _ in range(4)]
+    body, ctype = _multipart(_npy_bytes(c) for c in clip)
+    loads = []
+    for srv, levels in ((u8, SERVE_CLIENTS), (f32, SERVE_CLIENTS[-1:])):
+        port = srv.server_address[1]
+        for clients in levels:
+            before = _bucket_rows(port)
+            row = _load(port, body, ctype, clients, SERVE_LOAD_S)
+            row.update(wire=srv.engine.wire,
+                       buckets=_histogram(before, _bucket_rows(port)))
+            loads.append(row)
+            if row["statuses"] != {"200": row["statuses"].get("200", 0)}:
+                raise AssertionError(f"load: non-200 answers {row}")
+    emit(phase="serve_speed", nvidia_smi=nvidia_smi_line(),
+         batch_1=batch1, load=loads, cli_clips_per_s=CLI_CLIPS_PER_S,
+         body="4 .npy frames at 600², multipart")
+
+    # 5. resilience: NaN batch, hang, reload, torn reload
+    port = u8.server_address[1]
+    one = _npy_bytes(read_rgb(files[3]))
+    m = eng.metrics
+    eng.chaos = ChaosInjector(f"serve_nan@{eng._batch_seq}")
+    nan_status = _http(port, "POST", "/score", one)[0]
+    after_nan = _http(port, "POST", "/score", one)[0]
+    progs, rewarms = eng.compile_count, m.rewarms_total.value
+    eng.chaos = ChaosInjector(f"serve_hang@{eng._batch_seq}:"
+                              f"{SERVE_WATCHDOG_S + 3}")
+    t0 = time.perf_counter()
+    hang_status = _http(port, "POST", "/score", one)[0]
+    deadline = time.monotonic() + 120
+    while not eng.ready and time.monotonic() < deadline:
+        time.sleep(0.05)
+    recovered_s = time.perf_counter() - t0
+    after_hang = _http(port, "POST", "/score", one)[0]
+    eng.chaos = ChaosInjector("")
+    if (nan_status, after_nan, hang_status, after_hang) != (503, 200, 503,
+                                                            200) \
+            or m.rewarms_total.value != rewarms + 1 \
+            or eng.compile_count != progs or capture_count() != caps_ready:
+        raise AssertionError(
+            f"faults: nan {nan_status}/{after_nan}, hang {hang_status}/"
+            f"{after_hang}, rewarms {m.rewarms_total.value - rewarms}, "
+            f"programs {eng.compile_count - progs}, captures "
+            f"{capture_count() - caps_ready}")
+    canvas = prepare_canvas(read_rgb(files[3]), size)
+    before = eng.score_batch([canvas])
+    _perturbed_file(ckpt_path, reload_dir / "next.pth", seed=1)
+    deadline = time.monotonic() + 120
+    while eng.reload_count < 1 and time.monotonic() < deadline:
+        time.sleep(0.05)
+    if eng.reload_count != 1:
+        raise AssertionError("the reload watcher never swapped the weights")
+    reloaded = eng.score_batch([canvas])
+    eager_new = eng._eager_scores(eng.entry(), eng.entry().candidate, 3,
+                                  canvas[None])
+    reload_diff = float(np.abs(reloaded - eager_new).max())
+    errors = m.reload_errors_total.value
+    good = OUT / "serve_next2.pth"
+    _perturbed_file(ckpt_path, good, seed=2)
+    torn = Path(torn_copy(str(good), str(OUT)))
+    os.replace(torn, reload_dir / "torn.pth")
+    while m.reload_errors_total.value == errors and \
+            time.monotonic() < deadline:
+        time.sleep(0.05)
+    torn_bitwise = bool(np.array_equal(eng.score_batch([canvas]), reloaded))
+    emit(phase="serve_resilience", nan=[nan_status, after_nan],
+         hang=[hang_status, after_hang], hang_recovered_s=recovered_s,
+         rewarms=m.rewarms_total.value - rewarms,
+         programs_added=eng.compile_count - progs,
+         captures_added=capture_count() - caps_ready,
+         reload_applied=eng.reload_count,
+         reload_moved=float(np.abs(reloaded - before).max()),
+         reload_vs_eager_new=reload_diff, torn_rejected=m.reload_errors_total
+         .value - errors, torn_bitwise=torn_bitwise)
+    if reload_diff > SERVE_TOL or not torn_bitwise or \
+            m.reload_errors_total.value != errors + 1 or \
+            float(np.abs(reloaded - before).max()) == 0.0:
+        raise AssertionError("reload / torn reload contract broken")
+
+    # 6. a second model added live, under load, then a cascade run
+    spec = parse_model_spec(f"{STUDENT},size={size // 2}",
+                            default_size=size, default_img_num=4)
+    student = serve_runner.build_model(
+        spec["family"], str(ckpt_path), num_classes=2, in_chans=12,
+        image_size=spec["size"], use_ema=False, name=spec["id"],
+        device=device)
+    restarts, failed = m.worker_restarts_total.value, m.failed_total.value
+    ready_seen, add_err = set(), []
+
+    def add():
+        try:
+            eng.add_model(spec["id"], student, image_size=spec["size"])
+            eng.warmup()
+        except Exception as e:                     # noqa: BLE001
+            add_err.append(repr(e))
+
+    def load_during_add():
+        try:
+            loads.append(dict(_load(port, body, ctype, 8, 8.0),
+                              wire="uint8", during="add_model"))
+        except Exception as e:                     # noqa: BLE001
+            add_err.append(f"load: {e!r}")
+
+    adder = threading.Thread(target=add, name="serve-add")
+    loader = threading.Thread(target=load_during_add, name="serve-load")
+    loader.start()
+    time.sleep(1.0)
+    adder.start()
+    while adder.is_alive():
+        ready_seen.add(_http(port, "GET", "/readyz")[0])
+        time.sleep(0.05)
+    adder.join()
+    loader.join(timeout=200)
+    ready_seen.add(_http(port, "GET", "/readyz")[0])
+    u8.cascade = CascadeRouter(u8.batcher, m, student_id=spec["id"],
+                               flagship_id=eng.default_model_id, low=0.2,
+                               high=0.8, timeout_s=10.0)
+    tiers = Counter()
+    for f in files:
+        st, out = _http(port, "POST", "/score", Path(f).read_bytes())
+        tiers[out["cascade"]["tier"] if st == 200 else st] += 1
+    books = (m.cascade_triaged_total.value, m.cascade_cleared_total.value,
+             m.cascade_escalated_total.value,
+             m.cascade_flagship_scored_total.value,
+             m.cascade_escalation_failed_total.value)
+    want = 2 * len(SERVE_BUCKETS) * 2
+    emit(phase="serve_live_add", error=add_err, readyz_seen=sorted(
+        ready_seen), programs=eng.compile_count, expected=want,
+         load_during=loads[-1], worker_restarts=m.worker_restarts_total
+         .value - restarts, failed=m.failed_total.value - failed,
+         cascade_tiers=dict(tiers), cascade_books=books)
+    if add_err or eng.compile_count != want or 503 not in ready_seen \
+            or _http(port, "GET", "/readyz")[0] != 200 \
+            or m.worker_restarts_total.value != restarts \
+            or m.failed_total.value != failed \
+            or books[0] != len(files) or books[0] != books[1] + books[2] \
+            or books[2] != books[3] + books[4]:
+        raise AssertionError("live add_model / cascade contract broken")
+    if capture_count() != caps_ready + len(SERVE_BUCKETS) * 2:
+        raise AssertionError("captures after ready beyond the added model's")
+
+    launches = Counter()
+    for srv in (u8, f32):
+        launches.update(srv.engine.launch_counts())
+        _close_server(srv)
+    del u8, f32, eng, student
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bucket 64 alone: does the JAX default's largest bucket fit?
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    model = serve_runner.build_model(
+        "efficientnet_deepfake_v4", str(ckpt_path), num_classes=2,
+        in_chans=12, image_size=size, use_ema=False, name="b64",
+        device=device)
+    t0 = time.perf_counter()
+    big = InferenceEngine(model, image_size=size,
+                          buckets=(SERVE_BIG_BUCKET,),
+                          watchdog_timeout_s=0.0, model_id="b64")
+    big_s = time.perf_counter() - t0
+    scores = big.score_batch([normalize_replicate(canvas, 4)]
+                             * SERVE_BIG_BUCKET)
+    big_peak = _peak_gib(base_mem)
+    launches.update(big.launch_counts())
+    emit(phase="serve_bucket_64", peak_mem_gib_over_base=big_peak,
+         capture_s=big_s, finite=bool(np.isfinite(scores).all()),
+         card_mem_gib=torch.cuda.get_device_properties(0).total_memory
+         / 2 ** 30)
+    big.stop()
+    del big, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    sys.setswitchinterval(old_switch)
+    emit(phase="serve", replay_launches=dict(launches),
+         captures=capture_count() - caps0)
+    return dict(launches=launches["depthwise_fwd"], peak_gib=u8_peak,
+                big_peak_gib=big_peak)
 
 
 def _kernel_kind(name: str) -> str:
@@ -2585,11 +3135,19 @@ def main() -> int:
 
     # each path runs with the launch counts set to 0 just before it
     _reset_counts()
-    infer_launches, frame = phase_main_path()
+    infer_launches, files, cli_scores = phase_main_path()
+    frame = files[0]
     if _counts()[1:] != (0, 0) or _flash_counts() != (0, 0, 0):
         raise AssertionError(f"the inference path launched the dx, "
                              f"dw-gradient and flash kernels {_counts()[1:]}"
                              f", {_flash_counts()} times")
+    _reset_counts()
+    serve = phase_serve(OUT / "flagship.pth", files, cli_scores)
+    if _counts()[0] == 0 or _counts()[1:] != (0, 0) \
+            or _flash_counts() != (0, 0, 0):
+        raise AssertionError(f"the serving path launched the depthwise "
+                             f"kernels {_counts()} and the flash kernels "
+                             f"{_flash_counts()} times")
     t = phase_train(frame)
     td = phase_train_data(frame, {k: t[k] for k in (
         "ms_per_step", "samples_per_s", "peak_mem_gib",
@@ -2614,7 +3172,8 @@ def main() -> int:
         return sum(out.values()), out
 
     fwd_launches, fwd_paths = by_path("forward_launches",
-                                      inference=infer_launches)
+                                      inference=infer_launches,
+                                      serve=serve["launches"])
     dx_launches, dx_paths = by_path("dx_launches")
     dwg_launches, dwg_paths = by_path("dwgrad_launches")
     amp_paths = ("train_amp", "resume")

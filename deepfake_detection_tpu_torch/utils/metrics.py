@@ -1,7 +1,8 @@
 """Metrics.
 
-Counterpart of ``AverageMeter``, ``accuracy`` and ``masked_mean`` in
-``deepfake_detection_tpu/utils/metrics.py``.  ``accuracy`` and
+Counterpart of ``AverageMeter``, ``LatencyHistogram``, ``accuracy`` and
+``masked_mean`` in ``deepfake_detection_tpu/utils/metrics.py``;
+``LatencyHistogram`` lives in :mod:`.prometheus`, as there.  ``accuracy`` and
 ``masked_mean`` return device tensors, so the train step reads nothing back
 to the host; the trainer drains them at its log interval.
 """
@@ -12,7 +13,9 @@ from typing import Optional, Sequence, Union
 
 import torch
 
-__all__ = ["AverageMeter", "accuracy", "masked_mean"]
+from .prometheus import LatencyHistogram
+
+__all__ = ["AverageMeter", "LatencyHistogram", "accuracy", "masked_mean"]
 
 
 class AverageMeter:

@@ -42,7 +42,11 @@ def test_import_loads_no_jax_and_no_jax_package():
     assert "deepfake_detection_tpu_torch.ops.depthwise" in out["imported"]
     for name in ("runners.train", "train.steps", "optim.rmsprop_tf",
                  "ops.flash_attention", "models.vit", "models.timesformer",
-                 "parallel.ring_attention", "csrc.build"):
+                 "parallel.ring_attention", "csrc.build", "runners.serve",
+                 "serving.engine", "serving.http", "serving.config",
+                 "serving.batcher", "serving.metrics", "serving.cascade",
+                 "serving.resilience", "cache.store", "cache.content",
+                 "utils.prometheus"):
         assert f"deepfake_detection_tpu_torch.{name}" in out["imported"]
     assert out["loaded"] == [], out["loaded"]
 
