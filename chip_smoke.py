@@ -93,14 +93,42 @@ before the result line:
    (``/readyz`` drops and returns, no request fails) and a cascade run
    whose books balance; then bucket 64 alone, captured and replayed, for
    its peak memory;
-10. training path: ``runners.train`` in-process on the flagship at full width
+10. quantized serving (``quant``): the same checkpoint through
+   ``runners.serve.build_engine`` on the uint8 wire, buckets 1, 4, 16, at
+   ``--dtype`` f32, bf16 and int8 (weight-only PTQ, the weights realized
+   inside each captured graph): captures = buckets × widths with 55
+   depthwise launches in each, a profiled bucket-4 replay naming
+   ``dw_fwd_kernel`` 55 times, P(fake) within 1e-3 of the port's CPU run
+   at the same dtype and within 0.02 (bf16) / 0.06 (int8) of the card's
+   f32, batch-1 replay wall and device ms, resident weight bytes (smaller
+   than f32's) and the peak memory of warmup, a perturbed checkpoint
+   reloaded through the canary (the graph equal to an eager forward of the
+   candidate and to the CLI's fresh quantization of the file, within
+   1e-6), a checkpoint with NaN in its kernels only rejected (scores
+   bitwise); then ``runners.test --dtype int8`` on the card within 1e-6 of
+   an int8 engine's float32 wire;
+11. corpus backfill (``backfill``): a seeded tree of 192 four-frame clips
+   of ``.npy`` frames at 600² (8 of them byte copies of earlier clips)
+   packed by ``data/packed.write_pack`` under ``build/chip_smoke/``
+   (~0.8 GB), a manifest of 32 clips a shard, and ``runners.backfill``
+   with the same checkpoint at ``--batch-size 16 --dedup``: run 1 to the
+   end (clips/s, the device's busy share of the scoring window from a
+   profiled replay, one capture and none after warmup, 55 depthwise
+   launches a replay, books exact with 8 ``skipped_dup``); run 2 stopped
+   by ``backfill_kill`` (a real SIGTERM) at the third shard's first batch,
+   exit 75 with two shards done, then relaunched to exit 0 with books exact
+   and every verdict file bitwise run 1's; four clips against the card
+   CLI's ``--clip`` within 1e-6; then the cold start (kernel build,
+   model load, captures, seconds to ready per dtype and for the backfill
+   pipeline);
+12. training path: ``runners.train`` in-process on the flagship at full width
    and depth, 12×600², batch 3, f32 (``scripts/train.sh``'s config on
    synthetic data: 8 steps, validation of the model and its EMA,
    checkpoints); 55 forward, 55 dx and 55 dw-gradient launches per step;
    loss finite; params, BN stats and EMA moved; the inference path scores a
    frame with the checkpoint; ms per step, samples/s, peak memory, the
    loader's host wait, and the device time per step by kernel kind;
-11. training from a clip tree (``train_data``, f32): a seeded tree of uint8
+13. training from a clip tree (``train_data``, f32): a seeded tree of uint8
    ``.npy`` frames at 640² under ``build/chip_smoke/tree`` (more fakes than
    reals, some clips shorter than 4 frames), ``runners.train`` in-process
    on the flagship at 12×600², batch 3, with ``scripts/train.sh``'s data
@@ -112,20 +140,20 @@ before the result line:
    batches equal the tree's bitwise; ms per step, samples/s, peak memory,
    the loader's host wait, each prologue stage's device ms (torch.profiler)
    and the idle share of profiled steps, beside the synthetic phase's;
-12. ``train_amp``: the same tree with ``scripts/train.sh``'s whole argument
+14. ``train_amp``: the same tree with ``scripts/train.sh``'s whole argument
    list (``--amp``, ``--auto-resume``, ``--recovery-interval`` 3, one
    epoch): every depthwise launch of the bf16 instantiations (55/55/55 a
    step), loss finite, no guarded step, params and BN stats moved, recovery
    snapshots written, the checkpoint scores a frame; the numbers of
    ``train_data`` beside the f32 phase's;
-13. ``resume``: the same bf16 run in-process (``DFD_CHAOS`` set and cleared
+15. ``resume``: the same bf16 run in-process (``DFD_CHAOS`` set and cleared
    around each call, ``SystemExit`` caught): an uninterrupted epoch twice;
    ``sigterm@5`` → exit 75 with the snapshot ``recovery-0-4``; the snapshot
    reloaded and saved again is itself, bitwise; ``--auto-resume`` to the
    end; a ``nanbatch`` burst → one rewind, then to the end; the resumed and
    rewound states bitwise the uninterrupted one where the two uninterrupted
    runs agree bitwise, else within twice their spread;
-14. TimeSformer training path: ``runners.train`` in-process on
+16. TimeSformer training path: ``runners.train`` in-process on
    ``timesformer_base_patch25_600`` (full width and depth) at 12×600²,
    batch 8, ``--attn-impl flash``, in f32 and then with ``--amp``: 8 steps,
    validation of the model and its EMA, a checkpoint; 12 forward, 12 dQ and
@@ -134,7 +162,7 @@ before the result line:
    reloaded from the checkpoint scores the eval set as the run did; ms per
    step, samples/s, peak memory, the device time per step by kernel kind
    and the eval forward's clips/s at batch 16;
-15. card against CPU: one guarded train step of the full flagship at
+17. card against CPU: one guarded train step of the full flagship at
    12×224², batch 2, and of the full TimeSformer at 12×300², batch 2, from
    the same weights on the card and on the CPU (loss, every parameter's
    update, BN running stats); then a NaN batch through each card step must
@@ -148,7 +176,7 @@ before the result line:
    ``tests/test_torch_amp.py``, and a bound that the card computed in bf16;
    an unchanged state and the f32 step in the bf16 step's place must each
    fail it; and a NaN batch through each bf16 card step;
-16. the ``kernels`` line (all six kernels, each with its bf16 status), the
+18. the ``kernels`` line (all six kernels, each with its bf16 status), the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or in a directory that holds only this file, it exits
@@ -182,7 +210,15 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.profiler import ProfilerActivity, profile
 
 from deepfake_detection_tpu_torch import losses
+from deepfake_detection_tpu_torch.backfill import (build_manifest_from_pack,
+                                                   collect_books,
+                                                   manifest_entries,
+                                                   read_verdicts,
+                                                   save_manifest)
+from deepfake_detection_tpu_torch.backfill.source import PackSource
+from deepfake_detection_tpu_torch.backfill.writer import verdict_path
 from deepfake_detection_tpu_torch.chaos import ChaosInjector
+from deepfake_detection_tpu_torch.convert import flax_leaf
 from deepfake_detection_tpu_torch.csrc.build import _nvcc, build, kernel
 from deepfake_detection_tpu_torch.data.device_augment import (
     DeviceAugmentSpec, derive_geometric_batch)
@@ -194,14 +230,19 @@ from deepfake_detection_tpu_torch.data.packed import write_pack
 from deepfake_detection_tpu_torch.models import (create_deepfake_model_v4,
                                                  create_model)
 from deepfake_detection_tpu_torch.models import efficientnet_blocks as blocks
-from deepfake_detection_tpu_torch.models.helpers import set_compute_dtype
+from deepfake_detection_tpu_torch.models.helpers import (load_state_dict,
+                                                        set_compute_dtype)
 from deepfake_detection_tpu_torch.ops import depthwise as dw
 from deepfake_detection_tpu_torch.ops import flash_attention as fa
 from deepfake_detection_tpu_torch.ops.conv import explicit_padding
 from deepfake_detection_tpu_torch.optim import create_optimizer
 from deepfake_detection_tpu_torch.params import (normalize_replicate,
                                                  prepare_canvas)
+from deepfake_detection_tpu_torch.runners import backfill as backfill_runner
 from deepfake_detection_tpu_torch.runners import serve as serve_runner
+from deepfake_detection_tpu_torch.runners.backfill import (BackfillConfig,
+                                                           _build_dup_map,
+                                                           run_backfill)
 from deepfake_detection_tpu_torch.runners import test as runner
 from deepfake_detection_tpu_torch.runners import train as train_runner
 from deepfake_detection_tpu_torch.serving.cascade import CascadeRouter
@@ -209,6 +250,7 @@ from deepfake_detection_tpu_torch.serving.config import (ServeConfig,
                                                          parse_model_spec)
 from deepfake_detection_tpu_torch.serving.engine import InferenceEngine
 from deepfake_detection_tpu_torch.serving.metrics import capture_count
+from deepfake_detection_tpu_torch.serving.quant import quant_summary
 from deepfake_detection_tpu_torch.serving.resilience import torn_copy
 from deepfake_detection_tpu_torch.train import checkpoint as ckpt
 from deepfake_detection_tpu_torch.train.state import create_train_state
@@ -960,6 +1002,7 @@ def phase_main_path(device: str = "cuda", size: int = 600):
             raise AssertionError(f"clip={clip}: card vs CPU P(fake) differ "
                                  f"by {diff:.3e} > {SCORE_TOL}")
         results["clip" if clip else "single"] = gpu.tolist()
+        results["cpu_clip" if clip else "cpu_single"] = cpu.tolist()
         emit(phase="main_path", clip=clip, forwards=forwards,
              launches=counted, p_fake_gpu=gpu.tolist(),
              p_fake_cpu=cpu.tolist(), max_abs_diff=diff, tol=SCORE_TOL,
@@ -1501,6 +1544,392 @@ def phase_serve(ckpt_path: Path, files: list, cli: dict, size: int = 600,
          captures=capture_count() - caps0)
     return dict(launches=launches["depthwise_fwd"], peak_gib=u8_peak,
                 big_peak_gib=big_peak)
+
+
+# ---------------------------------------------------------------------------
+# weight-only PTQ (serving/quant.py) in the server's captured graphs
+# ---------------------------------------------------------------------------
+
+QUANT_DTYPES = ("f32", "bf16", "int8")
+# P(fake) drift from the card's f32 scores: the JAX package's bounds
+# (tests/test_serving_quant.py, SERVE_BENCH.md)
+QUANT_DRIFT = {"bf16": 0.02, "int8": 0.06}
+
+
+def _nan_kernels_file(ckpt_path: Path, dst: Path) -> None:
+    """The checkpoint with output channel 0 of every conv kernel NaN (the
+    biases, BN and the classifier finite), written atomically."""
+    sd = torch.load(ckpt_path, weights_only=True)
+    for k, v in sd.items():
+        if flax_leaf(k) == "kernel" and v.dim() == 4:
+            v[0] = float("nan")
+    tmp = dst.with_suffix(".tmp")
+    torch.save(sd, tmp)
+    os.replace(tmp, dst)
+
+
+def _replay_ms(eng, bucket: int, chans: int) -> dict:
+    """Wall (host clock around 20 replays) and device (profiler busy) ms of
+    one replay of ``eng``'s (bucket, chans) graph."""
+    prog = eng.entry().compiled[(bucket, chans)]
+
+    def replay():
+        with torch.cuda.stream(eng._stream):
+            prog.graph.replay()
+
+    with eng._device_lock:
+        return dict(wall_ms=_wall_ms(replay),
+                    device_ms=_profile_kernels(replay, 5)[0])
+
+
+def phase_quant(ckpt_path: Path, files: list, cli: dict, size: int = 600,
+                device: str = "cuda") -> dict:
+    """The calibrated flagship of ``phase_main_path`` served through
+    ``runners.serve.build_engine`` on the uint8 wire, buckets 1/4/16, at
+    f32, bf16 and int8: captures, the depthwise kernel inside a replay,
+    scores against the port's CPU run and the card's f32, batch-1 replay
+    ms, resident weight bytes and peak memory, a quantized reload through
+    the canary, a NaN-kernel checkpoint rejected; then ``runners.test
+    --dtype int8`` on the card against an int8 engine's float32 wire.
+    Returns the launches of the phase's replays and CLI forwards, and its
+    rows."""
+    canv = [prepare_canvas(read_rgb(f), size) for f in files]
+    rows, launches, cold = {}, Counter(), {}
+    card = {}
+    for dtype in QUANT_DTYPES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        caps0 = capture_count()
+        t0 = time.perf_counter()
+        eng, batcher, _ = serve_runner.build_engine(ServeConfig(
+            model_path=str(ckpt_path), wire="uint8", buckets=SERVE_BUCKETS,
+            device=device, image_size=size, dtype=dtype,
+            watchdog_timeout_s=0.0))
+        ready_s = time.perf_counter() - t0
+        peak = _peak_gib(base)
+        entry = eng.entry()
+        captures = capture_count() - caps0
+        want = len(SERVE_BUCKETS) * 2                # widths 3 and 12
+        bad = {f"{b}x{c}": p.launches for (b, c), p in entry.compiled.items()
+               if p.launches.get("depthwise_fwd") != 55}
+        if eng.compile_count != want or captures != want or bad:
+            raise AssertionError(f"{dtype}: {eng.compile_count} programs, "
+                                 f"{captures} captures (expected {want}), "
+                                 f"launches {bad}")
+        traced = _replay_kernels(eng)
+        if traced["depthwise_fwd_kernels"] != 55:
+            raise AssertionError(f"{dtype}: a profiled bucket-4 replay ran "
+                                 f"{traced['depthwise_fwd_kernels']} "
+                                 f"depthwise forward kernels, not 55")
+        scores = np.concatenate([eng.score_batch(canv[i:i + 4])
+                                 for i in range(0, len(canv), 4)])[:, 0]
+        card[dtype] = scores
+        if dtype == "f32":
+            cpu = np.asarray(cli["cpu_single"])
+        else:
+            cpu = np.asarray(runner.test_img(str(ckpt_path), files,
+                                             size=size, dtype=dtype,
+                                             device="cpu"))
+        vs_cpu = float(np.abs(scores - cpu).max())
+        drift = float(np.abs(scores - card["f32"]).max())
+        b1 = _replay_ms(eng, 1, 3)
+        # a perturbed checkpoint: quantized, through the canary, committed
+        # into the resident store in place
+        before = eng.score_batch(canv[3:4])
+        nxt = OUT / f"quant_next_{dtype}.pth"
+        _perturbed_file(ckpt_path, nxt, seed=3)
+        eng.submit_reload(load_state_dict(str(nxt)), source=str(nxt))
+        eng._maybe_apply_reload()
+        reloaded = eng.score_batch(canv[3:4])
+        eager = eng._eager_scores(entry, entry.candidate, 3, canv[3][None],
+                                  entry.candidate_store)
+        reload_diff = float(np.abs(reloaded - eager).max())
+        # the reloaded graph against a fresh quantization of the same file
+        # (the CLI at this dtype, batch 1 as the bucket-1 replay)
+        n0 = dw.fused_depthwise.launches
+        fresh = runner.test_img(str(nxt), files[3:4], size=size, dtype=dtype,
+                                device=device)[0]
+        launches["depthwise_fwd"] += dw.fused_depthwise.launches - n0
+        fresh_diff = abs(float(reloaded[0, 0]) - fresh)
+        nan_file = OUT / f"quant_nan_{dtype}.pth"
+        _nan_kernels_file(ckpt_path, nan_file)
+        errors = eng.metrics.reload_errors_total.value
+        eng.submit_reload(load_state_dict(str(nan_file)), source="nan")
+        eng._maybe_apply_reload()
+        nan_rejected = eng.metrics.reload_errors_total.value - errors
+        nan_bitwise = bool(np.array_equal(eng.score_batch(canv[3:4]),
+                                          reloaded))
+        rows[dtype] = dict(
+            captures=captures, ready_s=ready_s,
+            capture_s={f"{b}x{c}": s for (b, c), s in
+                       eng.warm_compile_walls.items()},
+            params_load_s=eng.metrics.warmup_seconds["params_load"],
+            resident_weight_bytes=entry.resident_bytes(),
+            peak_mem_gib_over_base=peak,
+            replay_bucket4=dict(depthwise_fwd_kernels=traced[
+                "depthwise_fwd_kernels"], kernels=traced["kernels"],
+                busy_ms=traced["busy_ms"]),
+            batch_1=b1, p_fake=scores.tolist(), max_abs_diff_vs_cpu=vs_cpu,
+            cpu_tol=SCORE_TOL, drift_vs_f32=drift,
+            drift_tol=QUANT_DRIFT.get(dtype, 0.0),
+            reload_applied=eng.reload_count,
+            reload_moved=float(np.abs(reloaded - before).max()),
+            reload_vs_eager=reload_diff, reload_vs_fresh_cli=fresh_diff,
+            nan_kernels_rejected=nan_rejected,
+            nan_kernels_scores_bitwise=nan_bitwise,
+            summary=quant_summary(entry.store) if entry.store else None)
+        emit(phase="quant", dtype=dtype, nvidia_smi=nvidia_smi_line(),
+             **rows[dtype])
+        launches.update(eng.launch_counts())
+        cold[dtype] = dict(ready_s=ready_s,
+                           params_load_s=rows[dtype]["params_load_s"],
+                           capture_s=rows[dtype]["capture_s"])
+        if vs_cpu > SCORE_TOL or drift > QUANT_DRIFT.get(dtype, 0.0) \
+                or (dtype != "f32" and drift == 0.0) \
+                or eng.reload_count != 1 or reload_diff > SERVE_TOL \
+                or fresh_diff > SERVE_TOL \
+                or rows[dtype]["reload_moved"] == 0.0 \
+                or nan_rejected != 1 or not nan_bitwise \
+                or capture_count() != caps0 + captures:
+            raise AssertionError(f"quant {dtype}: {rows[dtype]}")
+        eng.stop()
+        batcher.close()
+        del eng, batcher, entry
+    f32_resident = rows["f32"]["resident_weight_bytes"]
+    for dtype in ("bf16", "int8"):
+        if rows[dtype]["resident_weight_bytes"] >= f32_resident:
+            raise AssertionError(f"{dtype} keeps {rows[dtype]} resident "
+                                 f"bytes, f32 {f32_resident}")
+    # the CLI at int8 on the card against an int8 engine's float32 wire
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = dw.fused_depthwise.launches
+    cli_int8 = np.asarray(runner.test_img(str(ckpt_path), files, size=size,
+                                          dtype="int8", device=device))
+    launches["depthwise_fwd"] += dw.fused_depthwise.launches - before
+    eng, batcher, _ = serve_runner.build_engine(ServeConfig(
+        model_path=str(ckpt_path), wire="float32", buckets=(1,),
+        device=device, image_size=size, dtype="int8",
+        watchdog_timeout_s=0.0))
+    wire = np.asarray([eng.score_batch([normalize_replicate(c, 4)])[0, 0]
+                       for c in canv])
+    launches.update(eng.launch_counts())
+    eng.stop()
+    batcher.close()
+    del eng, batcher
+    cli_diff = float(np.abs(cli_int8 - wire).max())
+    emit(phase="quant_cli", dtype="int8", max_abs_diff_vs_engine=cli_diff,
+         bitwise=bool(cli_diff == 0.0), tol=SERVE_TOL,
+         p_fake_cli=cli_int8.tolist())
+    if cli_diff > SERVE_TOL:
+        raise AssertionError(f"runners.test --dtype int8 vs the engine's "
+                             f"float32 wire: {cli_diff:.3e}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches["depthwise_fwd"], rows=rows, cold=cold)
+
+
+# ---------------------------------------------------------------------------
+# the corpus backfill runner (runners/backfill.py): one captured graph
+# ---------------------------------------------------------------------------
+
+BACKFILL_CLIPS = 192              # four-frame clips at 600²
+BACKFILL_DUPS = 8                 # of them copies of earlier clips
+BACKFILL_SHARD = 32               # clips a manifest shard
+BACKFILL_BATCH = 16
+BACKFILL_CLI_CLIPS = 4            # scored again by the card CLI
+BACKFILL_TOL = 1e-6               # P(fake), backfill against the card CLI
+
+
+def make_backfill_pack(root: Path, pack: Path, size: int = 600,
+                       seed: int = 0) -> list:
+    """A seeded tree of ``BACKFILL_CLIPS`` four-frame clips of ``.npy``
+    frames at ``size``² (the last ``BACKFILL_DUPS`` copies of earlier clips,
+    byte for byte), packed by the port's ``write_pack``; the tree is removed
+    but for the frames of the first ``BACKFILL_CLI_CLIPS`` fakes, whose
+    paths it returns (the manifest's first clips)."""
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(pack, ignore_errors=True)
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size]
+    bases = [np.clip(127 + 100 * np.sin(
+        xx[..., None] / (30 + 5 * i) + yy[..., None] / (41 + 3 * i)
+        + np.arange(3) * i) + rng.normal(0, 20, (size, size, 3)), 0,
+        255).astype(np.uint8) for i in range(12)]
+    n_fake = BACKFILL_CLIPS // 2
+    names = {"fake": [], "real": []}
+    unique = BACKFILL_CLIPS - BACKFILL_DUPS
+    for i in range(BACKFILL_CLIPS):
+        kind = "fake" if i < n_fake else "real"
+        name = f"c{i}"
+        d = root / kind / name
+        d.mkdir(parents=True)
+        if i >= unique:                    # a duplicate of an earlier clip
+            src = i - unique + 3
+            src_dir = root / ("fake" if src < n_fake else "real") / f"c{src}"
+            for f in src_dir.iterdir():
+                shutil.copyfile(f, d / f.name)
+        else:
+            for t in range(4):
+                b = bases[(i + t) % len(bases)]
+                shift = (int(rng.integers(0, size)), int(rng.integers(0, size)))
+                frame = np.roll(b, shift, axis=(0, 1))
+                if (i + t) % 2:
+                    frame = frame[:, ::-1]
+                np.save(d / f"{t}.npy", np.ascontiguousarray(frame))
+        names[kind].append(name)
+    for kind, clips in names.items():
+        (root / f"{kind}_list.txt").write_text(
+            "".join(f"{c}:4\n" for c in clips))
+    t0 = time.perf_counter()
+    write_pack(str(root), str(pack), image_size=0, frames_per_clip=4,
+               shard_size=64, workers=8)
+    pack_s = time.perf_counter() - t0
+    keep = OUT / "backfill_cli"
+    shutil.rmtree(keep, ignore_errors=True)
+    keep.mkdir(parents=True)
+    cli_files = []
+    for i in range(BACKFILL_CLI_CLIPS):
+        for t in range(4):
+            dst = keep / f"c{i}_{t}.npy"
+            shutil.copyfile(root / "fake" / f"c{i}" / f"{t}.npy", dst)
+            cli_files.append(str(dst))
+    shutil.rmtree(root)
+    return cli_files, pack_s
+
+
+def phase_backfill(ckpt_path: Path, size: int = 600,
+                   device: str = "cuda") -> dict:
+    """The corpus backfill runner on the card: a seeded pack of
+    ``BACKFILL_CLIPS`` four-frame clips at 600² with ``BACKFILL_DUPS``
+    duplicates, the calibrated flagship at batch 16 with ``--dedup``: run 1
+    to completion (clips/s, the device's busy share, one capture and none
+    after warmup, 55 depthwise launches a replay, exact books); run 2
+    stopped by SIGTERM after two shards (exit 75) and relaunched (exact
+    books, verdicts bitwise run 1's); a few clips against the card CLI.
+    Returns the launches of the replays and the numbers."""
+    root, pack = OUT / "backfill_tree", OUT / "backfill_pack"
+    cli_files, pack_s = make_backfill_pack(root, pack, size)
+    manifest = build_manifest_from_pack(str(pack), BACKFILL_SHARD)
+    mpath = OUT / "backfill_manifest.json"
+    save_manifest(str(mpath), manifest)
+    pack_bytes = sum(f.stat().st_size for f in pack.iterdir())
+    emit(phase="backfill_corpus", clips=manifest["num_clips"],
+         shards=len(manifest["shards"]), pack_bytes=pack_bytes,
+         pack_s=pack_s)
+    dups = _build_dup_map(PackSource(str(pack)), manifest)
+    if len(dups) != BACKFILL_DUPS:
+        raise AssertionError(f"{len(dups)} duplicates in the pack, "
+                             f"expected {BACKFILL_DUPS}")
+
+    def argv(out: Path) -> list:
+        return ["--manifest", str(mpath), "--data-packed", str(pack),
+                "--out", str(out), "--model-path", str(ckpt_path),
+                "--batch-size", str(BACKFILL_BATCH), "--dedup",
+                "--workers", "8", "--device", device, "--worker-name", "w"]
+
+    # run 1, to completion
+    run1 = OUT / "backfill_run1"
+    shutil.rmtree(run1, ignore_errors=True)
+    caps0 = capture_count()
+    t0 = time.perf_counter()
+    s1 = run_backfill(BackfillConfig.from_args(argv(run1)))
+    run1_s = time.perf_counter() - t0
+    books = s1["books"]
+    fwd = s1["launches"].get("depthwise_fwd", 0)
+    captured = capture_count() - caps0
+    # the device's busy share over the scoring window: the device time of
+    # one replay with its copies (profiled), times the replays
+    pipe_ms = _backfill_replay_ms(ckpt_path, manifest, pack, device)
+    busy_share = pipe_ms * s1["replays"] / (s1["elapsed_s"] * 1e3) \
+        if s1["elapsed_s"] else None
+    row1 = dict(wall_s=run1_s, clips_per_s=s1["clips_per_s"],
+                elapsed_s=s1["elapsed_s"], replays=s1["replays"],
+                replay_with_copies_device_ms=pipe_ms,
+                device_busy_share=busy_share,
+                captures=s1["captures"],
+                captures_after_warmup=s1["steady_recompiles"],
+                launches=s1["launches"], capture_s=s1["capture_s"],
+                load_s=s1["load_s"], dedup_s=s1["dedup_s"],
+                ready_s=s1["ready_s"], books={k: books[k] for k in (
+                    "manifest_clips", "scored", "failed", "skipped_dup",
+                    "balanced")})
+    emit(phase="backfill_run", run=1, nvidia_smi=nvidia_smi_line(),
+         eager_batch_8_clips_per_s=CLI_CLIPS_PER_S["batch_8"], **row1)
+    if not books["balanced"] or books["skipped_dup"] != BACKFILL_DUPS \
+            or books["failed"] or s1["captures"] != 1 \
+            or s1["steady_recompiles"] or captured != 1 \
+            or fwd != 55 * s1["replays"] or s1["replays"] == 0:
+        raise AssertionError(f"backfill run 1: {row1}")
+
+    # run 2: SIGTERM at the first batch of the third shard, then relaunch
+    run2 = OUT / "backfill_run2"
+    shutil.rmtree(run2, ignore_errors=True)
+    batches = sum(-(-sum(1 for c in sh["clips"] if (c[0], c[1], c[2])
+                         not in dups) // BACKFILL_BATCH)
+                  for sh in manifest["shards"][:2])
+    os.environ["DFD_CHAOS"] = f"backfill_kill@{batches}"
+    try:
+        rc = backfill_runner.main(argv(run2))
+    finally:
+        del os.environ["DFD_CHAOS"]
+    mid = collect_books(str(run2), manifest)
+    rc2 = backfill_runner.main(argv(run2))
+    books2 = collect_books(str(run2), manifest)
+    same = all(Path(verdict_path(str(run1), sh["id"])).read_bytes()
+               == Path(verdict_path(str(run2), sh["id"])).read_bytes()
+               for sh in manifest["shards"])
+    row2 = dict(rc_stopped=rc, shards_done_at_stop=mid["shards_done"],
+                rc_relaunch=rc2, books=books2["balanced"],
+                verdicts_bitwise_run_1=same)
+    emit(phase="backfill_run", run=2, **row2)
+    if rc != 75 or mid["shards_done"] != 2 or rc2 != 0 \
+            or not books2["balanced"] or not same:
+        raise AssertionError(f"backfill stop/relaunch: {row2}")
+
+    # a few clips against the card CLI (4 frames a clip, --clip)
+    recs = {r["clip"]: r for sh in manifest["shards"][:1]
+            for r in read_verdicts(verdict_path(str(run1), sh["id"]))}
+    cli = np.asarray(runner.test_img(str(ckpt_path), cli_files, size=size,
+                                     clip=True, device=device))
+    got = np.asarray([recs[f"c{i}"]["score"]
+                      for i in range(BACKFILL_CLI_CLIPS)])
+    cli_diff = float(np.abs(got - cli).max())
+    emit(phase="backfill_cli", clips=BACKFILL_CLI_CLIPS,
+         max_abs_diff=cli_diff, tol=BACKFILL_TOL, p_fake=got.tolist())
+    if cli_diff > BACKFILL_TOL or np.abs(got - 0.5).max() <= 1e-3:
+        raise AssertionError(f"backfill vs card CLI: {cli_diff:.3e}, {got}")
+    shutil.rmtree(pack, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=fwd, run1=row1, run2=row2, cli_diff=cli_diff)
+
+
+def _backfill_replay_ms(ckpt_path: Path, manifest: dict, pack: Path,
+                        device: str) -> float:
+    """Device ms (profiler busy: kernels and copies) of one dispatch of the
+    backfill pipeline, its input copy, replay and output copy, on a full
+    batch of the pack's clips."""
+    cfg = BackfillConfig(manifest="m", out="o", data_packed=str(pack),
+                         model_path=str(ckpt_path),
+                         batch_size=BACKFILL_BATCH, device=device)
+    src = PackSource(str(pack))
+    pipe = backfill_runner._Pipeline(cfg, src.frames_per_clip, src.sample_hw)
+    slot = pipe.free.get()
+    for j, entry in enumerate(manifest_entries(manifest)):
+        if j == BACKFILL_BATCH:
+            break
+        slot.x_np[j] = src.load(entry)
+
+    def once():
+        pipe.dispatch(slot)
+        pipe.collect(slot)
+
+    busy, _ = _profile_kernels(once, 3)
+    del pipe
+    return busy
 
 
 def _kernel_kind(name: str) -> str:
@@ -3111,7 +3540,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = build()
-    emit(phase="build", s=time.perf_counter() - t0,
+    build_s = time.perf_counter() - t0
+    emit(phase="build", s=build_s,
          ptxas={name: [ln.strip() for ln in path.with_suffix(".log")
                        .read_text().splitlines() if "registers" in ln]
                 for name, path in libs.items()},
@@ -3148,6 +3578,27 @@ def main() -> int:
         raise AssertionError(f"the serving path launched the depthwise "
                              f"kernels {_counts()} and the flash kernels "
                              f"{_flash_counts()} times")
+    # the quantized servers and the int8 CLI: the eager launches are
+    # counted here, the replays through the engines' capture counts
+    _reset_counts()
+    quant = phase_quant(OUT / "flagship.pth", files, cli_scores)
+    if _counts()[0] == 0 or _counts()[1:] != (0, 0) \
+            or _flash_counts() != (0, 0, 0):
+        raise AssertionError(f"the quantized serving path launched the "
+                             f"depthwise kernels {_counts()} and the flash "
+                             f"kernels {_flash_counts()} times")
+    _reset_counts()
+    bf = phase_backfill(OUT / "flagship.pth")
+    if _counts()[0] == 0 or _counts()[1:] != (0, 0) \
+            or _flash_counts() != (0, 0, 0):
+        raise AssertionError(f"the backfill path launched the depthwise "
+                             f"kernels {_counts()} and the flash kernels "
+                             f"{_flash_counts()} times")
+    emit(phase="cold_start", nvidia_smi=smi, kernel_build_s=build_s,
+         kernels_built="all six sources, one nvcc each, in parallel",
+         serve=quant["cold"], backfill=dict(
+             load_s=bf["run1"]["load_s"], capture_s=bf["run1"]["capture_s"],
+             dedup_s=bf["run1"]["dedup_s"], ready_s=bf["run1"]["ready_s"]))
     t = phase_train(frame)
     td = phase_train_data(frame, {k: t[k] for k in (
         "ms_per_step", "samples_per_s", "peak_mem_gib",
@@ -3173,7 +3624,9 @@ def main() -> int:
 
     fwd_launches, fwd_paths = by_path("forward_launches",
                                       inference=infer_launches,
-                                      serve=serve["launches"])
+                                      serve=serve["launches"],
+                                      serve_quant=quant["launches"],
+                                      backfill=bf["launches"])
     dx_launches, dx_paths = by_path("dx_launches")
     dwg_launches, dwg_paths = by_path("dwgrad_launches")
     amp_paths = ("train_amp", "resume")

@@ -40,7 +40,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_flax"]
+__all__ = ["state_dict_from_flax", "flax_leaf"]
 
 _BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
             "var": "running_var"}
@@ -82,6 +82,22 @@ def _map_path(parts: Tuple[str, ...]) -> Tuple[str, bool]:
         if sub.startswith("conv"):
             return f"{prefix}.{sub}.{_W_LEAF[leaf]}", False
     raise KeyError(f"no timm name for flax path {'/'.join(parts)}")
+
+
+def flax_leaf(name: str) -> str:
+    """The flax leaf a port state-dict name maps from, by the names above:
+    ``kernel`` for the ``weight`` of a conv or linear layer, ``scale`` for
+    that of a BN (``bn*``) or LayerNorm (``norm*``), ``bias``, ``mean`` and
+    ``var`` for BN's running statistics, and the name itself for the
+    transformers' top-level ``cls_token`` / ``pos_embed`` / ``time_embed``
+    (and ``num_batches_tracked``, which has no flax leaf)."""
+    parts = name.split(".")
+    leaf = parts[-1]
+    if len(parts) == 1:
+        return leaf
+    if leaf == "weight":
+        return "scale" if parts[-2].startswith(("bn", "norm")) else "kernel"
+    return {"running_mean": "mean", "running_var": "var"}.get(leaf, leaf)
 
 
 def _to_torch_layout(v: np.ndarray) -> np.ndarray:

@@ -137,15 +137,22 @@ def normalize_concat(frames, num: Optional[int] = None) -> np.ndarray:
         axis=-1)
 
 
-def make_score_fn(model: torch.nn.Module) -> Callable:
+def make_score_fn(model: torch.nn.Module, store=None,
+                  device: Optional[torch.device] = None) -> Callable:
     """``NHWC batch → softmax scores`` (numpy or tensor in, numpy out);
-    ``scores[:, 0]`` = P(fake).  The batch goes to the model's device as
-    an NCHW view in channels_last memory (``permute``, no copy)."""
-    device = next(model.parameters()).device
+    ``scores[:, 0]`` = P(fake).  The batch goes to ``device`` (default: the
+    model's) as an NCHW view in channels_last memory (``permute``, no
+    copy).  A quantized ``store`` (``serving/quant.py``) is realized inside
+    every call, as the JAX ``make_score_fn`` realizes its tree."""
+    from .serving.quant import module_forward
+
+    if device is None:
+        device = next(model.parameters()).device
+    forward = module_forward(model, store)
 
     def score(x) -> np.ndarray:
         x = torch.as_tensor(x).permute(0, 3, 1, 2).to(device)
         with torch.inference_mode():
-            return torch.softmax(model(x), dim=-1).cpu().numpy()
+            return torch.softmax(forward(x), dim=-1).cpu().numpy()
 
     return score

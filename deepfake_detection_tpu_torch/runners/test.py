@@ -9,10 +9,14 @@ and print the softmax fake score ``scores[:, 0]``.
 Usage::
 
     python -m deepfake_detection_tpu_torch.runners.test img1.npy img2.png \\
-        [--model-path PATH] [--image-size 600] [--clip] [--device cuda]
+        [--model-path PATH] [--image-size 600] [--clip] \\
+        [--dtype f32|bf16|int8] [--device cuda]
 
 ``.npy`` files hold uint8 HWC RGB frames and are read with numpy; other
 formats need Pillow.  ``--model-path`` is a torch file with timm's keys.
+``--dtype bf16|int8`` quantizes the loaded f32 weights
+(``serving/quant.py``) and realizes them inside every forward: the serving
+engine's PTQ, so the CLI is its oracle at each dtype.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from ..data.dataset import read_rgb
 from ..models import create_deepfake_model_v4, load_checkpoint
 from ..params import (image_max_height, img_num, make_score_fn,
                       normalize_concat, normalize_replicate, prepare_canvas)
+from ..serving.quant import canonical_mode, quant_summary, quantize_module
 
 __all__ = ["test_img", "preprocess", "preprocess_clip", "read_rgb", "main"]
 
@@ -52,11 +57,9 @@ def test_img(model_path: Optional[str], img_files: Sequence[str],
              dtype: str = "f32", device: str = "cuda") -> List[float]:
     """Score images one at a time (replicate ×img_num), or with
     ``clip=True`` in groups of ``img_num`` distinct frames.  Without a
-    ``model_path`` the weights are the seeded init."""
-    if dtype not in ("f32", "float32"):
-        raise NotImplementedError(
-            f"--dtype {dtype}: only f32 is ported (the bf16/int8 PTQ of "
-            "serving/quant.py is a later slice)")
+    ``model_path`` the weights are the seeded init.  ``dtype`` bf16/int8
+    applies the serving PTQ to the loaded f32 weights."""
+    dtype = canonical_mode(dtype)
     missing = [f for f in img_files if not os.path.isfile(f)]
     if missing:
         raise FileNotFoundError(f"no such image file(s): {missing}")
@@ -75,7 +78,10 @@ def test_img(model_path: Optional[str], img_files: Sequence[str],
     if model_path:
         load_checkpoint(model, model_path)
     print("Model loaded!")
-    score_fn = make_score_fn(model)
+    store = quantize_module(model, dtype)
+    if store is not None:
+        print(f"Quantized weights to {dtype}: {quant_summary(store)}")
+    score_fn = make_score_fn(model, store, device=dev)
     scores_out: List[float] = []
     if clip:
         for i in range(0, len(img_files), img_num):
@@ -100,8 +106,12 @@ def main(argv=None) -> None:
                    help=f"score groups of img_num={img_num} distinct "
                         f"frames as temporal clips instead of replicating "
                         f"each image")
-    p.add_argument("--dtype", default="f32", choices=["f32"],
-                   help="weight precision (only f32 is ported)")
+    p.add_argument("--dtype", default="f32",
+                   choices=["f32", "bf16", "int8"],
+                   help="post-training quantization of the loaded f32 "
+                        "weights (serving/quant.py): f32 = reference "
+                        "parity, bf16/int8 = the engine's PTQ serving "
+                        "modes")
     p.add_argument("--device", default="cuda",
                    help="torch device; the CPU runs the plain PyTorch path")
     args = p.parse_args(argv)

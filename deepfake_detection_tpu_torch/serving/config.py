@@ -6,10 +6,11 @@ every field a ``--dashed-flag`` (a ``-c`` YAML or JSON file resets the
 defaults, the command line overrides them), plus ``--device`` (``cuda`` by
 default; ``cpu`` runs the plain PyTorch programs, for the tests).
 
+``--dtype`` and a ``--models`` entry's ``dtype`` take f32, bf16 or int8
+(aliases float32, bfloat16): the weight-only PTQ of ``serving/quant.py``.
 The flags of pieces the port does not have yet parse, and raise
 ``NotImplementedError`` naming their ROADMAP item when set away from their
-defaults: ``--dtype`` / a ``--models`` ``dtype`` other than f32 (the PTQ of
-``serving/quant.py``, item 4), ``--warmstart-dir`` (the executable store of
+defaults: ``--warmstart-dir`` (the executable store of
 ``serving/warmstart.py``; a CUDA graph cannot be serialized, item 10's warm
 start), and the XLA-only ``--compile-cache-dir`` and
 ``--single-thread-xla``.  ``--warm-parallel`` above 1 raises too: the
@@ -24,25 +25,19 @@ import json
 from dataclasses import dataclass, fields
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-__all__ = ["ServeConfig", "parse_model_spec"]
+__all__ = ["FlagConfig", "ServeConfig", "parse_model_spec"]
 
 #: serving PTQ dtypes (canonical + accepted aliases), as the JAX config
 _QUANT_DTYPES = {"f32": "f32", "float32": "f32",
                  "bf16": "bf16", "bfloat16": "bf16", "int8": "int8"}
 
-QUANT_ITEM = ("the bf16/int8 post-training quantization of serving/quant.py "
-              "is not ported yet (ROADMAP Queue 1, item 4)")
-
 
 def _canon_quant_dtype(s: str, flag: str) -> str:
     try:
-        mode = _QUANT_DTYPES[str(s).lower()]
+        return _QUANT_DTYPES[str(s).lower()]
     except KeyError:
         raise ValueError(f"{flag} must be one of f32|bf16|int8 (aliases "
                          f"float32, bfloat16), got {s!r}") from None
-    if mode != "f32":
-        raise NotImplementedError(f"{flag} {s}: {QUANT_ITEM}")
-    return mode
 
 
 def _tuple_of_ints(s) -> Optional[Tuple[int, ...]]:
@@ -97,8 +92,79 @@ def parse_model_spec(spec: str, *, default_size: int,
     return out
 
 
+class FlagConfig:
+    """Flag surface shared by the runners' config dataclasses: every field
+    a ``--dashed-flag`` (bools as ``store_true``), a ``-c`` YAML (or JSON)
+    file resetting the defaults and the command line overriding them;
+    unknown flags are an error."""
+
+    #: the argument parser's description
+    DESCRIPTION = ""
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]):
+        known = {f_.name for f_ in fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+    @classmethod
+    def from_yaml(cls, path: str):
+        """A YAML file where PyYAML is installed, else JSON."""
+        with open(path) as f:
+            text = f.read()
+        try:
+            import yaml
+        except ImportError:
+            d = json.loads(text)
+        else:
+            d = yaml.safe_load(text)
+        return cls.from_dict(d or {})
+
+    @classmethod
+    def argument_parser(cls) -> argparse.ArgumentParser:
+        """One flag per field (dashes), bools as store_true."""
+        p = argparse.ArgumentParser(description=cls.DESCRIPTION)
+        p.add_argument("-c", "--config", default="", metavar="FILE",
+                       help="YAML (or JSON) config; its values reset "
+                            "defaults, CLI overrides")
+        for f_ in fields(cls):
+            flag = "--" + f_.name.replace("_", "-")
+            if isinstance(f_.default, bool):
+                p.add_argument(flag, action="store_true", default=None,
+                               dest=f_.name)
+            else:
+                p.add_argument(flag, default=None, dest=f_.name)
+        return p
+
+    @classmethod
+    def from_args(cls, argv: Optional[Sequence[str]] = None):
+        """Two-stage parse: the config file resets defaults, the command
+        line overrides; unknown flags are an error."""
+        ns = cls.argument_parser().parse_args(argv)
+        base = cls.from_yaml(ns.config) if ns.config else cls()
+        out = dataclasses.asdict(base)
+        by_name = {f_.name: f_ for f_ in fields(cls)}
+        for k, v in vars(ns).items():
+            if k == "config" or v is None:
+                continue
+            default = by_name[k].default
+            if isinstance(default, bool):
+                out[k] = bool(v)
+            elif isinstance(default, tuple):
+                out[k] = _tuple_of_ints(v)
+            elif isinstance(default, float):
+                out[k] = float(v)
+            elif isinstance(default, int):
+                out[k] = int(v)
+            else:
+                out[k] = v
+        return cls.from_dict(out)
+
+
 @dataclass
-class ServeConfig:
+class ServeConfig(FlagConfig):
     """Knob surface of the dynamic-batching inference server.
 
     The batch **buckets** are the program table: one program per (model,
@@ -106,6 +172,9 @@ class ServeConfig:
     server reports ready, and every device call pads to one of them.
     The comments are the JAX config's, where they still hold.
     """
+    DESCRIPTION = ("dynamic-batching deepfake-detection inference server "
+                   "(PyTorch, CUDA graphs)")
+
     # --- network ---
     host: str = "127.0.0.1"
     port: int = 8377
@@ -128,7 +197,11 @@ class ServeConfig:
     # opt out (a no-op on the float32 wire)
     single_frame_only: bool = False
 
-    # --- post-training quantization: only f32 is ported (item 4) ---
+    # --- post-training quantization (serving/quant.py) ---
+    # weight-only PTQ of the served copy: 'f32' (CLI-exact parity),
+    # 'bf16' (params cast) or 'int8' (per-output-channel symmetric conv/
+    # linear kernels, dequantized inside each captured program); the
+    # checkpoint on disk and the reload path stay f32
     dtype: str = "f32"
 
     # --- multi-model serving ---
@@ -295,68 +368,3 @@ class ServeConfig:
     @property
     def in_chans(self) -> int:
         return 3 * self.img_num
-
-    # ------------------------------------------------------------------
-    def to_dict(self) -> Dict[str, Any]:
-        return dataclasses.asdict(self)
-
-    @classmethod
-    def from_dict(cls, d: Dict[str, Any]) -> "ServeConfig":
-        known = {f_.name for f_ in fields(cls)}
-        return cls(**{k: v for k, v in d.items() if k in known})
-
-    @classmethod
-    def from_yaml(cls, path: str) -> "ServeConfig":
-        """A YAML file where PyYAML is installed, else JSON."""
-        with open(path) as f:
-            text = f.read()
-        try:
-            import yaml
-        except ImportError:
-            d = json.loads(text)
-        else:
-            d = yaml.safe_load(text)
-        return cls.from_dict(d or {})
-
-    @classmethod
-    def argument_parser(cls) -> argparse.ArgumentParser:
-        """One flag per field (dashes), bools as store_true."""
-        p = argparse.ArgumentParser(
-            description="dynamic-batching deepfake-detection inference "
-                        "server (PyTorch, CUDA graphs)")
-        p.add_argument("-c", "--config", default="", metavar="FILE",
-                       help="YAML (or JSON) config; its values reset "
-                            "defaults, CLI overrides")
-        for f_ in fields(cls):
-            flag = "--" + f_.name.replace("_", "-")
-            if isinstance(f_.default, bool):
-                p.add_argument(flag, action="store_true", default=None,
-                               dest=f_.name)
-            else:
-                p.add_argument(flag, default=None, dest=f_.name)
-        return p
-
-    @classmethod
-    def from_args(cls, argv: Optional[Sequence[str]] = None
-                  ) -> "ServeConfig":
-        """Two-stage parse: the config file resets defaults, the command
-        line overrides; unknown flags are an error."""
-        ns = cls.argument_parser().parse_args(argv)
-        base = cls.from_yaml(ns.config) if ns.config else cls()
-        out = dataclasses.asdict(base)
-        by_name = {f_.name: f_ for f_ in fields(cls)}
-        for k, v in vars(ns).items():
-            if k == "config" or v is None:
-                continue
-            default = by_name[k].default
-            if isinstance(default, bool):
-                out[k] = bool(v)
-            elif isinstance(default, tuple):
-                out[k] = _tuple_of_ints(v)
-            elif isinstance(default, float):
-                out[k] = float(v)
-            elif isinstance(default, int):
-                out[k] = int(v)
-            else:
-                out[k] = v
-        return cls.from_dict(out)

@@ -53,11 +53,25 @@ this one captures a CUDA graph.
   the JAX ``is_ready`` becomes ``event.query()``.  The host refills a
   slot's pinned input only after the event of the copy that read it.
 
+* **Post-training quantization** (serving/quant.py) — ``dtype`` bf16
+  casts a model's parameters, ``int8`` quantizes its conv and linear
+  kernels per output channel.  The entry keeps the quantized tensors (int8
+  values plus f32 scales, or bf16) as its resident *store*, and its module
+  keeps no f32 copy of them (their parameters become shape-only ``meta``
+  tensors); the program realizes the store (``quant.realize``) and runs
+  the module on the realized weights through ``torch.func.
+  functional_call``, all inside the captured graph, the counterpart of the
+  JAX ``realize_tree`` inside the jitted call.  The realized f32 weights
+  are temporaries of the graph's pool, at fixed addresses.  At f32 there
+  is no store and the program is the module itself.
+
 * **Hot weight reload** — a watcher thread per watched model polls a
   checkpoint dir; a new torch file is loaded on the host, gated by shape,
-  scored by a golden-batch canary on a separate *candidate* module (never
-  the live tensors), and committed between batches.  A rejected reload
-  leaves the live tensors, and so the scores, bitwise unchanged.
+  quantized to the entry's dtype, scored by a golden-batch canary on a
+  separate *candidate* module and store (never the live tensors), and
+  committed between batches by ``copy_`` into the live tensors and the
+  resident store.  A rejected reload leaves the live tensors, and so the
+  scores, bitwise unchanged.
 
 * **Self-healing** (serving/resilience.py) — the JAX engine's contracts,
   each counted in /metrics and reachable through ``DFD_CHAOS``
@@ -89,14 +103,16 @@ from ..ops import depthwise as dw
 from ..params import image_max_height, img_mean, img_num as _default_img_num, \
     img_std
 from .batcher import MicroBatcher, Request, pick_bucket
-from .config import QUANT_ITEM
 from .metrics import ServingMetrics, note_capture
+from .quant import (canonical_mode, module_forward, ptq_names,
+                    quant_summary, quantized_store, resident_bytes,
+                    strip_module)
 from .resilience import (CircuitBreaker, EngineStalled, NonFiniteScores,
                          ServeWatchdog, torn_copy)
 
 _logger = logging.getLogger(__name__)
 
-__all__ = ["InferenceEngine", "DEFAULT_BUCKETS"]
+__all__ = ["InferenceEngine", "DEFAULT_BUCKETS", "capture_program"]
 
 DEFAULT_BUCKETS = (1, 4, 16, 64)
 
@@ -121,6 +137,34 @@ def _params_fingerprint(state: Mapping[str, Any], dtype: str) -> str:
 def _host_shapes(state: Mapping[str, Any]) -> Dict[str, Tuple]:
     return {k: (tuple(torch.as_tensor(v).shape),
                 str(torch.as_tensor(v).dtype)) for k, v in state.items()}
+
+
+def capture_program(fn, x: torch.Tensor, *, pool, stream: torch.cuda.Stream,
+                    lock) -> Tuple[torch.cuda.CUDAGraph, Any, Dict[str, int]]:
+    """Capture ``fn(x)`` as a CUDA graph: one eager run on ``stream`` (the
+    first-use work a capture may not hold: kernel builds, the TMA encoder's
+    lookup, ``cudaFuncSetAttribute``, cuDNN's choice), then, holding
+    ``lock``, the capture on ``stream`` into ``pool``.  Returns the graph,
+    its static output and the kernel launches counted while it was
+    captured; counts one capture (``note_capture``).  A failing capture
+    raises."""
+    with torch.no_grad():
+        # the eager run needs no lock: its memory is the caching
+        # allocator's and its stream is not the serving stream
+        stream.wait_stream(torch.cuda.current_stream(x.device))
+        with torch.cuda.stream(stream):
+            fn(x)
+    with lock, torch.no_grad():
+        torch.cuda.synchronize(x.device)
+        before = {k: w.launches for k, w in _COUNTED.items()}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            out = fn(x)
+        launches = {k: w.launches - before[k] for k, w in _COUNTED.items()
+                    if w.launches > before[k]}
+        note_capture()
+    return graph, out, launches
 
 
 class _Program:
@@ -172,7 +216,8 @@ class _ModelEntry:
                  "multi_frame", "var_shapes", "mean", "std", "mean_multi",
                  "std_multi", "compiled", "golden", "golden_ref",
                  "fingerprint", "reload_count", "last_reload_key",
-                 "reload_attempts", "watcher", "warmed", "candidate")
+                 "reload_attempts", "watcher", "warmed", "candidate",
+                 "bf16_names", "int8_names", "store", "candidate_store")
 
     def __init__(self, model_id: str, model: torch.nn.Module, *,
                  image_size: int, img_num: int, dtype: str,
@@ -181,7 +226,7 @@ class _ModelEntry:
         self.model = model.eval()
         self.image_size = int(image_size)
         self.img_num = int(img_num)
-        self.dtype = dtype
+        self.dtype = canonical_mode(dtype)
         # multi-frame needs a second program per bucket only on the uint8
         # wire (float32 payloads share the (·, ·, 3·img_num) shape)
         self.multi_frame = bool(multi_frame) and wire == "uint8" \
@@ -190,6 +235,12 @@ class _ModelEntry:
         # the shape gate of every reload
         self.var_shapes = _host_shapes(state)
         device = next(model.parameters()).device
+        self.bf16_names, self.int8_names = ptq_names(
+            state, dict(model.named_parameters()))
+        #: the resident quantized tensors (None at f32): int8 values +
+        #: scales, or bf16; the module keeps no f32 copy of them
+        self.store: Optional[Dict[str, Any]] = self.quantize(state, device)
+        self.candidate_store: Optional[Dict[str, Any]] = None
         self.mean = torch.as_tensor(img_mean, device=device)
         self.std = torch.as_tensor(img_std, device=device)
         # multi-frame wire: mean/std tiled to the 3·img_num clip channels
@@ -213,6 +264,22 @@ class _ModelEntry:
         # the reload canary's module (a copy of the architecture, made at
         # the first reload): candidates never touch the live tensors
         self.candidate: Optional[torch.nn.Module] = None
+        if self.store is not None:
+            strip_module(self.model, self.store)
+
+    def quantize(self, state: Mapping[str, Any], device: torch.device
+                 ) -> Optional[Dict[str, Any]]:
+        """The quantized tensors of ``state`` at this entry's dtype, on
+        ``device`` (None at f32)."""
+        return quantized_store(state, self.dtype, bf16_names=self.bf16_names,
+                               int8_names=self.int8_names, device=device)
+
+    def resident_bytes(self) -> int:
+        """Device bytes of the weights: the module's own tensors (not the
+        stripped ones) plus the quantized store."""
+        live = {k: v for k, v in self.model.state_dict().items()
+                if v.device.type != "meta"}
+        return resident_bytes(live) + resident_bytes(self.store or {})
 
 
 class _Staged:
@@ -350,8 +417,7 @@ class InferenceEngine:
         its weights loaded).  Readiness DROPS until :meth:`warmup` has made
         and run the new entry's programs."""
         model_id = str(model_id)
-        if dtype not in ("f32", "float32"):
-            raise NotImplementedError(f"dtype {dtype}: {QUANT_ITEM}")
+        dtype = canonical_mode(dtype)
         device = next(model.parameters()).device
         if device != self.device:
             raise ValueError(f"model {model_id!r} is on {device}; this "
@@ -371,10 +437,13 @@ class InferenceEngine:
                 img_num=(img_num if img_num is not None
                          else (primary.img_num if primary
                                else _default_img_num)),
-                dtype="f32", wire=self.wire,
+                dtype=dtype, wire=self.wire,
                 multi_frame=self._multi_frame_opt)
             self._models[model_id] = entry
         self.metrics.ready = False         # one cold model => not ready
+        if entry.store is not None:
+            _logger.info("model %r quantized to %s: %s", model_id,
+                         entry.dtype, quant_summary(entry.store))
 
     def entry(self, model_id: Optional[str] = None) -> _ModelEntry:
         """The table entry for ``model_id`` (None = primary); unknown ids
@@ -425,13 +494,17 @@ class InferenceEngine:
         return (base,)
 
     def _make_program(self, entry: _ModelEntry, chans: int,
-                      model: Optional[torch.nn.Module] = None):
+                      model: Optional[torch.nn.Module] = None,
+                      store: Optional[Mapping[str, Any]] = None):
         """The score function of one (model, channel width): NHWC wire
         batch → softmax scores.  The uint8 wire normalizes (+ replicates)
         with the JAX ``_score``'s elementwise float32 arithmetic; the
         model sees an NCHW view in channels_last memory, as in the CLI.
-        ``model`` defaults to the entry's live module."""
-        model = entry.model if model is None else model
+        ``model`` defaults to the entry's live module and its resident
+        store; a quantized store is realized inside the function."""
+        if model is None:
+            model, store = entry.model, entry.store
+        model = module_forward(model, store)
         if self.wire == "uint8":
             n_rep = entry.img_num if chans == 3 else 1
             mean, std = ((entry.mean, entry.std) if chans == 3
@@ -483,27 +556,11 @@ class InferenceEngine:
             prog = _Program(bucket, chans, fn)
         else:
             s = entry.image_size
-            side = self._capture_stream
-            with torch.no_grad():
-                # the eager run needs no lock: its memory is the caching
-                # allocator's and its stream is not the serving stream
-                x = torch.zeros((bucket, s, s, chans),
-                                dtype=self._wire_dtype(entry),
-                                device=self.device)
-                side.wait_stream(torch.cuda.current_stream(self.device))
-                with torch.cuda.stream(side):
-                    fn(x)
-            with self._device_lock, torch.no_grad():
-                torch.cuda.synchronize(self.device)
-                before = {k: w.launches for k, w in _COUNTED.items()}
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, pool=self._pool, stream=side,
-                                      capture_error_mode="thread_local"):
-                    out = fn(x)
-                launches = {k: w.launches - before[k]
-                            for k, w in _COUNTED.items()
-                            if w.launches > before[k]}
-                note_capture()
+            x = torch.zeros((bucket, s, s, chans),
+                            dtype=self._wire_dtype(entry), device=self.device)
+            graph, out, launches = capture_program(
+                fn, x, pool=self._pool, stream=self._capture_stream,
+                lock=self._device_lock)
             prog = _Program(bucket, chans, fn, x=x, out=out, graph=graph,
                             launches=launches)
         entry.compiled[(bucket, chans)] = prog
@@ -575,11 +632,13 @@ class InferenceEngine:
         return self._collect(prog, slot)
 
     def _eager_scores(self, entry: _ModelEntry, model: torch.nn.Module,
-                      chans: int, x: np.ndarray) -> np.ndarray:
-        """Scores of ``model`` (the reload candidate) on one wire batch,
-        run eagerly on the serving stream: never a graph, never the live
-        tensors."""
-        fn = self._make_program(entry, chans, model)
+                      chans: int, x: np.ndarray,
+                      store: Optional[Mapping[str, Any]] = None
+                      ) -> np.ndarray:
+        """Scores of ``model`` (the reload candidate) with its quantized
+        ``store`` on one wire batch, run eagerly on the serving stream:
+        never a graph, never the live tensors."""
+        fn = self._make_program(entry, chans, model, store)
         with self._serving():
             return fn(torch.from_numpy(np.ascontiguousarray(x)).to(
                 self.device)).cpu().numpy()
@@ -1143,8 +1202,11 @@ class InferenceEngine:
                     raise ValueError(
                         f"checkpoint tree/shape mismatch vs serving "
                         f"model {entry.model_id!r}")
-                candidate = self._load_candidate(entry, host_state)
-                canary = self._canary_scores(entry, candidate)
+                # the candidate is quantized to the entry's dtype first:
+                # the canary gates the weights as they will serve (NaN
+                # after dequantizing, drifted scores)
+                candidate, cstore = self._load_candidate(entry, host_state)
+                canary = self._canary_scores(entry, candidate, cstore)
                 new_fp = _params_fingerprint(host_state, entry.dtype)
             except Exception:                      # noqa: BLE001
                 _logger.exception("hot reload of model %r from %s "
@@ -1157,7 +1219,7 @@ class InferenceEngine:
                     self.submit_reload(host_state, source,
                                        model_id=model_id)   # retry fresh
                     return
-                self._commit(entry, candidate)
+                self._commit(entry, candidate, cstore)
                 if canary is not None:
                     entry.golden_ref = canary      # new drift baseline
                 entry.fingerprint = new_fp
@@ -1179,31 +1241,43 @@ class InferenceEngine:
                     self.metrics.ready = was_ready
 
     def _load_candidate(self, entry: _ModelEntry,
-                        host_state: Mapping[str, Any]) -> torch.nn.Module:
-        """The entry's candidate module holding ``host_state`` (the live
-        module is never touched), written on the serving stream, behind
-        any commit still copying out of it."""
+                        host_state: Mapping[str, Any]):
+        """The entry's candidate module holding ``host_state`` and the
+        candidate's quantized store (None at f32); the live module and
+        store are never touched.  Written on the serving stream, behind
+        any commit still copying out of them."""
         with self._serving():
             if entry.candidate is None:
                 entry.candidate = copy.deepcopy(entry.model).eval()
+            stripped = entry.store or {}
             entry.candidate.load_state_dict(
-                {k: torch.as_tensor(v) for k, v in host_state.items()},
-                strict=True)
-        return entry.candidate
+                {k: torch.as_tensor(v) for k, v in host_state.items()
+                 if k not in stripped}, strict=not stripped)
+            entry.candidate_store = entry.quantize(host_state, self.device)
+        return entry.candidate, entry.candidate_store
 
-    def _commit(self, entry: _ModelEntry,
-                candidate: torch.nn.Module) -> None:
-        """Copy the candidate's tensors into the live ones in place, on
-        the serving stream: the batches already dispatched ran on the old
-        weights, every later one runs on the new (the graphs keep the live
+    def _commit(self, entry: _ModelEntry, candidate: torch.nn.Module,
+                store: Optional[Mapping[str, Any]] = None) -> None:
+        """Copy the candidate's tensors into the live ones and its
+        quantized store into the resident one, in place, on the serving
+        stream: the batches already dispatched ran on the old weights,
+        every later one runs on the new (the graphs keep the live
         addresses)."""
         new = candidate.state_dict()
         with self._serving():
             for k, t in entry.model.state_dict().items():
-                t.copy_(new[k], non_blocking=True)
+                if t.device.type != "meta":
+                    t.copy_(new[k], non_blocking=True)
+            for k, v in (entry.store or {}).items():
+                for t, src in zip(v if isinstance(v, tuple) else (v,),
+                                  store[k] if isinstance(v, tuple)
+                                  else (store[k],)):
+                    t.copy_(src, non_blocking=True)
 
     def _canary_scores(self, entry: _ModelEntry,
-                       candidate: torch.nn.Module) -> Optional[np.ndarray]:
+                       candidate: torch.nn.Module,
+                       store: Optional[Mapping[str, Any]] = None
+                       ) -> Optional[np.ndarray]:
         """Golden-batch canary: the candidate weights must produce finite,
         shape-correct scores — and, when ``reload_drift_tol`` >= 0, scores
         within that tolerance of the serving weights' on the SAME input —
@@ -1213,9 +1287,10 @@ class InferenceEngine:
             s = entry.image_size
             self._eager_scores(
                 entry, candidate, chans,
-                np.zeros((self.buckets[0], s, s, chans), dtype))
+                np.zeros((self.buckets[0], s, s, chans), dtype), store)
             return None
-        canary = self._eager_scores(entry, candidate, chans, entry.golden)
+        canary = self._eager_scores(entry, candidate, chans, entry.golden,
+                                    store)
         if entry.golden_ref is not None and \
                 canary.shape != entry.golden_ref.shape:
             self.metrics.reload_canary_failures_total.inc()

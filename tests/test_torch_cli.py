@@ -91,8 +91,10 @@ def test_cli_reads_npy_frames_like_images(frames, tmp_path):
 
 
 def test_cli_rejects_what_is_not_ported(frames):
-    with pytest.raises(NotImplementedError, match="bf16"):
-        t_runner.test_img(None, frames[:1], size=SIZE, dtype="bf16",
+    # bf16 and int8 are ported (tests/test_torch_quant.py); a dtype neither
+    # package has is refused before anything is built
+    with pytest.raises(ValueError, match="f32.*bf16.*int8"):
+        t_runner.test_img(None, frames[:1], size=SIZE, dtype="fp8",
                           device="cpu")
     with pytest.raises(ValueError, match="multiple of img_num"):
         t_runner.test_img(None, frames[:3], size=SIZE, clip=True,

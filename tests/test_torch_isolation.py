@@ -46,7 +46,9 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "serving.engine", "serving.http", "serving.config",
                  "serving.batcher", "serving.metrics", "serving.cascade",
                  "serving.resilience", "cache.store", "cache.content",
-                 "utils.prometheus"):
+                 "utils.prometheus", "serving.quant", "obs.events",
+                 "backfill.manifest", "backfill.lease", "backfill.writer",
+                 "backfill.source", "runners.backfill"):
         assert f"deepfake_detection_tpu_torch.{name}" in out["imported"]
     assert out["loaded"] == [], out["loaded"]
 

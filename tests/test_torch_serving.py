@@ -473,9 +473,6 @@ def test_every_jax_serve_flag_is_a_port_flag_with_its_default():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--dtype", "bf16"], "item 4"),
-    (["--dtype", "int8"], "item 4"),
-    (["--models", "s=efficientnet_b0,dtype=int8"], "item 4"),
     (["--warmstart-dir", "ws"], "item 10"),
     (["--compile-cache-dir", "cc"], "item 10"),
     (["--single-thread-xla"], "item 10"),
