@@ -121,14 +121,35 @@ before the result line:
    CLI's ``--clip`` within 1e-6; then the cold start (kernel build,
    model load, captures, seconds to ready per dtype and for the backfill
    pipeline);
-12. training path: ``runners.train`` in-process on the flagship at full width
+12. streaming (``stream``): the same checkpoint behind
+   ``runners.stream.build_stream_server`` on localhost HTTP (buckets 1, 4,
+   16, ``img_num`` 4, tiles of 4 frames, 4 windows in flight a stream, the
+   full-frame localizer): captures = buckets × widths of both wires with
+   55 depthwise launches in each, the peak memory of warmup; on the float32
+   wire one stream of 8 raw 640×480 frames whose two windows are within
+   1e-6 of the card CLI's ``--clip`` on the same frames, and a planted
+   verdict vector (``0.05*4,0.95*8``, EMA 0.3) that must give exactly
+   real→suspect at window 6 and suspect→fake at window 10; on the uint8
+   wire 1, 4 and 16 streams pushing ``application/x-dfd-raw`` 640×480
+   chunks of 8 frames at 30 frames/s for 10 s each (a child interpreter):
+   frames/s, windows scored/s, ack p50 and p99, the mean stage ms of the
+   streaming histograms, ring overflow, elided copies, each stream's books
+   exact (emitted = scored + dropped + shed + failed + cache hits +
+   duplicates), no program and no capture after ready, and at 16 streams
+   the device's busy share (each bucket's profiled batch × its batches,
+   over the level's wall); the depthwise launches 55 × replays; then
+   ``runners.stream`` as a child with ``--state-dir``: seconds to
+   ``/readyz`` 200, two streams pushed, SIGTERM → exit 0 and two
+   snapshots, the relaunch restores both and their windows and verdicts
+   continue from the snapshot;
+13. training path: ``runners.train`` in-process on the flagship at full width
    and depth, 12×600², batch 3, f32 (``scripts/train.sh``'s config on
    synthetic data: 8 steps, validation of the model and its EMA,
    checkpoints); 55 forward, 55 dx and 55 dw-gradient launches per step;
    loss finite; params, BN stats and EMA moved; the inference path scores a
    frame with the checkpoint; ms per step, samples/s, peak memory, the
    loader's host wait, and the device time per step by kernel kind;
-13. training from a clip tree (``train_data``, f32): a seeded tree of uint8
+14. training from a clip tree (``train_data``, f32): a seeded tree of uint8
    ``.npy`` frames at 640² under ``build/chip_smoke/tree`` (more fakes than
    reals, some clips shorter than 4 frames), ``runners.train`` in-process
    on the flagship at 12×600², batch 3, with ``scripts/train.sh``'s data
@@ -140,20 +161,20 @@ before the result line:
    batches equal the tree's bitwise; ms per step, samples/s, peak memory,
    the loader's host wait, each prologue stage's device ms (torch.profiler)
    and the idle share of profiled steps, beside the synthetic phase's;
-14. ``train_amp``: the same tree with ``scripts/train.sh``'s whole argument
+15. ``train_amp``: the same tree with ``scripts/train.sh``'s whole argument
    list (``--amp``, ``--auto-resume``, ``--recovery-interval`` 3, one
    epoch): every depthwise launch of the bf16 instantiations (55/55/55 a
    step), loss finite, no guarded step, params and BN stats moved, recovery
    snapshots written, the checkpoint scores a frame; the numbers of
    ``train_data`` beside the f32 phase's;
-15. ``resume``: the same bf16 run in-process (``DFD_CHAOS`` set and cleared
+16. ``resume``: the same bf16 run in-process (``DFD_CHAOS`` set and cleared
    around each call, ``SystemExit`` caught): an uninterrupted epoch twice;
    ``sigterm@5`` → exit 75 with the snapshot ``recovery-0-4``; the snapshot
    reloaded and saved again is itself, bitwise; ``--auto-resume`` to the
    end; a ``nanbatch`` burst → one rewind, then to the end; the resumed and
    rewound states bitwise the uninterrupted one where the two uninterrupted
    runs agree bitwise, else within twice their spread;
-16. TimeSformer training path: ``runners.train`` in-process on
+17. TimeSformer training path: ``runners.train`` in-process on
    ``timesformer_base_patch25_600`` (full width and depth) at 12×600²,
    batch 8, ``--attn-impl flash``, in f32 and then with ``--amp``: 8 steps,
    validation of the model and its EMA, a checkpoint; 12 forward, 12 dQ and
@@ -162,7 +183,7 @@ before the result line:
    reloaded from the checkpoint scores the eval set as the run did; ms per
    step, samples/s, peak memory, the device time per step by kernel kind
    and the eval forward's clips/s at batch 16;
-17. card against CPU: one guarded train step of the full flagship at
+18. card against CPU: one guarded train step of the full flagship at
    12×224², batch 2, and of the full TimeSformer at 12×300², batch 2, from
    the same weights on the card and on the CPU (loss, every parameter's
    update, BN running stats); then a NaN batch through each card step must
@@ -176,7 +197,7 @@ before the result line:
    ``tests/test_torch_amp.py``, and a bound that the card computed in bf16;
    an unchanged state and the f32 step in the bf16 step's place must each
    fail it; and a NaN batch through each bf16 card step;
-18. the ``kernels`` line (all six kernels, each with its bf16 status), the
+19. the ``kernels`` line (all six kernels, each with its bf16 status), the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or in a directory that holds only this file, it exits
@@ -195,6 +216,8 @@ import math
 import os
 import re
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -240,6 +263,7 @@ from deepfake_detection_tpu_torch.params import (normalize_replicate,
                                                  prepare_canvas)
 from deepfake_detection_tpu_torch.runners import backfill as backfill_runner
 from deepfake_detection_tpu_torch.runners import serve as serve_runner
+from deepfake_detection_tpu_torch.runners import stream as stream_runner
 from deepfake_detection_tpu_torch.runners.backfill import (BackfillConfig,
                                                            _build_dup_map,
                                                            run_backfill)
@@ -247,6 +271,7 @@ from deepfake_detection_tpu_torch.runners import test as runner
 from deepfake_detection_tpu_torch.runners import train as train_runner
 from deepfake_detection_tpu_torch.serving.cascade import CascadeRouter
 from deepfake_detection_tpu_torch.serving.config import (ServeConfig,
+                                                         StreamConfig,
                                                          parse_model_spec)
 from deepfake_detection_tpu_torch.serving.engine import InferenceEngine
 from deepfake_detection_tpu_torch.serving.metrics import capture_count
@@ -1059,12 +1084,15 @@ def _multipart(blobs) -> tuple:
 
 
 def _http(port: int, method: str, path: str, body: bytes = b"",
-          ctype: str = "application/octet-stream", timeout: float = 60.0):
-    """(status, parsed JSON or text) of one request to the local server."""
+          ctype: str = "application/octet-stream", timeout: float = 60.0,
+          headers: dict = None):
+    """(status, parsed JSON or text) of one request to the local server;
+    ``headers``, where given, in place of the Content-Type alone."""
+    if headers is None:
+        headers = {"Content-Type": ctype} if body else {}
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
     try:
-        conn.request(method, path, body=body or None,
-                     headers={"Content-Type": ctype} if body else {})
+        conn.request(method, path, body=body or None, headers=headers)
         resp = conn.getresponse()
         data = resp.read()
     finally:
@@ -1930,6 +1958,450 @@ def _backfill_replay_ms(ckpt_path: Path, manifest: dict, pack: Path,
     busy, _ = _profile_kernels(once, 3)
     del pipe
     return busy
+
+
+# ---------------------------------------------------------------------------
+# the streaming runner (runners/stream.py): live raw-frame streams
+# ---------------------------------------------------------------------------
+
+STREAM_HW = (480, 640)            # a webcam or video-call feed, RGB
+STREAM_TOL = 1e-6                 # P(fake), a window against the card CLI
+STREAM_VECTOR = "0.05*4,0.95*8"   # planted scores, EMA alpha 0.3
+STREAM_TRANSITIONS = [("real", "suspect", 6), ("suspect", "fake", 10)]
+STREAM_LEVELS = (1, 4, 16)        # concurrent streams
+STREAM_FPS = 30.0                 # frames/s a stream
+STREAM_CHUNK = 8                  # frames a POST
+STREAM_LOAD_S = 10.0
+STREAM_BOOKS = ("windows_scored", "windows_dropped", "windows_shed",
+                "windows_failed", "windows_cache_hit", "windows_dup_elided")
+
+
+def stream_frames(n: int, seed: int) -> list:
+    """``n`` distinct seeded 480×640 uint8 RGB frames: smooth content that
+    drifts frame to frame, plus noise."""
+    rng = np.random.default_rng(seed)
+    h, w = STREAM_HW
+    yy, xx = np.mgrid[0:h, 0:w]
+    return [np.clip(127 + 100 * np.sin(
+        (xx[..., None] + 9 * i) / (40 + seed % 7) + yy[..., None] / 53
+        + np.arange(3) * (i + 1)) + rng.normal(0, 20, (h, w, 3)), 0,
+        255).astype(np.uint8) for i in range(n)]
+
+
+def _raw_headers() -> dict:
+    return {"Content-Type": "application/x-dfd-raw",
+            "X-Frame-Width": str(STREAM_HW[1]),
+            "X-Frame-Height": str(STREAM_HW[0])}
+
+
+# the stream pushers: a child interpreter, one thread a stream, each
+# opening its stream and posting raw chunks paced at STREAM_FPS
+_STREAM_CLIENTS = r"""
+import http.client, json, sys, threading, time
+import numpy as np
+port, streams, seconds, fps, chunk, prefix = (int(sys.argv[1]),
+    int(sys.argv[2]), float(sys.argv[3]), float(sys.argv[4]),
+    int(sys.argv[5]), sys.argv[6])
+h, w = 480, 640
+rng = np.random.default_rng(5)
+bodies = [rng.integers(0, 256, (chunk, h, w, 3), dtype=np.uint8).tobytes()
+          for _ in range(4)]
+headers = {"Content-Type": "application/x-dfd-raw",
+           "X-Frame-Width": str(w), "X-Frame-Height": str(h)}
+acks, statuses, lock = [], {}, threading.Lock()
+period = chunk / fps
+
+def pusher(k):
+    sid = f"{prefix}{k}"
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request("POST", "/streams", body=json.dumps({"stream_id": sid}))
+    resp = conn.getresponse(); resp.read()
+    assert resp.status == 201, resp.status
+    t0 = time.perf_counter()
+    n = 0
+    while True:
+        due = t0 + n * period
+        if due - t0 >= seconds or time.perf_counter() - t0 >= seconds:
+            break
+        wait = due - time.perf_counter()
+        if wait > 0:
+            time.sleep(wait)
+        s = time.perf_counter()
+        conn.request("POST", f"/streams/{sid}/frames",
+                     body=bodies[(n + k) % 4], headers=headers)
+        resp = conn.getresponse(); resp.read()
+        dt = time.perf_counter() - s
+        with lock:
+            statuses[resp.status] = statuses.get(resp.status, 0) + 1
+            if resp.status == 200:
+                acks.append(dt)
+        n += 1
+    conn.close()
+
+t0 = time.perf_counter()
+threads = [threading.Thread(target=pusher, args=(k,)) for k in range(streams)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+print(json.dumps(dict(acks=acks, statuses=statuses,
+                      wall=time.perf_counter() - t0)))
+"""
+
+
+def _stage_sums(metrics) -> dict:
+    return {s: (h.sum, h.count) for s, h in metrics.latency.items()}
+
+
+def _replays(eng) -> Counter:
+    return Counter({k: p.replays for k, p in eng.entry().compiled.items()})
+
+
+def _books_balanced(s) -> bool:
+    return s.windows_emitted == sum(getattr(s, k) for k in STREAM_BOOKS)
+
+
+def _stream_load(srv, streams: int, smi: str) -> dict:
+    """``streams`` pushers for ``STREAM_LOAD_S`` (a child interpreter),
+    then the in-flight windows drained: frames/s, windows/s, ack
+    percentiles, the mean stage ms, ring overflow and elided copies, each
+    stream's books (exact), and the batches by bucket."""
+    port = srv.server_address[1]
+    m, eng = srv.manager.metrics, srv.engine
+    before = dict(frames=m.frames_ingested_total.value,
+                  scored=m.windows_scored_total.value,
+                  overflow=m.ring_overflow_total.value,
+                  elided=m.canvas_copies_elided_total.value,
+                  stages=_stage_sums(m), replays=_replays(eng))
+    prefix = f"s{streams}_"
+    proc = subprocess.run(
+        [sys.executable, "-c", _STREAM_CLIENTS, str(port), str(streams),
+         str(STREAM_LOAD_S), str(STREAM_FPS), str(STREAM_CHUNK), prefix],
+        capture_output=True, text=True, timeout=STREAM_LOAD_S + 300)
+    if proc.returncode != 0:
+        raise AssertionError(f"stream pushers failed: {proc.stderr[-2000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    t0 = time.perf_counter()
+    ids = [f"{prefix}{k}" for k in range(streams)]
+    deadline = time.monotonic() + 60
+    while not all(_books_balanced(srv.manager.get(i)) for i in ids):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{streams} streams: windows never "
+                                 f"drained")
+        time.sleep(0.02)
+    # the level's wall: the pushers' own, then the drain of the windows
+    # still in flight when they stopped
+    wall = got["wall"] + time.perf_counter() - t0
+    books = {}
+    for i in ids:
+        c = srv.manager.close(i)["counters"]
+        books[i] = {k: c[k] for k in ("windows_emitted",) + STREAM_BOOKS}
+    stages = {}
+    for s, (total, n) in _stage_sums(m).items():
+        t_, n_ = before["stages"][s]
+        stages[s] = (total - t_) / (n - n_) * 1e3 if n > n_ else None
+    replays = _replays(eng) - before["replays"]
+    ms = np.asarray(got["acks"]) * 1e3
+    frames = m.frames_ingested_total.value - before["frames"]
+    scored = m.windows_scored_total.value - before["scored"]
+    return dict(
+        streams=streams, nvidia_smi=smi,
+        offered_frames_per_s=streams * STREAM_FPS,
+        offered_windows_per_s=streams * STREAM_FPS / 4,
+        push_s=got["wall"], drained_s=wall,
+        frames_per_s=frames / got["wall"], frames=frames,
+        windows_scored_per_s=scored / wall, windows_scored=scored,
+        ack_p50_ms=float(np.percentile(ms, 50)) if len(ms) else None,
+        ack_p99_ms=float(np.percentile(ms, 99)) if len(ms) else None,
+        statuses=dict(sorted(got["statuses"].items())),
+        stage_mean_ms=stages,
+        ring_overflow=m.ring_overflow_total.value - before["overflow"],
+        canvas_copies_elided=m.canvas_copies_elided_total.value
+        - before["elided"],
+        books=dict(Counter(sum((Counter(b) for b in books.values()),
+                               Counter()))),
+        books_exact=all(b["windows_emitted"] == sum(b[k] for k in
+                                                    STREAM_BOOKS)
+                        for b in books.values()),
+        batches={f"{b}x{c}": n for (b, c), n in sorted(replays.items())
+                 if n})
+
+
+def _stream_busy_ms(eng) -> dict:
+    """Device ms (profiler busy: kernels and copies) of one batch of each
+    program of ``eng``: its input copy, replay and output copy."""
+    out = {}
+    entry = eng.entry()
+    for (b, c), prog in sorted(entry.compiled.items()):
+        x = np.zeros((b, entry.image_size, entry.image_size, c), np.uint8)
+        out[(b, c)] = _profile_kernels(lambda: eng._run(entry, b, c, x),
+                                       3)[0]
+    return out
+
+
+def _launch_stream_child(ckpt_path: Path, state_dir: Path, port: int,
+                         log, size: int, device: str) -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, "-m", "deepfake_detection_tpu_torch.runners.stream",
+         "--model-path", str(ckpt_path), "--image-size", str(size),
+         "--device", device, "--buckets",
+         ",".join(map(str, SERVE_BUCKETS)), "--port", str(port),
+         "--state-dir", str(state_dir), "--stream-ttl-s", "0",
+         "--verdict-vector", "0.05*1,0.95*8"],
+        cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+
+
+def _ready_s(proc, port: int, t0: float, log_path: Path) -> float:
+    deadline = time.monotonic() + 300
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            raise AssertionError(f"stream runner exited {proc.returncode}: "
+                                 f"{log_path.read_text()[-3000:]}")
+        try:
+            if _http(port, "GET", "/readyz", timeout=5)[0] == 200:
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        time.sleep(0.05)
+    raise AssertionError("the stream runner never became ready")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _stream_restart(ckpt_path: Path, smi: str, size: int,
+                    device: str) -> dict:
+    """``runners.stream`` as a child with ``--state-dir``: seconds to
+    ``/readyz`` 200; two streams pushed; SIGTERM → exit 0 and a snapshot
+    each; the relaunch restores both and their next windows continue the
+    window count and the verdict machines (the planted vector's third
+    window enters 'suspect'; a reset machine would go to 'fake' at its
+    first)."""
+    sdir = OUT / "stream_state"
+    shutil.rmtree(sdir, ignore_errors=True)
+    port = _free_port()
+    frames = stream_frames(12, seed=3)
+    body = [b"".join(f.tobytes() for f in frames[:6]),
+            b"".join(f.tobytes() for f in frames[6:])]
+    rows, procs = [], []
+    try:
+        for run in (1, 2):
+            log_path = OUT / f"stream_child_{run}.log"
+            log = open(log_path, "w")
+            t0 = time.perf_counter()
+            proc = _launch_stream_child(ckpt_path, sdir, port, log, size,
+                                        device)
+            procs.append((proc, log))
+            ready = _ready_s(proc, port, t0, log_path)
+            if run == 1:
+                for sid in ("a", "b"):
+                    _http(port, "POST", "/streams",
+                          json.dumps({"stream_id": sid}).encode())
+            restored = _http(port, "GET", "/streams")[1]["streams"]
+            for sid in ("a", "b"):
+                st, ack = _http(port, "POST", f"/streams/{sid}/frames",
+                                body[run - 1], headers=_raw_headers())
+                if st != 200:
+                    raise AssertionError(f"push {sid}: {st} {ack}")
+            want = 1 if run == 1 else 3
+            deadline = time.monotonic() + 60
+            while True:
+                sts = [_http(port, "GET", f"/streams/{sid}")[1]
+                       for sid in ("a", "b")]
+                if all(s["counters"]["windows_scored"] >= want for s in sts):
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"restart run {run}: {sts}")
+                time.sleep(0.05)
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+            log.close()
+            snaps = sorted(p.name for p in sdir.iterdir()) \
+                if sdir.is_dir() else []
+            rows.append(dict(
+                run=run, ready_s=ready, streams=restored, rc=rc,
+                snapshots=snaps,
+                windows=[s["stream"]["windows"] for s in sts],
+                transitions=[[(e["from"], e["to"], e["windows"])
+                              for e in s["events"] if e["scope"] == "stream"]
+                             for s in sts]))
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    one, two = rows
+    emit(phase="stream_restart", nvidia_smi=smi, runs=rows)
+    if one["rc"] != 0 or two["rc"] != 0 \
+            or one["snapshots"] != ["a.state.json", "b.state.json"] \
+            or two["streams"] != ["a", "b"] or one["streams"] != ["a", "b"] \
+            or one["windows"] != [1, 1] or two["windows"] != [3, 3] \
+            or two["transitions"] != [[("real", "suspect", 3)]] * 2:
+        raise AssertionError(f"stream SIGTERM/resume: {rows}")
+    return dict(ready_s=[one["ready_s"], two["ready_s"]])
+
+
+def phase_stream(ckpt_path: Path, size: int = 600,
+                 device: str = "cuda") -> dict:
+    """The streaming runner on the card: the calibrated flagship behind
+    ``runners.stream.build_stream_server`` (buckets 1/4/16, img_num 4,
+    tiles of 4 frames, 4 windows in flight a stream, the full-frame
+    localizer), on localhost HTTP.  Float32 wire: one stream of 8 raw
+    640×480 frames whose windows match the card CLI's ``--clip`` within
+    1e-6, and a planted verdict vector's exact transitions.  Uint8 wire:
+    1, 4 and 16 streams pushing raw 640×480 chunks at 30 frames/s for 10 s
+    each (frames/s, windows/s, ack percentiles, stage ms, exact books, no
+    capture after ready; the device's busy share at 16).  Then the runner
+    as a child: SIGTERM with ``--state-dir`` and resume.  Returns the
+    launches of the engines' replays and the numbers."""
+    smi = nvidia_smi_line()
+    old_switch = sys.getswitchinterval()
+    sys.setswitchinterval(0.002)            # as runners/stream.py's main
+    caps0 = capture_count()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    servers = {}
+    for wire in ("float32", "uint8"):
+        cfg = StreamConfig(model_path=str(ckpt_path), port=0, wire=wire,
+                           buckets=SERVE_BUCKETS, device=device,
+                           image_size=size, img_num=4, window_hop=0,
+                           max_inflight_windows=4, localizer="full_frame",
+                           stream_ttl_s=0.0, verdict_vector=STREAM_VECTOR,
+                           verdict_ema_alpha=0.3)
+        t0 = time.perf_counter()
+        srv = stream_runner.build_stream_server(cfg)
+        srv.engine.start(srv.batcher)
+        srv.dispatcher.start()
+        threading.Thread(target=srv.serve_forever,
+                         kwargs={"poll_interval": 0.1}, daemon=True,
+                         name=f"stream-{wire}").start()
+        servers[wire] = (srv, time.perf_counter() - t0)
+    peak = _peak_gib(base_mem)
+    want = len(SERVE_BUCKETS) * (1 + 2)      # float32: 12ch; uint8: 3, 12
+    caps_ready = capture_count()
+    progs = {w: s.engine.compile_count for w, (s, _) in servers.items()}
+    emit(phase="stream_captures", nvidia_smi=smi, programs=progs,
+         captures=caps_ready - caps0, expected=want,
+         build_s={w: t for w, (_, t) in servers.items()},
+         peak_mem_gib_over_base=peak)
+    if caps_ready - caps0 != want or sum(progs.values()) != want:
+        raise AssertionError(f"stream servers: {progs}, "
+                             f"{caps_ready - caps0} captures")
+    for srv, _ in servers.values():
+        for (b, c), p in srv.engine.entry().compiled.items():
+            if p.launches.get("depthwise_fwd") != 55:
+                raise AssertionError(f"stream bucket {b} ({c}ch): "
+                                     f"{p.launches} launches captured")
+
+    # 1. parity: each window against the card CLI's --clip, float32 wire
+    f32 = servers["float32"][0]
+    port = f32.server_address[1]
+    scores = {}
+    forward = f32.dispatcher._on_result
+
+    def record(job, sc, err):
+        if sc is not None:
+            scores[(job.stream_id, job.window_idx)] = float(sc[0])
+        forward(job, sc, err)
+
+    f32.dispatcher._on_result = record
+    frames = stream_frames(8, seed=1)
+    files = []
+    for i, f in enumerate(frames):
+        files.append(str(OUT / f"stream_frame{i}.npy"))
+        np.save(files[-1], f)
+    for sid, fr in (("parity", frames), ("planted", stream_frames(40, 2))):
+        _http(port, "POST", "/streams",
+              json.dumps({"stream_id": sid}).encode())
+        for i in range(0, len(fr), STREAM_CHUNK):
+            st, ack = _http(
+                port, "POST", f"/streams/{sid}/frames",
+                b"".join(f.tobytes() for f in fr[i:i + STREAM_CHUNK]),
+                headers=_raw_headers())
+            if st != 200:
+                raise AssertionError(f"push {sid}: {st} {ack}")
+    deadline = time.monotonic() + 120
+    while not (f32.manager.get("parity").windows_scored == 2
+               and f32.manager.get("planted").windows_scored == 10):
+        if time.monotonic() > deadline:
+            raise AssertionError("the float32 streams never scored")
+        time.sleep(0.02)
+    planted = f32.manager.get("planted").status(events=64)
+    transitions = [(e["from"], e["to"], e["windows"])
+                   for e in planted["events"] if e["scope"] == "stream"]
+    got = [scores[("parity", w)] for w in range(2)]
+    cli = runner.test_img(str(ckpt_path), files, size=size, clip=True,
+                          device=device)
+    diff = float(np.abs(np.asarray(got) - np.asarray(cli)).max())
+    emit(phase="stream_parity", nvidia_smi=smi, p_fake_stream=got,
+         p_fake_cli=cli, max_abs_diff=diff, tol=STREAM_TOL,
+         bitwise=got == cli, transitions=transitions,
+         expected_transitions=STREAM_TRANSITIONS,
+         verdict=planted["verdict"])
+    if diff > STREAM_TOL or np.abs(np.asarray(got) - 0.5).max() <= 1e-3 \
+            or not np.all(np.isfinite(got)) \
+            or transitions != STREAM_TRANSITIONS:
+        raise AssertionError(f"stream parity: {got} vs {cli}, "
+                             f"{transitions}")
+    for sid in ("parity", "planted"):
+        f32.manager.close(sid)
+
+    # 2. load, uint8 wire: 1, 4 and 16 streams
+    u8 = servers["uint8"][0]
+    compiles = u8.engine.compile_count
+    loads = []
+    for streams in STREAM_LEVELS:
+        row = _stream_load(u8, streams, smi)
+        if streams == STREAM_LEVELS[-1]:
+            # the device's busy share of the level, as backfill measures
+            # it: each program's profiled batch (copies and replay) times
+            # its batches in the level, over the level's wall time
+            busy = _stream_busy_ms(u8.engine)
+            busy_ms = sum(busy[tuple(map(int, k.split("x")))] * n
+                          for k, n in row["batches"].items())
+            row.update(batch_busy_ms={f"{b}x{c}": v for (b, c), v in
+                                      busy.items()},
+                       device_busy_share=busy_ms / (row["drained_s"] * 1e3))
+        loads.append(row)
+        emit(phase="stream_load", **row)
+        if not row["books_exact"] or row["statuses"] != {
+                "200": row["statuses"].get("200", 0)} \
+                or u8.engine.compile_count != compiles \
+                or capture_count() != caps_ready:
+            raise AssertionError(f"stream load at {streams}: {row}")
+
+    # launches: captures × replays of both engines (profiling included)
+    launches = Counter()
+    for srv, _ in servers.values():
+        eng = srv.engine
+        counted = eng.launch_counts()
+        replays = sum(p.replays for p in eng.entry().compiled.values())
+        if counted.get("depthwise_fwd", 0) != 55 * replays or replays == 0:
+            raise AssertionError(f"stream {eng.wire}: {counted} launches "
+                                 f"for {replays} replays")
+        launches.update(counted)
+        srv.shutdown()
+        srv.dispatcher.stop()
+        srv.manager.shutdown()
+        eng.stop()
+        srv.batcher.close()
+        srv.server_close()
+    del servers, f32, u8
+    gc.collect()
+    torch.cuda.empty_cache()
+    sys.setswitchinterval(old_switch)
+
+    # 3. cold start and durability: the runner as a child process
+    restart = _stream_restart(ckpt_path, smi, size, device)
+    emit(phase="stream", nvidia_smi=smi, replay_launches=dict(launches),
+         captures=capture_count() - caps0, peak_mem_gib_over_base=peak,
+         ready_s=restart["ready_s"])
+    return dict(launches=launches["depthwise_fwd"], loads=loads,
+                parity=diff, peak_gib=peak, ready_s=restart["ready_s"])
 
 
 def _kernel_kind(name: str) -> str:
@@ -3594,11 +4066,23 @@ def main() -> int:
         raise AssertionError(f"the backfill path launched the depthwise "
                              f"kernels {_counts()} and the flash kernels "
                              f"{_flash_counts()} times")
+    # the stream servers: the captures' eager runs and the card CLI here,
+    # the replays through the engines' capture counts (phase_stream holds
+    # them at 55 × replays)
+    _reset_counts()
+    st = phase_stream(OUT / "flagship.pth")
+    if st["launches"] == 0 or _counts()[0] == 0 \
+            or _counts()[1:] != (0, 0) or _flash_counts() != (0, 0, 0):
+        raise AssertionError(f"the stream path launched the depthwise "
+                             f"kernels {st['launches']} times in replays, "
+                             f"{_counts()} eagerly, and the flash kernels "
+                             f"{_flash_counts()} times")
     emit(phase="cold_start", nvidia_smi=smi, kernel_build_s=build_s,
          kernels_built="all six sources, one nvcc each, in parallel",
          serve=quant["cold"], backfill=dict(
              load_s=bf["run1"]["load_s"], capture_s=bf["run1"]["capture_s"],
-             dedup_s=bf["run1"]["dedup_s"], ready_s=bf["run1"]["ready_s"]))
+             dedup_s=bf["run1"]["dedup_s"], ready_s=bf["run1"]["ready_s"]),
+         stream_runner_ready_s=st["ready_s"])
     t = phase_train(frame)
     td = phase_train_data(frame, {k: t[k] for k in (
         "ms_per_step", "samples_per_s", "peak_mem_gib",
@@ -3626,7 +4110,8 @@ def main() -> int:
                                       inference=infer_launches,
                                       serve=serve["launches"],
                                       serve_quant=quant["launches"],
-                                      backfill=bf["launches"])
+                                      backfill=bf["launches"],
+                                      stream=st["launches"])
     dx_launches, dx_paths = by_path("dx_launches")
     dwg_launches, dwg_paths = by_path("dwgrad_launches")
     amp_paths = ("train_amp", "resume")

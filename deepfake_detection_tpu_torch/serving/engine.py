@@ -808,7 +808,11 @@ class InferenceEngine:
     def _pad_batch(self, entry: _ModelEntry, arrays: List[np.ndarray],
                    chans: int) -> Tuple[_Program, _Slot, int]:
         """Rows into a host slot of the nearest bucket's program, the pad
-        rows zeroed."""
+        rows zeroed.  A streaming ``FrameStack`` payload
+        (``streaming/ring.py``) gathers its frames straight from the crop
+        ring into its slot row through ``write_into`` (the one copy of the
+        window's life), which also releases the ring pins; anything else
+        is copied in."""
         n = len(arrays)
         bucket = pick_bucket(n, self._warm_buckets(entry, chans))
         try:
@@ -819,7 +823,11 @@ class InferenceEngine:
                 f"{bucket} ({chans}ch); warm it first") from None
         slot = self._acquire(entry, prog)
         for i, a in enumerate(arrays):
-            slot.x_np[i] = a
+            write_into = getattr(a, "write_into", None)
+            if write_into is not None:
+                write_into(slot.x_np[i])
+            else:
+                slot.x_np[i] = a
         slot.x_np[n:] = 0
         return prog, slot, bucket
 

@@ -12,7 +12,8 @@
 # Every bucket is captured as a CUDA graph before /readyz turns 200.
 # POST /score takes .npy frames (uint8 H x W x 3) without Pillow, other
 # image formats where Pillow is installed.  --device cpu runs the same
-# programs eagerly (tests); --dtype bf16|int8, --warmstart-dir,
+# programs eagerly (tests).  --dtype bf16|int8 quantize the served
+# weights (weight-only PTQ, realized inside each graph); --warmstart-dir,
 # --compile-cache-dir and --single-thread-xla raise (not ported).
 python -m deepfake_detection_tpu_torch.runners.serve \
     --model-path "${MODEL_PATH:-../models/model_best.pth.tar}" "$@"

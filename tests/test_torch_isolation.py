@@ -48,7 +48,9 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "serving.resilience", "cache.store", "cache.content",
                  "utils.prometheus", "serving.quant", "obs.events",
                  "backfill.manifest", "backfill.lease", "backfill.writer",
-                 "backfill.source", "runners.backfill"):
+                 "backfill.source", "runners.backfill", "streaming.ingest",
+                 "streaming.ring", "streaming.tracker", "streaming.verdict",
+                 "streaming.windows", "streaming.metrics", "runners.stream"):
         assert f"deepfake_detection_tpu_torch.{name}" in out["imported"]
     assert out["loaded"] == [], out["loaded"]
 
