@@ -142,14 +142,35 @@ before the result line:
    ``/readyz`` 200, two streams pushed, SIGTERM → exit 0 and two
    snapshots, the relaunch restores both and their windows and verdicts
    continue from the snapshot;
-13. training path: ``runners.train`` in-process on the flagship at full width
+13. the fleet router (``router``): ``runners.router`` as a child process
+   spawning N = 1, 2 and 4 serve replicas of the same checkpoint (each its
+   own process, uint8 wire, buckets 1, 4, 16, ``--device cuda``): seconds
+   to ready with N cold starts at once and each replica's warmup stages,
+   6 captures a replica and none after ready, P(fake) through the router
+   bitwise the card CLI, 32 closed-loop clients for 10 s (and 64 at N = 4)
+   with clips/s, p50/p99, statuses, the replicas' stage ms, each replica's
+   share of the forwards, device memory by process (``nvidia-smi
+   --query-compute-apps``), nvidia-smi's sampled ``utilization.gpu`` and
+   the router's CPU ms a relay, router books exact (routed = cache hits +
+   forwarded + migrated + shed + failed); at N = 1 a second router with
+   the edge cache (repeated bodies answered as cache hits, the epoch moved
+   by a hot reload); at N = 2 a replica SIGKILLed under load (marked down,
+   every request failed over, the survivor's clips/s); two stream replicas
+   with four raw 640×480 streams, the replica holding sessions drained
+   mid-stream (every session moved, transitions at windows 6 and 10, books
+   exact); ``--autoscale`` with the backfill tenant on the backfill phase's
+   manifest (the tenant yields with exit 75, then a replica spawns; scale-in
+   drains first; spawned = retired + killed + alive; the tenant's books
+   exact; the decision trace replays alike); the depthwise launches as the
+   replicas' replays × 55 plus the tenant's own counts;
+14. training path: ``runners.train`` in-process on the flagship at full width
    and depth, 12×600², batch 3, f32 (``scripts/train.sh``'s config on
    synthetic data: 8 steps, validation of the model and its EMA,
    checkpoints); 55 forward, 55 dx and 55 dw-gradient launches per step;
    loss finite; params, BN stats and EMA moved; the inference path scores a
    frame with the checkpoint; ms per step, samples/s, peak memory, the
    loader's host wait, and the device time per step by kernel kind;
-14. training from a clip tree (``train_data``, f32): a seeded tree of uint8
+15. training from a clip tree (``train_data``, f32): a seeded tree of uint8
    ``.npy`` frames at 640² under ``build/chip_smoke/tree`` (more fakes than
    reals, some clips shorter than 4 frames), ``runners.train`` in-process
    on the flagship at 12×600², batch 3, with ``scripts/train.sh``'s data
@@ -161,20 +182,20 @@ before the result line:
    batches equal the tree's bitwise; ms per step, samples/s, peak memory,
    the loader's host wait, each prologue stage's device ms (torch.profiler)
    and the idle share of profiled steps, beside the synthetic phase's;
-15. ``train_amp``: the same tree with ``scripts/train.sh``'s whole argument
+16. ``train_amp``: the same tree with ``scripts/train.sh``'s whole argument
    list (``--amp``, ``--auto-resume``, ``--recovery-interval`` 3, one
    epoch): every depthwise launch of the bf16 instantiations (55/55/55 a
    step), loss finite, no guarded step, params and BN stats moved, recovery
    snapshots written, the checkpoint scores a frame; the numbers of
    ``train_data`` beside the f32 phase's;
-16. ``resume``: the same bf16 run in-process (``DFD_CHAOS`` set and cleared
+17. ``resume``: the same bf16 run in-process (``DFD_CHAOS`` set and cleared
    around each call, ``SystemExit`` caught): an uninterrupted epoch twice;
    ``sigterm@5`` → exit 75 with the snapshot ``recovery-0-4``; the snapshot
    reloaded and saved again is itself, bitwise; ``--auto-resume`` to the
    end; a ``nanbatch`` burst → one rewind, then to the end; the resumed and
    rewound states bitwise the uninterrupted one where the two uninterrupted
    runs agree bitwise, else within twice their spread;
-17. TimeSformer training path: ``runners.train`` in-process on
+18. TimeSformer training path: ``runners.train`` in-process on
    ``timesformer_base_patch25_600`` (full width and depth) at 12×600²,
    batch 8, ``--attn-impl flash``, in f32 and then with ``--amp``: 8 steps,
    validation of the model and its EMA, a checkpoint; 12 forward, 12 dQ and
@@ -183,7 +204,7 @@ before the result line:
    reloaded from the checkpoint scores the eval set as the run did; ms per
    step, samples/s, peak memory, the device time per step by kernel kind
    and the eval forward's clips/s at batch 16;
-18. card against CPU: one guarded train step of the full flagship at
+19. card against CPU: one guarded train step of the full flagship at
    12×224², batch 2, and of the full TimeSformer at 12×300², batch 2, from
    the same weights on the card and on the CPU (loss, every parameter's
    update, BN running stats); then a NaN batch through each card step must
@@ -197,7 +218,7 @@ before the result line:
    ``tests/test_torch_amp.py``, and a bound that the card computed in bf16;
    an unchanged state and the f32 step in the bf16 step's place must each
    fail it; and a NaN batch through each bf16 card step;
-19. the ``kernels`` line (all six kernels, each with its bf16 status), the
+20. the ``kernels`` line (all six kernels, each with its bf16 status), the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or in a directory that holds only this file, it exits
@@ -208,6 +229,7 @@ from __future__ import annotations
 
 import ctypes
 import gc
+import hashlib
 import http.client
 import io
 import itertools
@@ -233,8 +255,10 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.profiler import ProfilerActivity, profile
 
 from deepfake_detection_tpu_torch import losses
-from deepfake_detection_tpu_torch.backfill import (build_manifest_from_pack,
+from deepfake_detection_tpu_torch.backfill import (LeaseDir,
+                                                   build_manifest_from_pack,
                                                    collect_books,
+                                                   load_manifest,
                                                    manifest_entries,
                                                    read_verdicts,
                                                    save_manifest)
@@ -250,6 +274,7 @@ from deepfake_detection_tpu_torch.data.random_erasing import \
     draw_random_erasing
 from deepfake_detection_tpu_torch.data.dataset import read_rgb
 from deepfake_detection_tpu_torch.data.packed import write_pack
+from deepfake_detection_tpu_torch.fleet.autoscaler import replay_trace
 from deepfake_detection_tpu_torch.models import (create_deepfake_model_v4,
                                                  create_model)
 from deepfake_detection_tpu_torch.models import efficientnet_blocks as blocks
@@ -1929,10 +1954,11 @@ def phase_backfill(ckpt_path: Path, size: int = 600,
          max_abs_diff=cli_diff, tol=BACKFILL_TOL, p_fake=got.tolist())
     if cli_diff > BACKFILL_TOL or np.abs(got - 0.5).max() <= 1e-3:
         raise AssertionError(f"backfill vs card CLI: {cli_diff:.3e}, {got}")
-    shutil.rmtree(pack, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(launches=fwd, run1=row1, run2=row2, cli_diff=cli_diff)
+    # the pack and its manifest stay for the router phase's backfill tenant
+    return dict(launches=fwd, run1=row1, run2=row2, cli_diff=cli_diff,
+                manifest=mpath, pack=pack)
 
 
 def _backfill_replay_ms(ckpt_path: Path, manifest: dict, pack: Path,
@@ -2402,6 +2428,705 @@ def phase_stream(ckpt_path: Path, size: int = 600,
          ready_s=restart["ready_s"])
     return dict(launches=launches["depthwise_fwd"], loads=loads,
                 parity=diff, peak_gib=peak, ready_s=restart["ready_s"])
+
+
+# ---------------------------------------------------------------------------
+# the fleet router (runners/router.py): N port replicas on one card
+# ---------------------------------------------------------------------------
+
+ROUTER_FLEETS = (1, 2, 4)         # serve replicas spawned behind the router
+ROUTER_CLIENTS = 32
+ROUTER_BIG_CLIENTS = 64           # at the largest fleet
+ROUTER_LOAD_S = 10.0
+ROUTER_KILL_AT_S = 3.0            # into the failover load
+ROUTER_SURVIVOR_S = 5.0
+ROUTER_SPIKE_S = 25.0             # the autoscaler's spike
+ROUTER_UTIL_PERIOD_S = 0.2        # nvidia-smi utilization.gpu samples
+ROUTER_STREAMS = 4
+ROUTER_STREAM_FRAMES = 24         # a stream's frames before and after a drain
+ROUTER_CORE_SHARE = 0.8           # router CPU share that adds a sharded row
+ROUTER_EDGE_REPEATS = 10
+#: captures a replica: one model × buckets × the uint8 wire's widths 3, 12
+ROUTER_CAPTURES = len(SERVE_BUCKETS) * 2
+ROUTER_BOOKS = ("cache_hit", "forwarded", "migrated", "shed", "failed")
+_CLK_TCK = os.sysconf("SC_CLK_TCK")
+
+
+def _prom(text: str) -> list:
+    """(name, labels, value) of every sample of a Prometheus exposition."""
+    out = []
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        lhs, _, value = line.rpartition(" ")
+        name, _, inner = lhs.partition("{")
+        labels = dict(re.findall(r'(\w+)="([^"]*)"', inner))
+        out.append((name, labels, float(value)))
+    return out
+
+
+def _by_replica(samples: list, name: str) -> dict:
+    """replica id → the sum of ``name``'s samples re-exported for it."""
+    out = Counter()
+    for n, labels, v in samples:
+        if n == name and "replica" in labels:
+            out[labels["replica"]] += v
+    return dict(out)
+
+
+def _replica_replays(samples: list) -> dict:
+    """replica id → graph replays: each batch of bucket b adds b rows
+    (real plus pad) to ``dfd_serving_bucket_rows_total``."""
+    out = Counter()
+    for n, labels, v in samples:
+        if n == "dfd_serving_bucket_rows_total" and "replica" in labels:
+            out[labels["replica"]] += v / int(labels["bucket"])
+    return {k: int(round(v)) for k, v in out.items()}
+
+
+def _gpu_apps() -> list:
+    """``nvidia-smi --query-compute-apps=pid,used_memory`` as it prints it:
+    one ``pid, MiB`` line a process holding a context, where the
+    container's process namespace shows the process."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout
+    return [ln.strip() for ln in out.strip().splitlines() if ln.strip()]
+
+
+def _gpu_query(fields: str) -> list:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout
+    return [float(v) for v in out.strip().splitlines()[0].split(",")]
+
+
+class _UtilSampler:
+    """nvidia-smi's sampled ``utilization.gpu`` every
+    ``ROUTER_UTIL_PERIOD_S`` on a thread, for the length of a load."""
+
+    def __init__(self):
+        self.samples, self._stop = [], threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.wait(ROUTER_UTIL_PERIOD_S):
+            self.samples.append(_gpu_query("utilization.gpu")[0])
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join()
+        if not self.samples:
+            raise AssertionError("nvidia-smi gave no utilization sample")
+        return dict(mean_pct=float(np.mean(self.samples)),
+                    samples=len(self.samples),
+                    source="nvidia-smi utilization.gpu, sampled")
+
+
+class _Fleet:
+    """``python -m deepfake_detection_tpu_torch.runners.router`` as a child
+    process, as it is deployed, with ``args``; everything is read off its
+    ``/readyz``, ``/replicas``, ``/autoscaler`` and ``/metrics``."""
+
+    def __init__(self, name: str, args: list):
+        self.name, self.port = name, _free_port()
+        self.log_path = OUT / f"router_{name}.log"
+        self.log = open(self.log_path, "w")
+        self.t0 = time.perf_counter()
+        # -X faulthandler: a router that does not stop is sent SIGABRT,
+        # which writes every thread's stack to its log
+        self.proc = subprocess.Popen(
+            [sys.executable, "-X", "faulthandler", "-m",
+             "deepfake_detection_tpu_torch.runners.router",
+             "--port", str(self.port), "--scrape-interval-s", "0.2"] + args,
+            cwd=ROOT, stdout=self.log, stderr=subprocess.STDOUT)
+        self.kids = {}
+
+    def get(self, path: str):
+        st, out = _http(self.port, "GET", path, timeout=30)
+        if st not in (200, 503):
+            raise AssertionError(f"router {self.name} {path}: {st} {out}")
+        return out
+
+    def samples(self) -> list:
+        return _prom(self.get("/metrics"))
+
+    def books(self) -> dict:
+        got = {n[len("dfd_router_"):-len("_total")]: int(v)
+               for n, labels, v in self.samples()
+               if not labels and n in {f"dfd_router_{k}_total" for k in
+                                       ("routed",) + ROUTER_BOOKS}}
+        if got["routed"] != sum(got[k] for k in ROUTER_BOOKS):
+            raise AssertionError(f"router {self.name} books: {got}")
+        return got
+
+    def counter(self, name: str) -> int:
+        return int(sum(v for n, labels, v in self.samples()
+                       if n == f"dfd_router_{name}" and not labels))
+
+    def wait(self, cond, what: str, timeout: float = 300.0):
+        deadline = time.monotonic() + timeout
+        while True:
+            if self.proc.poll() is not None:
+                raise AssertionError(
+                    f"router {self.name} exited {self.proc.returncode}: "
+                    f"{self.log_path.read_text()[-3000:]}")
+            try:
+                got = cond()
+            except OSError:
+                got = None
+            if got:
+                return got
+            if time.monotonic() > deadline:
+                raise AssertionError(f"router {self.name}: {what}")
+            time.sleep(0.1)
+
+    def ready(self, n: int) -> float:
+        """Seconds from the router's launch to ``n`` replicas ready."""
+        def up():
+            st, doc = _http(self.port, "GET", "/readyz", timeout=5)
+            return st == 200 and doc["counts"]["ready"] == n \
+                and doc["counts"]["warming"] == 0
+        self.wait(up, f"{n} replica(s) never ready")
+        return time.perf_counter() - self.t0
+
+    def children(self) -> dict:
+        """Replica id → (pid, command line) of the router's children."""
+        out = {}
+        for d in Path("/proc").iterdir():
+            if not d.name.isdigit():
+                continue
+            try:
+                stat = (d / "stat").read_text()
+                cmd = [c.decode() for c in (d / "cmdline").read_bytes()
+                       .split(b"\0") if c]
+            except OSError:
+                continue
+            if int(stat.rsplit(")", 1)[1].split()[1]) == self.proc.pid \
+                    and "--port" in cmd:
+                out[f"127.0.0.1:{cmd[cmd.index('--port') + 1]}"] = \
+                    (int(d.name), cmd)
+        self.kids.update(out)
+        return out
+
+    def cpu_s(self) -> float:
+        stat = Path(f"/proc/{self.proc.pid}/stat").read_text()
+        fields = stat.rsplit(")", 1)[1].split()
+        return (int(fields[11]) + int(fields[12])) / _CLK_TCK
+
+    def stop(self) -> int:
+        """SIGTERM: the router stops every child it spawned, exits 0."""
+        self.children()
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=180)
+        except subprocess.TimeoutExpired:
+            self.proc.send_signal(signal.SIGABRT)
+            self.proc.wait(timeout=60)
+            self.kill()
+            raise AssertionError(f"router {self.name} did not stop on "
+                                 f"SIGTERM: "
+                                 f"{self.log_path.read_text()[-6000:]}")
+        self.log.close()
+        alive = [pid for pid, _ in self.kids.values() if not _gone(pid)]
+        if rc != 0 or alive:
+            raise AssertionError(f"router {self.name}: exit {rc}, children "
+                                 f"left {alive}: "
+                                 f"{self.log_path.read_text()[-3000:]}")
+        return rc
+
+    def kill(self) -> None:
+        kids = self.children()
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        for pid, _ in kids.values():
+            if not _gone(pid):
+                os.kill(pid, signal.SIGKILL)
+        self.log.close()
+
+
+def _gone(pid: int) -> bool:
+    try:
+        state = Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1]
+    except OSError:
+        return True
+    return state.split()[0] == "Z"
+
+
+def _serve_args(ckpt_path: Path, size: int, device: str,
+                extra: str = "") -> str:
+    return (f"--model-path {ckpt_path} --device {device} --wire uint8 "
+            f"--buckets {','.join(map(str, SERVE_BUCKETS))} "
+            f"--image-size {size} {extra}").strip()
+
+
+def _epoch(replicas: dict) -> str:
+    """The edge cache's fleet weights-epoch, as ``fleet/router.py``'s
+    ``EdgeCache.epoch`` computes it from the replicas' fingerprints."""
+    pairs = sorted(f"{mid}={det['fingerprint']}" for r in replicas.values()
+                   for mid, det in (r["models"] or {}).items())
+    return hashlib.sha256("\n".join(pairs).encode()).hexdigest()
+
+
+def _fleet_parity(fleet: _Fleet, files: list, cli: dict) -> dict:
+    """P(fake) through the router against the card CLI, bitwise."""
+    worst = 0.0
+    for i, f in enumerate(files):
+        st, out = _http(fleet.port, "POST", "/score", Path(f).read_bytes())
+        if st != 200:
+            raise AssertionError(f"router /score {f}: {st} {out}")
+        worst = max(worst, abs(out["fake_score"] - cli["single"][i]))
+    for j in range(len(cli["clip"])):
+        body, ctype = _multipart(Path(f).read_bytes()
+                                 for f in files[4 * j:4 * j + 4])
+        st, out = _http(fleet.port, "POST", "/score", body, ctype)
+        if st != 200 or out["frames"] != 4:
+            raise AssertionError(f"router /score clip {j}: {st} {out}")
+        worst = max(worst, abs(out["fake_score"] - cli["clip"][j]))
+    if worst != 0.0:
+        raise AssertionError(f"router /score differs from the card CLI by "
+                             f"{worst}")
+    return dict(files=len(files), clips=len(cli["clip"]), bitwise=True)
+
+
+def _fleet_load(fleet: _Fleet, body: bytes, ctype: str, clients: int,
+                seconds: float, captures: dict) -> dict:
+    """A closed-loop load through the router: clips/s, latency, statuses
+    and the replicas' stage ms (``_load``), each replica's share of the
+    forwards, the router's CPU ms a relayed request, device memory by
+    process and the sampled utilization; books exact, every answer 200 and
+    no capture after ready."""
+    before, cpu0 = fleet.samples(), fleet.cpu_s()
+    util = _UtilSampler()
+    row = _load(fleet.port, body, ctype, clients, seconds)
+    row["utilization"] = util.stop()
+    cpu = fleet.cpu_s() - cpu0
+    after = fleet.samples()
+    fwd0 = _by_replica(before, "dfd_router_replica_forwarded_total")
+    fwd = {r: v - fwd0.get(r, 0) for r, v in
+           _by_replica(after, "dfd_router_replica_forwarded_total").items()}
+    routed = sum(v for n, lb, v in after if n == "dfd_router_routed_total"
+                 and not lb) - sum(v for n, lb, v in before
+                                   if n == "dfd_router_routed_total"
+                                   and not lb)
+    pids = {r: pid for r, (pid, _) in fleet.children().items()}
+    used, total = _gpu_query("memory.used,memory.total")
+    row.update(
+        forward_share={r: v / max(1, sum(fwd.values()))
+                       for r, v in sorted(fwd.items())},
+        router_cpu_ms_per_relay=cpu * 1e3 / max(1, routed),
+        router_cpu_share=cpu / row["seconds"],
+        replica_pids=pids, chip_smoke_pid=os.getpid(),
+        compute_apps=_gpu_apps(),
+        device_memory_used_mib=used, device_memory_total_mib=total,
+        books=fleet.books())
+    compiles = _by_replica(after, "dfd_serving_backend_compiles_total")
+    compiles = {r: compiles.get(r) for r in captures}
+    if row["statuses"] != {"200": row["statuses"].get("200", 0)} \
+            or compiles != captures:
+        raise AssertionError(f"router load at {clients} clients: {row}, "
+                             f"captures {compiles} against {captures}")
+    return row
+
+
+def _ready_fleet(fleet: _Fleet, n: int) -> dict:
+    """Ready seconds, each replica's warmup stages and captures."""
+    ready_s = fleet.ready(n)
+    samples = fleet.samples()
+    captures = _by_replica(samples, "dfd_serving_backend_compiles_total")
+    warmup = {}
+    for name, labels, v in samples:
+        if name == "dfd_serving_warmup_seconds" and "replica" in labels:
+            warmup.setdefault(labels["replica"], {})[labels["stage"]] = v
+    if len(captures) != n or set(captures.values()) != {ROUTER_CAPTURES}:
+        raise AssertionError(f"fleet of {n}: captures {captures}, expected "
+                             f"{ROUTER_CAPTURES} each")
+    return dict(ready_s=ready_s, warmup_s=warmup, captures=captures)
+
+
+def _edge_cache_row(fleet: _Fleet, reload_dir: Path, ckpt_path: Path,
+                    body: bytes, ctype: str) -> dict:
+    """A second router attached to ``fleet``'s replica with the edge
+    verdict cache on: repeated bodies answered as ``cache_hit``; a hot
+    reload of the replica moves its fingerprint, so the epoch, and the
+    same body is forwarded once more before it hits again."""
+    (rid,) = fleet.get("/replicas")
+    edge = _Fleet("edge", ["--replicas", rid, "--edge-cache-entries", "64",
+                           "--edge-cache-ttl-s", "600"])
+    try:
+        edge.ready(1)
+        reps = edge.wait(lambda: (lambda d: d if all(
+            det.get("fingerprint") for r in d.values()
+            for det in (r["models"] or {}).values()) else None)(
+                edge.get("/replicas")), "no fingerprint scraped", 60)
+        epoch0 = _epoch(reps)
+        first = [_http(edge.port, "POST", "/score", body, ctype)[1]
+                 ["fake_score"] for _ in range(ROUTER_EDGE_REPEATS)]
+        books0 = edge.books()
+        _perturbed_file(ckpt_path, reload_dir / "next.pth", seed=1)
+
+        def moved():
+            st, doc = _http(edge.port, "GET", "/readyz", timeout=5)
+            return st == 200 and _epoch(doc["replicas"]) != epoch0 \
+                and doc["replicas"]
+        reps = edge.wait(moved, "the reload never moved the epoch", 120)
+        epoch1 = _epoch(reps)
+        second = [_http(edge.port, "POST", "/score", body, ctype)[1]
+                  ["fake_score"] for _ in range(3)]
+        books1 = edge.books()
+        row = dict(epoch_before=epoch0, epoch_after=epoch1,
+                   books_before_reload=books0, books_after_reload=books1,
+                   score_before=first[0], score_after=second[0])
+        if books0["cache_hit"] != ROUTER_EDGE_REPEATS - 1 \
+                or books0["forwarded"] != 1 or len(set(first)) != 1 \
+                or books1["forwarded"] != 2 \
+                or books1["cache_hit"] != ROUTER_EDGE_REPEATS + 1 \
+                or len(set(second)) != 1 or second[0] == first[0]:
+            raise AssertionError(f"edge cache: {row}")
+        edge.stop()
+    except BaseException:
+        edge.kill()
+        raise
+    return row
+
+
+def _failover_row(fleet: _Fleet, body: bytes, ctype: str,
+                  captures: dict) -> dict:
+    """SIGKILL one of the fleet's replicas under the closed-loop load: the
+    scraper marks it down, stateless requests fail over to the survivor,
+    the books stay exact; then the survivor alone under the same load."""
+    kids = fleet.children()
+    victim = sorted(kids)[0]
+    box = {}
+    t = threading.Thread(target=lambda: box.update(row=_load(
+        fleet.port, body, ctype, ROUTER_CLIENTS, ROUTER_LOAD_S)))
+    t.start()
+    time.sleep(ROUTER_KILL_AT_S)
+    os.kill(kids[victim][0], signal.SIGKILL)
+    t.join()
+    row = box["row"]
+    fleet.wait(lambda: fleet.counter("replicas_down_total") == 1,
+               "the killed replica was never marked down", 60)
+    books = fleet.books()
+    survivor = {r: n for r, n in captures.items() if r != victim}
+    surv = _fleet_load(fleet, body, ctype, ROUTER_CLIENTS,
+                       ROUTER_SURVIVOR_S, survivor)
+    out = dict(killed=victim, during=row, books=books,
+               replicas_down=fleet.counter("replicas_down_total"),
+               survivor_clips_per_s=surv["clips_per_s"], survivor=surv)
+    if row["statuses"] != {"200": row["statuses"].get("200", 0)} \
+            or books["failed"] or books["shed"]:
+        raise AssertionError(f"failover: {out}")
+    return out
+
+
+def _router_streams(ckpt_path: Path, size: int, device: str,
+                    replays: dict) -> dict:
+    """Two stream replicas behind the router: four raw 640×480 streams,
+    the replica holding sessions drained mid-stream (each session moves,
+    frames keep flowing to the other replica), the planted transitions at
+    windows 6 and 10 and every stream's books exact."""
+    args = _serve_args(ckpt_path, size, device, (
+        f"--img-num 4 --window-hop 0 --max-inflight-windows 4 "
+        f"--localizer full_frame --stream-ttl-s 0 "
+        f"--verdict-vector {STREAM_VECTOR} --verdict-ema-alpha 0.3"))
+    fleet = _Fleet("streams", ["--spawn", "2", "--spawn-runner", "stream",
+                               f"--replica-args={args}"])
+    try:
+        ready = _ready_fleet(fleet, 2)
+        sids = [f"rs{k}" for k in range(ROUTER_STREAMS)]
+        for sid in sids:
+            st, out = _http(fleet.port, "POST", "/streams",
+                            json.dumps({"stream_id": sid}).encode())
+            if st != 201:
+                raise AssertionError(f"open {sid}: {st} {out}")
+        frames = stream_frames(2 * ROUTER_STREAM_FRAMES, seed=4)
+
+        def push(lo: int, windows: int) -> None:
+            for sid in sids:
+                for i in range(lo, lo + ROUTER_STREAM_FRAMES, STREAM_CHUNK):
+                    st, ack = _http(
+                        fleet.port, "POST", f"/streams/{sid}/frames",
+                        b"".join(f.tobytes() for f in
+                                 frames[i:i + STREAM_CHUNK]),
+                        headers=_raw_headers())
+                    if st != 200:
+                        raise AssertionError(f"push {sid}: {st} {ack}")
+            fleet.wait(lambda: all(
+                _http(fleet.port, "GET", f"/streams/{s}")[1]["counters"]
+                ["windows_scored"] >= windows for s in sids),
+                f"streams never scored {windows} windows", 120)
+
+        push(0, ROUTER_STREAM_FRAMES // 4)
+        homes = {rid: _http(int(rid.rsplit(":", 1)[1]), "GET",
+                            "/streams")[1]["streams"]
+                 for rid in fleet.children()}
+        source = max(sorted(homes), key=lambda r: len(homes[r]))
+        st, report = _http(fleet.port, "POST", f"/replicas/{source}/drain")
+        moved = sorted(homes[source])
+        if st != 200 or sorted(report["migrated"]) != moved \
+                or report["failed"] or not moved:
+            raise AssertionError(f"drain {source}: {st} {report}, "
+                                 f"homes {homes}")
+        migrated0 = fleet.books()["migrated"]
+        push(ROUTER_STREAM_FRAMES, ROUTER_STREAM_FRAMES // 2)
+        target = next(r for r in homes if r != source)
+        on_target = _http(int(target.rsplit(":", 1)[1]), "GET",
+                          "/streams")[1]["streams"]
+        statuses = {s: _http(fleet.port, "GET", f"/streams/{s}")[1]
+                    for s in sids}
+        transitions = {s: [(e["from"], e["to"], e["windows"])
+                           for e in d["events"] if e["scope"] == "stream"]
+                       for s, d in statuses.items()}
+        counters = {s: d["counters"] for s, d in statuses.items()}
+        books = fleet.books()
+        samples = fleet.samples()
+        for r, n in _replica_replays(samples).items():
+            replays[("streams", r)] = n
+        row = dict(ready=ready, homes=homes, drained=source, moved=moved,
+                   streams_migrated=fleet.counter(
+                       "streams_migrated_total"),
+                   migrated_requests=books["migrated"] - migrated0,
+                   on_target=on_target, transitions=transitions,
+                   counters=counters, books=books)
+        exact = all(c["windows_emitted"] == sum(c[k] for k in STREAM_BOOKS)
+                    and c["frames_ingested"] == 2 * ROUTER_STREAM_FRAMES
+                    for c in counters.values())
+        if row["streams_migrated"] != len(moved) \
+                or row["migrated_requests"] < len(moved) \
+                or sorted(on_target) != sids or not exact \
+                or any(t != STREAM_TRANSITIONS
+                       for t in transitions.values()):
+            raise AssertionError(f"streams through the router: {row}")
+        fleet.stop()
+    except BaseException:
+        fleet.kill()
+        raise
+    return row
+
+
+def _router_autoscale(ckpt_path: Path, size: int, device: str,
+                      body: bytes, ctype: str, manifest_path: Path,
+                      pack: Path, replays: dict) -> dict:
+    """``--autoscale`` from one serve replica, max two, with the backfill
+    tenant on the backfill phase's manifest.  The phase holds the leases
+    of half the shards, as a peer worker would, so the tenant's worker has
+    scored the rest and is still alive when the 32-client spike comes: the
+    tenant yields (exit 75) before the second replica spawns; when the
+    load stops, scale-in drains first; the held leases are then released
+    and the tenant runs the manifest dry.  The decision trace replays to
+    the same decisions."""
+    out = OUT / "router_tenant"
+    trace = OUT / "router_autoscale_trace.jsonl"
+    shutil.rmtree(out, ignore_errors=True)
+    trace.unlink(missing_ok=True)
+    manifest = load_manifest(str(manifest_path))
+    shard_ids = [sh["id"] for sh in manifest["shards"]]
+    peer = LeaseDir(str(out), owner="peer", ttl_s=3600.0)
+    held = shard_ids[len(shard_ids) // 2:]
+    if not all(peer.acquire(s) for s in held):
+        raise AssertionError("the peer could not hold its leases")
+    tenant_args = (f"--data-packed {pack} --model-path {ckpt_path} "
+                   f"--batch-size {BACKFILL_BATCH} --dedup --workers 8 "
+                   f"--device {device}")
+    fleet = _Fleet("autoscale", [
+        "--spawn", "1",
+        f"--replica-args={_serve_args(ckpt_path, size, device)}",
+        "--autoscale", "--min-replicas", "1", "--max-replicas", "2",
+        "--autoscale-interval-s", "0.5", "--autoscale-up-samples", "2",
+        "--autoscale-down-samples", "4", "--autoscale-up-cooldown-s", "1",
+        "--autoscale-down-cooldown-s", "2", "--settle-timeout-s", "20",
+        "--autoscale-trace", str(trace), "--backfill-tenant",
+        str(manifest_path), "--backfill-out", str(out),
+        f"--backfill-args={tenant_args}"])
+    try:
+        ready_s = fleet.ready(1)
+        fleet.wait(lambda: all(peer.is_done(s) for s in shard_ids
+                               if s not in held),
+                   "the tenant's worker never scored its shards", 300)
+        before = fleet.get("/autoscaler")
+        box = {}
+        t = threading.Thread(target=lambda: box.update(row=_load(
+            fleet.port, body, ctype, ROUTER_CLIENTS, ROUTER_SPIKE_S)))
+        t0 = time.perf_counter()
+        t.start()
+        fleet.wait(lambda: fleet.get("/autoscaler")["books"]["up"] >= 1,
+                   "the spike never scaled up", ROUTER_SPIKE_S)
+        up_s = time.perf_counter() - t0
+        fleet.wait(lambda: fleet.get("/readyz")["counts"]["ready"] == 2,
+                   "the spawned replica never became ready", 300)
+        spawn_ready_s = time.perf_counter() - t0 - up_s
+        at_peak = fleet.get("/autoscaler")
+        t.join()
+        t_idle = time.perf_counter()
+        for r, n in _replica_replays(fleet.samples()).items():
+            replays[("autoscale", r)] = n
+        fleet.wait(lambda: fleet.get("/autoscaler")["books"]["retired"]
+                   >= 1, "the idle fleet never scaled in", 120)
+        scale_in_s = time.perf_counter() - t_idle
+        after_in = fleet.get("/autoscaler")
+        for s in held:
+            peer.release(s)
+        fleet.wait(lambda: fleet.get("/autoscaler")["tenant"]
+                   ["corpus_done"], "the tenant never ran the manifest dry",
+                   300)
+        final = fleet.get("/autoscaler")
+        alive = fleet.get("/readyz")["counts"]["replicas"]
+        router_books = fleet.books()
+        fleet.stop()
+    except BaseException:
+        fleet.kill()
+        raise
+    runs = sorted((rec for p in out.glob("telemetry-tenant-*.jsonl")
+                   for rec in map(json.loads, p.read_text().splitlines())
+                   if rec.get("event") == "run_end"), key=lambda r: r["t"])
+    books = collect_books(str(out), manifest)
+    rep = replay_trace(str(trace))
+    lb = final["books"]
+    row = dict(
+        ready_s=ready_s, spike=box["row"], up_after_s=up_s,
+        spawned_replica_ready_s=spawn_ready_s,
+        retired_after_load_s=scale_in_s, before_spike=before,
+        at_peak=at_peak, after_scale_in=after_in, final=final,
+        alive=alive, router_books=router_books,
+        tenant_runs=[dict(worker=r.get("worker"),
+                          preempted=r.get("preempted"),
+                          clips=r.get("clips_this_proc"),
+                          launches=r.get("launches")) for r in runs],
+        tenant_books={k: books[k] for k in (
+            "manifest_clips", "scored", "failed", "skipped_dup",
+            "balanced", "complete")},
+        trace=dict(match=rep["match"], n=rep["n"],
+                   actions=dict(Counter(rep["recorded"]))))
+    yielded = [r for r in runs if r.get("preempted")]
+    if box["row"]["statuses"] != {"200": box["row"]["statuses"].get("200",
+                                                                     0)} \
+            or at_peak["tenant"]["yields"] < 1 or lb["up"] < 1 \
+            or lb["down"] < 1 or lb["retired"] < 1 or lb["killed"] \
+            or lb["spawned"] != lb["retired"] + lb["killed"] + alive \
+            or not yielded or runs[-1].get("preempted") \
+            or not books["complete"] or not books["balanced"] \
+            or books["manifest_clips"] != books["scored"] \
+            + books["failed"] + books["skipped_dup"] \
+            or not rep["match"] or not {"up", "down"} <= set(
+                rep["recorded"]):
+        raise AssertionError(f"autoscaler with its backfill tenant: {row}")
+    row["tenant_launches"] = sum((r.get("launches") or {}).get(
+        "depthwise_fwd", 0) for r in runs)
+    return row
+
+
+def phase_router(ckpt_path: Path, files: list, cli: dict,
+                 manifest_path: Path, pack: Path, size: int = 600,
+                 device: str = "cuda") -> dict:
+    """The fleet router on the card, as a child process in front of N
+    spawned replicas of the port (each its own process, CUDA context and
+    graphs): at N = 1, 2 and 4 serve replicas the seconds to ready with N
+    cold starts at once and each replica's warmup stages, scores through
+    the router bitwise the card CLI, 32 closed-loop clients for 10 s (64
+    more at N = 4) with clips/s, latency, the replicas' stage ms, each
+    replica's share, device memory by process, nvidia-smi's sampled
+    utilization and the router's CPU a relay, exact books and no capture
+    after ready; the edge cache at N = 1, a SIGKILLed replica at N = 2;
+    then streams drained across two stream replicas, and the autoscaler
+    with its backfill tenant.  Kernel launches: each replica's graph
+    replays (its re-exported bucket rows) × the 55 captured a graph, and
+    the tenant's own counts."""
+    smi = nvidia_smi_line()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(7)
+    clip = [np.clip(127 + 60 * rng.standard_normal((size, size, 3)), 0,
+                    255).astype(np.uint8) for _ in range(4)]
+    body, ctype = _multipart(_npy_bytes(c) for c in clip)
+    replays, rows, ready_s = {}, {}, {}
+    for n in ROUTER_FLEETS:
+        reload_dir = OUT / "router_reload"
+        shutil.rmtree(reload_dir, ignore_errors=True)
+        reload_dir.mkdir(parents=True)
+        extra = (f"--reload-dir {reload_dir} --reload-interval-s 0.2"
+                 if n == ROUTER_FLEETS[0] else "")
+        fleet = _Fleet(f"serve{n}", [
+            "--spawn", str(n),
+            f"--replica-args={_serve_args(ckpt_path, size, device, extra)}"])
+        try:
+            ready = _ready_fleet(fleet, n)
+            ready_s[n] = ready["ready_s"]
+            row = dict(replicas=n, nvidia_smi=smi, ready=ready,
+                       parity=_fleet_parity(fleet, files, cli), load=[])
+            levels = [ROUTER_CLIENTS] + ([ROUTER_BIG_CLIENTS]
+                                         if n == ROUTER_FLEETS[-1] else [])
+            for clients in levels:
+                row["load"].append(_fleet_load(fleet, body, ctype, clients,
+                                               ROUTER_LOAD_S,
+                                               ready["captures"]))
+                emit(phase="router_load", replicas=n, nvidia_smi=smi,
+                     **row["load"][-1])
+            if n == ROUTER_FLEETS[-1] and max(
+                    r["router_cpu_share"] for r in row["load"]) \
+                    >= ROUTER_CORE_SHARE:
+                row["relay_workers_2"] = _sharded_row(fleet, body, ctype,
+                                                      ready["captures"])
+            if n == ROUTER_FLEETS[0]:
+                row["edge_cache"] = _edge_cache_row(
+                    fleet, reload_dir, ckpt_path, Path(files[0]).read_bytes(),
+                    "application/octet-stream")
+            if n == 2:
+                row["failover"] = _failover_row(fleet, body, ctype,
+                                                ready["captures"])
+            for r, k in _replica_replays(fleet.samples()).items():
+                replays[(f"serve{n}", r)] = k
+            row["books"] = fleet.books()
+            fleet.stop()
+        except BaseException:
+            fleet.kill()
+            raise
+        rows[n] = row
+        emit(phase="router_fleet", **{k: v for k, v in row.items()
+                                      if k != "load"})
+    streams = _router_streams(ckpt_path, size, device, replays)
+    emit(phase="router_streams", nvidia_smi=smi, **streams)
+    auto = _router_autoscale(ckpt_path, size, device, body, ctype,
+                             manifest_path, pack, replays)
+    emit(phase="router_autoscale", nvidia_smi=smi, **auto)
+    shutil.rmtree(pack, ignore_errors=True)
+    replica_replays = sum(replays.values())
+    launches = 55 * replica_replays + auto["tenant_launches"]
+    emit(phase="router", nvidia_smi=smi, fleet_ready_s=ready_s,
+         replica_replays=replica_replays,
+         tenant_launches=auto["tenant_launches"], launches=launches,
+         launches_rule="55 depthwise forward launches captured a graph × "
+                       "each replica's replays (its re-exported bucket "
+                       "rows), plus the tenant workers' own counts")
+    if replica_replays == 0:
+        raise AssertionError("no replica replayed a graph behind the router")
+    return dict(launches=launches, ready_s=ready_s,
+                stream_ready_s=streams["ready"]["ready_s"],
+                autoscale_spawn_ready_s=auto["spawned_replica_ready_s"])
+
+
+def _sharded_row(fleet: _Fleet, body: bytes, ctype: str,
+                 captures: dict) -> dict:
+    """The same replicas behind a second router with ``--relay-workers 2``
+    (two event loops sharing the port through SO_REUSEPORT), at the
+    larger load."""
+    urls = ",".join(sorted(fleet.get("/replicas")))
+    sharded = _Fleet("relay2", ["--replicas", urls, "--relay-workers", "2"])
+    try:
+        sharded.ready(len(captures))
+        row = _fleet_load(sharded, body, ctype, ROUTER_BIG_CLIENTS,
+                          ROUTER_LOAD_S, captures)
+        emit(phase="router_load", replicas=len(captures), relay_workers=2,
+             **row)
+        sharded.stop()
+    except BaseException:
+        sharded.kill()
+        raise
+    return row
 
 
 def _kernel_kind(name: str) -> str:
@@ -4077,12 +4802,25 @@ def main() -> int:
                              f"kernels {st['launches']} times in replays, "
                              f"{_counts()} eagerly, and the flash kernels "
                              f"{_flash_counts()} times")
+    # the fleet router: every replica is a child process, so the counts of
+    # this process stay 0; the replicas' replays are read off /metrics
+    _reset_counts()
+    rt = phase_router(OUT / "flagship.pth", files, cli_scores,
+                      bf["manifest"], bf["pack"])
+    if rt["launches"] == 0 or _counts() != (0, 0, 0) \
+            or _flash_counts() != (0, 0, 0):
+        raise AssertionError(f"the router path: {rt['launches']} depthwise "
+                             f"launches in its replicas, {_counts()} and "
+                             f"{_flash_counts()} in this process")
     emit(phase="cold_start", nvidia_smi=smi, kernel_build_s=build_s,
          kernels_built="all six sources, one nvcc each, in parallel",
          serve=quant["cold"], backfill=dict(
              load_s=bf["run1"]["load_s"], capture_s=bf["run1"]["capture_s"],
              dedup_s=bf["run1"]["dedup_s"], ready_s=bf["run1"]["ready_s"]),
-         stream_runner_ready_s=st["ready_s"])
+         stream_runner_ready_s=st["ready_s"],
+         fleet_ready_s=rt["ready_s"],
+         stream_fleet_ready_s=rt["stream_ready_s"],
+         autoscaled_replica_ready_s=rt["autoscale_spawn_ready_s"])
     t = phase_train(frame)
     td = phase_train_data(frame, {k: t[k] for k in (
         "ms_per_step", "samples_per_s", "peak_mem_gib",
@@ -4111,7 +4849,8 @@ def main() -> int:
                                       serve=serve["launches"],
                                       serve_quant=quant["launches"],
                                       backfill=bf["launches"],
-                                      stream=st["launches"])
+                                      stream=st["launches"],
+                                      router=rt["launches"])
     dx_launches, dx_paths = by_path("dx_launches")
     dwg_launches, dwg_paths = by_path("dwgrad_launches")
     amp_paths = ("train_amp", "resume")

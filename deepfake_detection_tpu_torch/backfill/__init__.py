@@ -13,21 +13,30 @@ granularity with exact books: ``manifest clips == scored + failed +
 skipped_dup``, no clip scored twice, none missing.
 
 manifest, lease, writer and source need numpy and the standard library
-only; ``runners/backfill.py`` holds the device.
+only; ``runners/backfill.py`` holds the device.  PEP-562 lazy exports:
+importing the package loads no submodule, so the fleet's autoscaler takes
+``lease.LeaseDir`` in a process that never imports torch.
 """
 
-from .lease import LeaseDir
-from .manifest import (BackfillManifestStale, MANIFEST_SCHEMA,
-                       build_manifest_from_lists, build_manifest_from_pack,
-                       load_manifest, manifest_entries, save_manifest,
-                       verify_manifest_source)
-from .writer import (VERDICT_SCHEMA, ShardVerdictWriter, collect_books,
-                     read_verdicts)
+from __future__ import annotations
 
-__all__ = [
-    "BackfillManifestStale", "LeaseDir", "MANIFEST_SCHEMA",
-    "ShardVerdictWriter", "VERDICT_SCHEMA", "build_manifest_from_lists",
-    "build_manifest_from_pack", "collect_books", "load_manifest",
-    "manifest_entries", "read_verdicts", "save_manifest",
-    "verify_manifest_source",
-]
+_LAZY = {
+    "LeaseDir": "lease",
+    "BackfillManifestStale": "manifest", "MANIFEST_SCHEMA": "manifest",
+    "build_manifest_from_lists": "manifest",
+    "build_manifest_from_pack": "manifest", "load_manifest": "manifest",
+    "manifest_entries": "manifest", "save_manifest": "manifest",
+    "verify_manifest_source": "manifest",
+    "VERDICT_SCHEMA": "writer", "ShardVerdictWriter": "writer",
+    "collect_books": "writer", "read_verdicts": "writer",
+}
+
+__all__ = sorted(_LAZY)
+
+
+def __getattr__(name: str):
+    mod = _LAZY.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+    return getattr(importlib.import_module(f".{mod}", __name__), name)

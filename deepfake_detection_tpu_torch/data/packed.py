@@ -31,9 +31,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..params import _resample_axis
 from .dataset import (DeepFakeClipDataset, clip_frame_paths, load_frames,
                       read_clip_list)
+from .resample import resample_axis
 from .transforms import PackedFrames
 
 __all__ = ["PackedDataset", "PackedShardCorrupt", "PackedCacheStale",
@@ -95,8 +95,8 @@ def canonical_clip_array(frames: Sequence[np.ndarray],
                 raise ValueError(f"packing with {interpolation!r} resampling "
                                  f"needs Pillow's filters; the port resizes "
                                  f"bilinear only")
-            a = _resample_axis(_resample_axis(a, image_size, 1),
-                               image_size, 0)
+            a = resample_axis(resample_axis(a, image_size, 1),
+                              image_size, 0)
         arrs.append(a)
     return np.concatenate(arrs, axis=-1)
 

@@ -746,8 +746,11 @@ def run_backfill(cfg: BackfillConfig,
             if not progressed and not stop.is_set() and \
                     lease.pending_shards(manifest):
                 # everything left is leased elsewhere (or freshly
-                # rivaled): wait out a fraction of the TTL and re-sweep
-                stop.wait(min(1.0, cfg.lease_ttl_s / 4.0))
+                # rivaled): wait out a fraction of the TTL and re-sweep.
+                # Sleep, not ``stop.wait``: ``main``'s signal handler sets
+                # ``stop`` in this thread, and a signal landing while
+                # ``wait`` holds the event's lock would deadlock
+                time.sleep(min(1.0, cfg.lease_ttl_s / 4.0))
     finally:
         pool.shutdown(wait=False)
 

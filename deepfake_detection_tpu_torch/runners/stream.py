@@ -41,6 +41,7 @@ import logging
 import signal
 import sys
 import threading
+import time
 from typing import Optional, Sequence
 
 _logger = logging.getLogger(__name__)
@@ -122,8 +123,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                          kwargs={"poll_interval": 0.1}, daemon=True)
     t.start()
     try:
+        # the handler sets ``stop`` in this thread: never wait on it here,
+        # or a signal landing while ``wait`` holds the event's lock
+        # deadlocks the process (``set`` takes the same lock)
         while not stop.is_set():
-            stop.wait(0.5)
+            time.sleep(0.5)
     finally:
         server.shutdown()
         # quiesce result delivery BEFORE snapshotting: a window score

@@ -18,6 +18,8 @@ start), and the XLA-only ``--compile-cache-dir`` and
 captures of one engine share one memory pool and run one at a time.
 :class:`StreamConfig` inherits all of this, as the JAX one inherits
 ``ServeConfig`` (``deepfake_detection_tpu/config.py``).
+:class:`RouterConfig` is the fleet router's (``runners/router.py``), whose
+process imports no torch: this module is standard library only.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import json
 from dataclasses import dataclass, fields
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-__all__ = ["FlagConfig", "ServeConfig", "StreamConfig",
+__all__ = ["FlagConfig", "RouterConfig", "ServeConfig", "StreamConfig",
            "parse_model_spec"]
 
 #: serving PTQ dtypes (canonical + accepted aliases), as the JAX config
@@ -471,3 +473,227 @@ class StreamConfig(ServeConfig):
         if self.assembly not in ("ring", "concat"):
             raise ValueError(f"--assembly must be 'ring' or 'concat', "
                              f"got {self.assembly!r}")
+
+
+@dataclass
+class RouterConfig(FlagConfig):
+    """Knob surface of the fleet replica router.
+
+    Same conventions as the other configs: every field is a
+    ``--dashed-flag``, a YAML ``-c`` file resets defaults, CLI
+    overrides.  The router attaches to running replicas
+    (``--replicas url,url``) and/or spawns its own local fleet
+    (``--spawn N`` children of ``--spawn-runner`` with
+    ``--replica-args`` passed through) — both sets join one registry.
+
+    The counterpart of the JAX ``RouterConfig``: every field, default and
+    check.  No ``--device``: the router holds no device and imports no
+    torch; spawned replicas take theirs through ``--replica-args`` (the
+    port's runners default to ``cuda``).
+    """
+
+    DESCRIPTION = "fleet replica router (shared-nothing scale-out)"
+    # --- network ---
+    host: str = "127.0.0.1"
+    port: int = 8380                     # serve=8377, stream=8378
+
+    # --- fleet membership ---
+    replicas: str = ""                   # comma list of replica URLs
+    # (host:port or http://host:port) to attach to
+    spawn: int = 0                       # local replica children to spawn
+    spawn_runner: str = "serve"          # serve | stream
+    replica_args: str = ""               # extra CLI for every spawned
+    # replica (shlex-split), e.g. "--model-path m.pth --device cuda"
+
+    # --- health (fleet/controller.py scraper) ---
+    scrape_interval_s: float = 0.5
+    health_fail_after: int = 3           # consecutive scrape failures
+    # before a replica is marked down
+    scrape_timeout_s: float = 2.0
+
+    # --- routing (fleet/router.py) ---
+    virtual_nodes: int = 64              # hash-ring vnodes per replica
+    route_retries: int = 2               # failover attempts past the
+    # first replica on shed/transport error (stateless traffic only)
+    upstream_timeout_s: float = 30.0
+    # router-level shed Retry-After: base + uniform [0, jitter) — the
+    # serving stack's anti-thundering-herd idiom at the fleet edge
+    shed_retry_after_s: float = 1.0
+    retry_jitter_s: float = 2.0
+
+    # --- data plane (fleet/dataplane.py) ---
+    data_plane: str = "evloop"           # evloop | threads — the relay
+    # hot path: a selectors-based event loop (the ~5x relays/s plane) or
+    # the original thread-per-connection fallback
+    relay_workers: int = 1               # evloop shards accepting on the
+    # same port via SO_REUSEPORT (>1 needs kernel support; threads
+    # plane ignores it)
+    idle_timeout_s: float = 60.0         # close keep-alive connections
+    # silent this long (counted dfd_router_idle_closed_total)
+    header_timeout_s: float = 10.0       # slowloris bound: a request
+    # head must arrive whole within this window (408 + close)
+    max_buffer_bytes: int = 1 << 20      # per-connection relay buffer
+    # bound: larger responses stream with backpressure (evloop); a
+    # stalled reader whose buffer stays full between requests is shed
+
+    # --- migration (fleet/migrate.py) ---
+    migrate_timeout_s: float = 30.0      # per-stream export/restore bound
+    drain_on_exit: bool = False          # drain spawned replicas' streams
+    # before terminating them on shutdown
+
+    # --- edge verdict cache (cache/) ---
+    # optional response cache for POST /score at the routing tier, keyed
+    # by raw body digest + the fleet weights-epoch (the set of per-model
+    # checkpoint fingerprints scraped off every replica's /readyz): a
+    # mixed-fingerprint rollout changes the epoch and bypasses the cache
+    # until the fleet converges.  0 entries disables the edge probe
+    edge_cache_entries: int = 0
+    edge_cache_ttl_s: float = 2.0
+
+    # --- autoscaling (fleet/autoscaler.py) ---
+    # the SLO-driven control loop: sample the fleet every
+    # --autoscale-interval-s, scale up when the router p99 / shed rate /
+    # per-replica depth breach for --autoscale-up-samples consecutive
+    # ticks, scale in (drain-first, lossless) after
+    # --autoscale-down-samples idle ticks; decisions are deterministic
+    # from the recorded sample trace (--autoscale-trace + the golden
+    # replay test pin it)
+    autoscale: bool = False
+    slo_p99_ms: float = 250.0            # the breach line
+    min_replicas: int = 1                # hard floor (dead children
+    # re-spawn to it even with no load)
+    max_replicas: int = 4                # capacity slots shared with
+    # the backfill tenant
+    autoscale_interval_s: float = 1.0
+    autoscale_up_samples: int = 2
+    autoscale_down_samples: int = 5
+    autoscale_up_cooldown_s: float = 5.0
+    autoscale_down_cooldown_s: float = 15.0
+    autoscale_shed_high: float = 0.01    # shed fraction breach line
+    autoscale_depth_high: float = 8.0    # per-replica depth breach line
+    autoscale_depth_low: float = 1.0     # per-replica depth idle line
+    autoscale_trace: str = ""            # JSONL decision trace path
+    # (sample + decision per tick; replayable via
+    # fleet.autoscaler.replay_trace)
+    spawn_grace_s: float = 900.0         # a spawned child is *warming*,
+    # not down, until it binds its port or this window expires
+    settle_timeout_s: float = 20.0       # scale-in: bounded wait for a
+    # drained replica's inflight to reach zero before terminate
+    # standby pool: keep N fully-warmed but UNREGISTERED
+    # replicas parked (counted as neither ready nor warming) so a
+    # scale-up is a registry promotion in milliseconds instead of a
+    # cold spawn; standbys occupy capacity slots (max_replicas) and the
+    # backfill tenant's slot math counts them
+    standby_replicas: int = 0
+
+    # --- backfill tenant: idle capacity runs backfill ---
+    backfill_tenant: str = ""            # manifest path (enables the
+    # tenant: idle capacity slots run runners/backfill.py workers that
+    # yield on a traffic spike via SIGTERM -> exit-75 lease release)
+    backfill_out: str = ""               # the tenant's shared run dir
+    backfill_args: str = ""              # extra CLI for every tenant
+    # worker (shlex-split), e.g. "--data-packed ... --model ..."
+    backfill_max_workers: int = 0        # cap (0 = all idle slots)
+    backfill_yield_timeout_s: float = 30.0
+
+    # ------------------------------------------------------------------
+    def __post_init__(self):
+        if self.spawn_runner not in ("serve", "stream"):
+            raise ValueError(f"--spawn-runner must be serve|stream, got "
+                             f"{self.spawn_runner!r}")
+        if int(self.spawn) < 0:
+            raise ValueError(f"--spawn must be >= 0, got {self.spawn}")
+        if int(self.virtual_nodes) < 1:
+            raise ValueError(f"--virtual-nodes must be >= 1, got "
+                             f"{self.virtual_nodes}")
+        if int(self.route_retries) < 0:
+            raise ValueError(f"--route-retries must be >= 0, got "
+                             f"{self.route_retries}")
+        if int(self.health_fail_after) < 1:
+            raise ValueError(f"--health-fail-after must be >= 1, got "
+                             f"{self.health_fail_after}")
+        if self.data_plane not in ("evloop", "threads"):
+            raise ValueError(f"--data-plane must be evloop|threads, got "
+                             f"{self.data_plane!r}")
+        if int(self.relay_workers) < 1:
+            raise ValueError(f"--relay-workers must be >= 1, got "
+                             f"{self.relay_workers}")
+        if int(self.max_buffer_bytes) < 4096:
+            raise ValueError(f"--max-buffer-bytes must be >= 4096, got "
+                             f"{self.max_buffer_bytes}")
+        if int(self.edge_cache_entries) < 0:
+            raise ValueError(f"--edge-cache-entries must be >= 0 "
+                             f"(0 = off), got {self.edge_cache_entries}")
+        if float(self.edge_cache_ttl_s) <= 0:
+            raise ValueError(f"--edge-cache-ttl-s must be > 0, got "
+                             f"{self.edge_cache_ttl_s}")
+        for name in ("scrape_interval_s", "scrape_timeout_s",
+                     "upstream_timeout_s", "migrate_timeout_s",
+                     "shed_retry_after_s", "idle_timeout_s",
+                     "header_timeout_s"):
+            if float(getattr(self, name)) <= 0:
+                raise ValueError(f"--{name.replace('_', '-')} must be "
+                                 f"> 0, got {getattr(self, name)}")
+        if float(self.retry_jitter_s) < 0:
+            raise ValueError(f"--retry-jitter-s must be >= 0, got "
+                             f"{self.retry_jitter_s}")
+        if int(self.min_replicas) < 1:
+            raise ValueError(f"--min-replicas must be >= 1, got "
+                             f"{self.min_replicas}")
+        if int(self.max_replicas) < int(self.min_replicas):
+            raise ValueError(
+                f"--max-replicas ({self.max_replicas}) must be >= "
+                f"--min-replicas ({self.min_replicas})")
+        if int(self.autoscale_up_samples) < 1 or \
+                int(self.autoscale_down_samples) < 1:
+            raise ValueError("--autoscale-up-samples / "
+                             "--autoscale-down-samples must be >= 1")
+        if float(self.autoscale_depth_low) > \
+                float(self.autoscale_depth_high):
+            raise ValueError("--autoscale-depth-low must be <= "
+                             "--autoscale-depth-high (the hysteresis "
+                             "dead band)")
+        if int(self.backfill_max_workers) < 0:
+            raise ValueError(f"--backfill-max-workers must be >= 0, "
+                             f"got {self.backfill_max_workers}")
+        if int(self.standby_replicas) < 0:
+            raise ValueError(f"--standby-replicas must be >= 0, got "
+                             f"{self.standby_replicas}")
+        if int(self.standby_replicas) > 0 and not self.autoscale:
+            raise ValueError("--standby-replicas needs --autoscale "
+                             "(the autoscaler owns the standby pool)")
+        for name in ("slo_p99_ms", "autoscale_interval_s",
+                     "spawn_grace_s", "settle_timeout_s",
+                     "backfill_yield_timeout_s"):
+            if float(getattr(self, name)) <= 0:
+                raise ValueError(f"--{name.replace('_', '-')} must be "
+                                 f"> 0, got {getattr(self, name)}")
+        for name in ("autoscale_up_cooldown_s",
+                     "autoscale_down_cooldown_s",
+                     "autoscale_shed_high", "autoscale_depth_low"):
+            if float(getattr(self, name)) < 0:
+                raise ValueError(f"--{name.replace('_', '-')} must be "
+                                 f">= 0, got {getattr(self, name)}")
+
+    def replica_urls(self) -> List[str]:
+        return [u.strip() for u in str(self.replicas).split(",")
+                if u.strip()]
+
+    def validate_required(self) -> "RouterConfig":
+        """Launch-surface check (two-stage parse builds an all-defaults
+        instance first): the router needs a fleet to route over."""
+        if not self.replica_urls() and int(self.spawn) < 1:
+            raise ValueError("give the router a fleet: --replicas "
+                             "url[,url...] and/or --spawn N")
+        if self.backfill_tenant and not self.autoscale:
+            raise ValueError("--backfill-tenant needs --autoscale (the "
+                             "control loop is the tenant's scheduler)")
+        if self.backfill_tenant and not self.backfill_out:
+            raise ValueError("--backfill-tenant needs --backfill-out "
+                             "(the tenant's shared run dir)")
+        return self
+
+    @classmethod
+    def from_args(cls, argv: Optional[Sequence[str]] = None
+                  ) -> "RouterConfig":
+        return super().from_args(argv).validate_required()
