@@ -67,7 +67,7 @@ before the result line:
    bf16; SDPA in bf16 with its flash and its memory-efficient backends) and
    bound times;
 8. inference path: the flagship at full width and depth (12×600², 55
-   blocks) with seeded weights and BN calibrated on the CPU by one
+   blocks) with seeded weights and BN calibrated on the card by one
    train-mode pass over the inputs at 600², scoring seeded frames of mixed
    aspect ratios through ``runners.test.test_img`` on the card, single and
    ``--clip``; 55 forward-kernel launches per forward, scores finite, not
@@ -85,7 +85,7 @@ before the result line:
    tolerance of an eager forward on the plain depthwise version; batch-1
    wall and device ms, graph replay against the eager forward; clips/s,
    p50 and p99 at 1, 8 and 32 clients posting 4-frame ``.npy`` clips at
-   600² for 10 s each (a child interpreter's threads; the batch histogram
+   600² for 3 s each (a child interpreter's threads; the batch histogram
    from ``/metrics``); a NaN batch (503, then 200), a hang (the watchdog
    fails it 503, replays every graph, no capture), a perturbed checkpoint
    hot-reloaded (the graph then equal to an eager forward of it), a torn
@@ -121,6 +121,19 @@ before the result line:
    CLI's ``--clip`` within 1e-6; then the cold start (kernel build,
    model load, captures, seconds to ready per dtype and for the backfill
    pipeline);
+11a. the warm start (``warmstart``): three fresh copies of the port's
+   package with no ``build/`` start ``runners.serve`` (uint8, buckets 1,
+   4, 16) as children on one ``--warmstart-dir`` store: tree A every
+   library a miss, six nvcc runs, libraries and six capture manifests
+   saved; tree B six library hits, no nvcc, every capture's golden canary
+   passing bitwise, 55 depthwise launches captured a graph, ready sooner
+   by at least half of A's nvcc seconds; tree C after one byte of the
+   stored ``flash_bwd_dq`` library is flipped: one ``payload-hash``
+   fallback, nvcc for that source alone, the entry rewritten; P(fake) of
+   every frame and clip bitwise the card CLI in all three; a one-shard
+   ``runners.backfill`` worker in A (``warmstart_source: compile``) and in
+   B (``store``, no nvcc); each tree's ready seconds and the nvcc seconds
+   saved;
 12. streaming (``stream``): the same checkpoint behind
    ``runners.stream.build_stream_server`` on localhost HTTP (buckets 1, 4,
    16, ``img_num`` 4, tiles of 4 frames, 4 windows in flight a stream, the
@@ -131,7 +144,7 @@ before the result line:
    verdict vector (``0.05*4,0.95*8``, EMA 0.3) that must give exactly
    real→suspect at window 6 and suspect→fake at window 10; on the uint8
    wire 1, 4 and 16 streams pushing ``application/x-dfd-raw`` 640×480
-   chunks of 8 frames at 30 frames/s for 10 s each (a child interpreter):
+   chunks of 8 frames at 30 frames/s for 3 s each (a child interpreter):
    frames/s, windows scored/s, ack p50 and p99, the mean stage ms of the
    streaming histograms, ring overflow, elided copies, each stream's books
    exact (emitted = scored + dropped + shed + failed + cache hits +
@@ -147,7 +160,7 @@ before the result line:
    own process, uint8 wire, buckets 1, 4, 16, ``--device cuda``): seconds
    to ready with N cold starts at once and each replica's warmup stages,
    6 captures a replica and none after ready, P(fake) through the router
-   bitwise the card CLI, 32 closed-loop clients for 10 s (and 64 at N = 4)
+   bitwise the card CLI, 32 closed-loop clients for 3 s (and 64 at N = 4)
    with clips/s, p50/p99, statuses, the replicas' stage ms, each replica's
    share of the forwards, device memory by process (``nvidia-smi
    --query-compute-apps``), nvidia-smi's sampled ``utilization.gpu`` and
@@ -182,6 +195,14 @@ before the result line:
    batches equal the tree's bitwise; ms per step, samples/s, peak memory,
    the loader's host wait, each prologue stage's device ms (torch.profiler)
    and the idle share of profiled steps, beside the synthetic phase's;
+   the run observed (``obs``): ``telemetry.jsonl`` with one record a
+   drain whose data, device and host shares sum to the window, the MFU
+   gauge above 0, ``--metrics-port`` scraped mid-run, a ``PROFILE`` file's
+   two-step trace naming the depthwise forward, dx and dw-gradient
+   kernels 55 times a step each; then the same run with
+   ``--no-telemetry``: the same launches a step, the same synchronizing
+   calls a drain (``torch.cuda.set_sync_debug_mode`` warnings) and step
+   ms within the runs' spread;
 16. ``train_amp``: the same tree with ``scripts/train.sh``'s whole argument
    list (``--amp``, ``--auto-resume``, ``--recovery-interval`` 3, one
    epoch): every depthwise launch of the bf16 instantiations (55/55/55 a
@@ -203,7 +224,9 @@ before the result line:
    the dtype's instantiation; loss finite, params and EMA moved; the EMA
    reloaded from the checkpoint scores the eval set as the run did; ms per
    step, samples/s, peak memory, the device time per step by kernel kind
-   and the eval forward's clips/s at batch 16;
+   and the eval forward's clips/s at batch 16; the f32 run observed as
+   ``train_data``'s, its trace naming the three flash kernels 12 times a
+   step each;
 19. card against CPU: one guarded train step of the full flagship at
    12×224², batch 2, and of the full TimeSformer at 12×300², batch 2, from
    the same weights on the card and on the CPU (loss, every parameter's
@@ -218,8 +241,10 @@ before the result line:
    ``tests/test_torch_amp.py``, and a bound that the card computed in bf16;
    an unchanged state and the f32 step in the bf16 step's place must each
    fail it; and a NaN batch through each bf16 card step;
-20. the ``kernels`` line (all six kernels, each with its bf16 status), the
-   ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+20. each phase's seconds (a ``seconds`` line as each ends, and all of
+   them before the ``kernels`` line), the ``kernels`` line (all six
+   kernels, each with its bf16 status), the ``nvidia-smi`` line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or in a directory that holds only this file, it exits
 non-zero and prints no result.  Its files go to ``build/chip_smoke/``.
@@ -278,6 +303,7 @@ from deepfake_detection_tpu_torch.fleet.autoscaler import replay_trace
 from deepfake_detection_tpu_torch.models import (create_deepfake_model_v4,
                                                  create_model)
 from deepfake_detection_tpu_torch.models import efficientnet_blocks as blocks
+from deepfake_detection_tpu_torch.obs.profiler import TRIGGER_FILENAME as TRIGGER
 from deepfake_detection_tpu_torch.models.helpers import (load_state_dict,
                                                         set_compute_dtype)
 from deepfake_detection_tpu_torch.ops import depthwise as dw
@@ -1003,22 +1029,23 @@ def phase_main_path(device: str = "cuda", size: int = 600):
         path = OUT / f"frame{i}.npy"
         np.save(path, img)
         files.append(str(path))
-    # seeded flagship; BN calibrated on the CPU by one train-mode pass over
-    # the inputs it will score, single and clip (running := the batch's).
-    # At the scoring canvas: stats from a small canvas do not fit 600²
-    # activations, and the logits then saturate P(fake) at 0 or 1, where
-    # any two paths agree.
+    # seeded flagship; BN calibrated by one train-mode pass over the inputs
+    # it will score, single and clip (running := the batch's), on the card
+    # (TF32 off): the pass only makes the checkpoint that every path below
+    # then scores on the card and on the CPU alike.  At the scoring canvas:
+    # stats from a small canvas do not fit 600² activations, and the logits
+    # then saturate P(fake) at 0 or 1, where any two paths agree.
     t0 = time.perf_counter()
     model = create_deepfake_model_v4(bn_momentum=1.0, device="cpu", seed=0)
     calib = np.concatenate(
         [runner.preprocess(f, size) for f in files]
         + [runner.preprocess_clip(files[i:i + 4], size)
            for i in range(0, len(files), 4)])
-    model.train()
+    model.to(device).train()
     with torch.no_grad():
-        model(torch.from_numpy(calib).permute(0, 3, 1, 2))
+        model(torch.from_numpy(calib).to(device).permute(0, 3, 1, 2))
     ckpt = OUT / "flagship.pth"
-    torch.save(model.state_dict(), ckpt)
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, ckpt)
     emit(phase="calibrate", s=time.perf_counter() - t0,
          calib_batch=list(calib.shape))
     del model, calib
@@ -1088,7 +1115,7 @@ SERVE_BUCKETS = (1, 4, 16)        # the JAX default's first three
 SERVE_BIG_BUCKET = 64             # the JAX default's largest, captured alone
 SERVE_TOL = 1e-6                  # P(fake), server against the card CLI
 SERVE_CLIENTS = (1, 8, 32)
-SERVE_LOAD_S = 10.0
+SERVE_LOAD_S = 3.0
 SERVE_WATCHDOG_S = 5.0
 STUDENT = "student=efficientnet_deepfake_v4"    # at half the canvas
 # the CLI's eager numbers these stand beside (PERF.md §5, NVIDIA H100 80GB
@@ -1997,7 +2024,7 @@ STREAM_TRANSITIONS = [("real", "suspect", 6), ("suspect", "fake", 10)]
 STREAM_LEVELS = (1, 4, 16)        # concurrent streams
 STREAM_FPS = 30.0                 # frames/s a stream
 STREAM_CHUNK = 8                  # frames a POST
-STREAM_LOAD_S = 10.0
+STREAM_LOAD_S = 3.0
 STREAM_BOOKS = ("windows_scored", "windows_dropped", "windows_shed",
                 "windows_failed", "windows_cache_hit", "windows_dup_elided")
 
@@ -2279,7 +2306,7 @@ def phase_stream(ckpt_path: Path, size: int = 600,
     localizer), on localhost HTTP.  Float32 wire: one stream of 8 raw
     640×480 frames whose windows match the card CLI's ``--clip`` within
     1e-6, and a planted verdict vector's exact transitions.  Uint8 wire:
-    1, 4 and 16 streams pushing raw 640×480 chunks at 30 frames/s for 10 s
+    1, 4 and 16 streams pushing raw 640×480 chunks at 30 frames/s for 3 s
     each (frames/s, windows/s, ack percentiles, stage ms, exact books, no
     capture after ready; the device's busy share at 16).  Then the runner
     as a child: SIGTERM with ``--state-dir`` and resume.  Returns the
@@ -2437,14 +2464,13 @@ def phase_stream(ckpt_path: Path, size: int = 600,
 ROUTER_FLEETS = (1, 2, 4)         # serve replicas spawned behind the router
 ROUTER_CLIENTS = 32
 ROUTER_BIG_CLIENTS = 64           # at the largest fleet
-ROUTER_LOAD_S = 10.0
-ROUTER_KILL_AT_S = 3.0            # into the failover load
-ROUTER_SURVIVOR_S = 5.0
+ROUTER_LOAD_S = 3.0
+ROUTER_KILL_AT_S = 1.5            # into the failover load
+ROUTER_SURVIVOR_S = 3.0
 ROUTER_SPIKE_S = 25.0             # the autoscaler's spike
 ROUTER_UTIL_PERIOD_S = 0.2        # nvidia-smi utilization.gpu samples
 ROUTER_STREAMS = 4
 ROUTER_STREAM_FRAMES = 24         # a stream's frames before and after a drain
-ROUTER_CORE_SHARE = 0.8           # router CPU share that adds a sharded row
 ROUTER_EDGE_REPEATS = 10
 #: captures a replica: one model × buckets × the uint8 wire's widths 3, 12
 ROUTER_CAPTURES = len(SERVE_BUCKETS) * 2
@@ -3027,7 +3053,7 @@ def phase_router(ckpt_path: Path, files: list, cli: dict,
     spawned replicas of the port (each its own process, CUDA context and
     graphs): at N = 1, 2 and 4 serve replicas the seconds to ready with N
     cold starts at once and each replica's warmup stages, scores through
-    the router bitwise the card CLI, 32 closed-loop clients for 10 s (64
+    the router bitwise the card CLI, 32 closed-loop clients for 3 s (64
     more at N = 4) with clips/s, latency, the replicas' stage ms, each
     replica's share, device memory by process, nvidia-smi's sampled
     utilization and the router's CPU a relay, exact books and no capture
@@ -3066,11 +3092,6 @@ def phase_router(ckpt_path: Path, files: list, cli: dict,
                                                ready["captures"]))
                 emit(phase="router_load", replicas=n, nvidia_smi=smi,
                      **row["load"][-1])
-            if n == ROUTER_FLEETS[-1] and max(
-                    r["router_cpu_share"] for r in row["load"]) \
-                    >= ROUTER_CORE_SHARE:
-                row["relay_workers_2"] = _sharded_row(fleet, body, ctype,
-                                                      ready["captures"])
             if n == ROUTER_FLEETS[0]:
                 row["edge_cache"] = _edge_cache_row(
                     fleet, reload_dir, ckpt_path, Path(files[0]).read_bytes(),
@@ -3109,24 +3130,239 @@ def phase_router(ckpt_path: Path, files: list, cli: dict,
                 autoscale_spawn_ready_s=auto["spawned_replica_ready_s"])
 
 
-def _sharded_row(fleet: _Fleet, body: bytes, ctype: str,
-                 captures: dict) -> dict:
-    """The same replicas behind a second router with ``--relay-workers 2``
-    (two event loops sharing the port through SO_REUSEPORT), at the
-    larger load."""
-    urls = ",".join(sorted(fleet.get("/replicas")))
-    sharded = _Fleet("relay2", ["--replicas", urls, "--relay-workers", "2"])
-    try:
-        sharded.ready(len(captures))
-        row = _fleet_load(sharded, body, ctype, ROUTER_BIG_CLIENTS,
-                          ROUTER_LOAD_S, captures)
-        emit(phase="router_load", replicas=len(captures), relay_workers=2,
-             **row)
-        sharded.stop()
-    except BaseException:
-        sharded.kill()
-        raise
-    return row
+WARM_FLIP = "flash_bwd_dq"        # the stored library tree C finds corrupt
+# (one of the six quick to build; the server's own, depthwise_fwd, is held
+# by its canary in tree B)
+WARM_BOOKS = ("hits", "misses", "fallbacks", "canary_rejects", "serialized")
+
+
+def _warm_tree(dst: Path) -> Path:
+    """A fresh checkout of the port's package with no ``build/``, as a new
+    container or a fleet replica started from a fresh tree has it."""
+    shutil.rmtree(dst, ignore_errors=True)
+    dst.mkdir(parents=True)
+    shutil.copytree(ROOT / "deepfake_detection_tpu_torch",
+                    dst / "deepfake_detection_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    return dst
+
+
+def _tree_env(tree: Path) -> dict:
+    env = dict(os.environ, PYTHONPATH=str(tree))
+    env.pop("DFD_CHAOS", None)
+    return env
+
+
+def _warm_serve(name: str, tree: Path, store: Path, ckpt_path: Path,
+                files: list, cli: dict) -> dict:
+    """``runners.serve`` as a child in ``tree`` on ``store``: seconds to
+    ``/readyz`` 200, each library's store books and nvcc runs and the
+    capture launches (the runner's logged ``warm start report``), the
+    ``warmstart_*`` counters, and P(fake) of every frame and clip (bitwise
+    the card CLI)."""
+    port = _free_port()
+    log_path = OUT / "warm" / f"serve_{name}.log"
+    with open(log_path, "w") as log:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "deepfake_detection_tpu_torch.runners.serve",
+             *_serve_args(ckpt_path, 600, "cuda").split(), "--port",
+             str(port), "--warmstart-dir", str(store)],
+            cwd=tree, env=_tree_env(tree), stdout=log, stderr=subprocess.STDOUT)
+        try:
+            ready_s = _ready_s(proc, port, t0, log_path)
+            report = json.loads(next(
+                ln.split("warm start report: ", 1)[1]
+                for ln in log_path.read_text().splitlines()
+                if "warm start report: " in ln))
+            books = {k: int(v) for n, labels, v in
+                     _prom(_http(port, "GET", "/metrics")[1])
+                     for k in WARM_BOOKS
+                     if n == f"dfd_serving_warmstart_{k}_total"}
+            single = []
+            for f in files:
+                st, out = _http(port, "POST", "/score", Path(f).read_bytes())
+                if st != 200:
+                    raise AssertionError(f"tree {name} /score: {st} {out}")
+                single.append(out["fake_score"])
+            clip = []
+            for j in range(len(cli["clip"])):
+                body, ctype = _multipart(Path(f).read_bytes()
+                                         for f in files[4 * j:4 * j + 4])
+                st, out = _http(port, "POST", "/score", body, ctype)
+                if st != 200 or out["frames"] != 4:
+                    raise AssertionError(f"tree {name} clip: {st} {out}")
+                clip.append(out["fake_score"])
+            replays = sum(v / int(labels["bucket"]) for n, labels, v in
+                          _prom(_http(port, "GET", "/metrics")[1])
+                          if n == "dfd_serving_bucket_rows_total")
+            proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    if [single, clip] != [cli["single"], cli["clip"]]:
+        raise AssertionError(f"tree {name}: scores {single} {clip} are not "
+                             f"the card CLI's {cli['single']} {cli['clip']}")
+    launches = next(iter(report["capture_launches"].values()))
+    return dict(ready_s=ready_s, books=books,
+                libraries=report["kernels"]["libraries"],
+                nvcc_s=report["kernels"]["nvcc_s"],
+                captures=len(launches), capture_launches=launches,
+                replays=int(round(replays)),
+                scores=dict(single=single, clip=clip))
+
+
+def _warm_backfill(name: str, tree: Path, store: Path, ckpt_path: Path,
+                   manifest_path: Path, pack: Path) -> dict:
+    """One ``runners.backfill`` worker (one shard) as a child in ``tree``
+    on ``store``: its run_end summary."""
+    out = OUT / "warm" / f"backfill_{name}"
+    shutil.rmtree(out, ignore_errors=True)
+    log_path = OUT / "warm" / f"backfill_{name}.log"
+    with open(log_path, "w") as log:
+        rc = subprocess.run(
+            [sys.executable, "-m",
+             "deepfake_detection_tpu_torch.runners.backfill", "--manifest",
+             str(manifest_path), "--data-packed", str(pack), "--out",
+             str(out), "--model-path", str(ckpt_path), "--batch-size",
+             str(BACKFILL_BATCH), "--max-shards", "1", "--warmstart-dir",
+             str(store), "--device", "cuda"], cwd=tree, env=_tree_env(tree),
+            stdout=log, stderr=subprocess.STDOUT, timeout=600).returncode
+    if rc != 0:
+        raise AssertionError(f"backfill {name} exited {rc}: "
+                             f"{log_path.read_text()[-3000:]}")
+    end = [r for p in out.glob("telemetry-*.jsonl") for r in
+           (json.loads(ln) for ln in p.read_text().splitlines())
+           if r.get("event") == "run_end"][-1]
+    return {k: end[k] for k in ("warmstart_source", "warmstart_fallback",
+                                "warmstart_kernels", "clips_this_proc",
+                                "ready_s", "launches", "replays")}
+
+
+def _flip_library(store: Path, name: str) -> str:
+    """Flip one byte in the middle of the stored library ``name``; returns
+    its key."""
+    for mpath in store.glob("*.json"):
+        m = json.loads(mpath.read_text())
+        if m.get("kind") == "library" and \
+                m["fields"]["geometry"].get("library") == name:
+            lib = store / f"{m['key']}.so"
+            blob = bytearray(lib.read_bytes())
+            blob[len(blob) // 2] ^= 0xFF
+            lib.write_bytes(bytes(blob))
+            return m["key"]
+    raise AssertionError(f"no stored library {name} in {store}")
+
+
+def phase_warmstart(ckpt_path: Path, files: list, cli: dict,
+                    manifest_path: Path, pack: Path) -> dict:
+    """The warm start across fresh checkouts: three trees with no
+    ``build/`` start ``runners.serve`` on one store.  A (cold): every
+    library a miss, six nvcc runs, libraries and capture manifests saved.
+    B (warm): six hits, no nvcc, every capture canary bitwise, 55 forward
+    launches captured a graph, ready sooner by most of A's build seconds.
+    C: one stored library byte flipped, so one fallback (``payload-hash``)
+    and one nvcc run for that source alone, the entry rewritten.  Scores
+    of all three bitwise the card CLI.  A backfill worker in A then in B:
+    ``compile``, then ``store``."""
+    warm = OUT / "warm"
+    shutil.rmtree(warm, ignore_errors=True)
+    warm.mkdir(parents=True)
+    store = warm / "store"
+    sources = sorted(p.stem for p in
+                     (ROOT / "deepfake_detection_tpu_torch" / "csrc").glob(
+                         "*.cu"))
+    trees, backfill = {}, {}
+    paths, pending = {}, {}
+    for name in ("A", "B", "C"):
+        tree = paths[name] = _warm_tree(warm / f"tree{name}")
+        if name == "C":
+            flipped = _flip_library(store, WARM_FLIP)
+            # tree A's backfill worker runs beside tree C's server (whose
+            # ready seconds are reported, not held); B's waits for it,
+            # since it needs the manifest A's saves
+            def backfill_a():
+                try:
+                    backfill["A"] = _warm_backfill(
+                        "A", paths["A"], store, ckpt_path, manifest_path,
+                        pack)
+                except BaseException as e:            # noqa: BLE001
+                    backfill["A_error"] = repr(e)
+
+            pending["A"] = threading.Thread(target=backfill_a)
+            pending["A"].start()
+        try:
+            trees[name] = t = _warm_serve(name, tree, store, ckpt_path,
+                                          files, cli)
+        finally:
+            if name == "C":
+                pending["A"].join(timeout=600)
+        libs = t["libraries"]
+        if sorted(libs) != sources:
+            raise AssertionError(f"tree {name}: libraries {sorted(libs)}")
+        bad = {n: [c.get(n) for c in t["capture_launches"].values()]
+               for n in ("depthwise_fwd",)}
+        if t["captures"] != 6 or any(v != 55 for v in bad["depthwise_fwd"]):
+            raise AssertionError(f"tree {name}: {t['captures']} captures, "
+                                 f"launches {t['capture_launches']}")
+        if name == "A":
+            want = {n: dict(misses=1, nvcc=1, serialized=1) for n in libs}
+            books = dict(misses=12, serialized=12)
+        elif name == "B":
+            want = {n: dict(hits=1) for n in libs}
+            books = dict(hits=12)
+        else:
+            want = {n: dict(hits=1) for n in libs}
+            want[WARM_FLIP] = dict(fallbacks=1, nvcc=1, serialized=1)
+            books = dict(hits=11, fallbacks=1, serialized=1)
+        got = {n: {k: v for k, v in c.items() if k in WARM_BOOKS + ("nvcc",)
+                   and v} for n, c in libs.items()}
+        if got != want or {k: v for k, v in t["books"].items() if v} != books:
+            raise AssertionError(f"tree {name}: library books {got}, "
+                                 f"counters {t['books']}; expected {want}, "
+                                 f"{books}")
+        if name == "C":
+            m = json.loads((store / f"{flipped}.json").read_text())
+            if hashlib.sha256((store / f"{flipped}.so").read_bytes()
+                              ).hexdigest() != m["sha256"]:
+                raise AssertionError("tree C did not rewrite the flipped "
+                                     "library's entry")
+            if "A" not in backfill:
+                raise AssertionError(f"tree A's backfill worker: "
+                                     f"{backfill.get('A_error')}")
+            backfill["B"] = _warm_backfill("B", paths["B"], store, ckpt_path,
+                                           manifest_path, pack)
+        emit(phase="warmstart_tree", tree=name,
+             **{k: v for k, v in t.items() if k != "capture_launches"},
+             backfill=backfill.get(name))
+    if [backfill["A"]["warmstart_source"],
+            backfill["B"]["warmstart_source"]] != ["compile", "store"]:
+        raise AssertionError(f"backfill warm sources {backfill}")
+    if any(c.get("nvcc") for c in
+           backfill["B"]["warmstart_kernels"]["libraries"].values()):
+        raise AssertionError(f"backfill in tree B ran nvcc: {backfill['B']}")
+    saved = trees["A"]["ready_s"] - trees["B"]["ready_s"]
+    if saved < 0.5 * trees["A"]["nvcc_s"]:
+        raise AssertionError(f"tree B ready {trees['B']['ready_s']:.2f} s "
+                             f"against A's {trees['A']['ready_s']:.2f} s: "
+                             f"less than half of A's "
+                             f"{trees['A']['nvcc_s']:.2f} s of nvcc saved")
+    out = dict(ready_s={k: t["ready_s"] for k, t in trees.items()},
+               nvcc_s={k: t["nvcc_s"] for k, t in trees.items()},
+               ready_saved_s=saved, build_s_saved=trees["A"]["nvcc_s"]
+               - trees["B"]["nvcc_s"],
+               backfill_ready_s={k: b["ready_s"] for k, b in
+                                 backfill.items()},
+               backfill_source={k: b["warmstart_source"] for k, b in
+                                backfill.items()},
+               launches=sum(55 * t["replays"] for t in trees.values())
+               + sum(b["launches"].get("depthwise_fwd", 0)
+                     for b in backfill.values()))
+    emit(phase="warmstart", **out)
+    shutil.rmtree(warm, ignore_errors=True)
+    return out
 
 
 def _kernel_kind(name: str) -> str:
@@ -3458,6 +3694,161 @@ def phase_prologue(run) -> dict:
     return out
 
 
+OBS_PROFILE_STEPS = 2             # --profile-capture of the observed runs
+OBS_OFF_OUT = OUT / "train_data_off"
+# each kernel's name in a trace, and the launch counter it must equal
+OBS_KERNELS = {"depthwise_fwd": "dw_fwd_kernel", "depthwise_dx": "dw_dx_kernel",
+               "depthwise_dwgrad": "dwgrad_partial",
+               "flash_fwd": "flash_fwd_kernel",
+               "flash_bwd_dq": "flash_bwd_dq_kernel",
+               "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+
+
+def _run_dir(cfg) -> Path:
+    """The run directory ``runners.train`` makes for ``cfg`` (a fresh
+    output directory, so without a ``-N`` suffix)."""
+    return Path(cfg.output) / (cfg.experiment or "-".join([
+        cfg.model_version or cfg.model,
+        os.path.basename(cfg.data.split(":")[0]) or cfg.dataset]))
+
+
+def _observed_main(cfg) -> tuple:
+    """``train_runner.main(cfg)`` with the synchronizing calls of its train
+    loops counted (``torch.cuda.set_sync_debug_mode`` warnings raised with
+    ``train/trainer.py`` on the stack, by call site; those of
+    ``obs/profiler.py``, the capture window's own, and any other, such as a
+    finalizer run as the epoch returns, apart) and, when
+    the run has telemetry, ``/metrics`` scraped while it trains and a
+    ``PROFILE`` trigger dropped into its run directory once it writes
+    telemetry.  Returns ``(result, observations)``."""
+    import traceback
+    import warnings
+
+    run_dir = _run_dir(cfg)
+    seen = dict(syncs=0, profiler_syncs=0, other_syncs=Counter(),
+                sync_sites=Counter(), scrape=None, profile_touched=False)
+    real = train_runner.train_one_epoch
+    profiler_py = os.path.join("obs", "profiler.py")
+    trainer_py = os.path.join("train", "trainer.py")
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message).lower():
+            return
+        stack = traceback.extract_stack()[:-1]
+        site = next((fr for fr in reversed(stack)
+                     if "deepfake_detection_tpu_torch" in fr.filename),
+                    stack[-1])
+        site = f"{os.path.basename(site.filename)}:{site.lineno}"
+        if any(fr.filename.endswith(profiler_py) for fr in stack):
+            seen["profiler_syncs"] += 1
+        elif any(fr.filename.endswith(trainer_py) for fr in stack):
+            seen["syncs"] += 1
+            seen["sync_sites"][site] += 1
+        else:
+            seen["other_syncs"][" < ".join(
+                f"{os.path.basename(fr.filename)}:{fr.lineno}"
+                for fr in stack[-4:])] += 1
+
+    def counted(*a, **k):
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = note
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return real(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+    done = threading.Event()
+
+    def watch():
+        while not done.is_set():
+            if cfg.metrics_port and not seen["profile_touched"] and \
+                    (run_dir / "telemetry.jsonl").exists():
+                (run_dir / TRIGGER).touch()
+                seen["profile_touched"] = True
+            if cfg.metrics_port and seen["scrape"] is None:
+                try:
+                    st, text = _http(cfg.metrics_port, "GET", "/metrics",
+                                     timeout=5)
+                    hz = _http(cfg.metrics_port, "GET", "/healthz",
+                               timeout=5)
+                except OSError:
+                    st = None
+                if st == 200:
+                    got = {n: v for n, labels, v in _prom(text)
+                           if not labels}
+                    if got.get("dfd_train_steps_total", 0) >= 1:
+                        seen["scrape"] = dict(
+                            steps_total=got["dfd_train_steps_total"],
+                            families=len(got), healthz=hz,
+                            mfu=got.get("dfd_train_mfu"),
+                            fwd_gflops_per_sample=got.get(
+                                "dfd_train_model_fwd_gflops_per_sample"))
+            time.sleep(0.05)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    train_runner.train_one_epoch = counted
+    if not cfg.no_telemetry:
+        watcher.start()
+    try:
+        result = train_runner.main(cfg)
+    finally:
+        done.set()
+        train_runner.train_one_epoch = real
+        if watcher.is_alive():
+            watcher.join(timeout=30)
+    seen["run_dir"] = run_dir
+    return result, seen
+
+
+def _obs_checks(name: str, run_dir: Path, seen: dict, steps: int,
+                per_step: dict) -> dict:
+    """The run's telemetry: one record a drain (``--log-interval 1``: one a
+    step), data + device + host = the window in each, an MFU gauge > 0,
+    ``/metrics`` scraped mid-run, and the ``PROFILE`` trigger's trace
+    naming the path's kernels with ``per_step`` launches a step each."""
+    recs = [json.loads(ln) for ln in
+            (run_dir / "telemetry.jsonl").read_text().splitlines()]
+    metrics = [r for r in recs if r["type"] == "metrics"]
+    events = [r["event"] for r in recs if r["type"] == "event"]
+    sums = [m["data_wait_frac"] + m["device_wait_frac"] + m["host_frac"]
+            for m in metrics]
+    caps = sorted((run_dir / "profile").glob("ondemand-*/kernels.json"))
+    if len(metrics) != steps or any(abs(v - 1.0) > 2e-4 for v in sums) \
+            or not metrics[-1]["mfu"] > 0 or min(m["mfu"] for m in
+                                                 metrics) < 0:
+        raise AssertionError(f"{name}: {len(metrics)} telemetry records for "
+                             f"{steps} steps, breakdown sums {sums}, mfu "
+                             f"{[m['mfu'] for m in metrics]}")
+    if seen["scrape"] is None:
+        raise AssertionError(f"{name}: /metrics never answered mid-run")
+    if len(caps) != 1 or "profile_capture" not in events or \
+            (run_dir / TRIGGER).exists():
+        raise AssertionError(f"{name}: profile captures {caps}, events "
+                             f"{events}")
+    trace = json.loads(caps[0].read_text())
+    got = {k: sum(v["launches"] for n, v in trace["kernels"].items()
+                  if OBS_KERNELS[k] in n) / trace["steps"] for k in per_step}
+    if got != per_step or not (caps[0].parent / "trace.json").is_file():
+        raise AssertionError(f"{name}: the trace's kernels a step {got}, "
+                             f"expected {per_step}")
+    window = int(caps[0].parent.name.split("-")[1])
+    last = metrics[-1]
+    return dict(records=len(metrics), breakdown_sum_max_err=max(
+                    abs(v - 1.0) for v in sums),
+                mfu=[m["mfu"] for m in metrics],
+                mfu_last=last["mfu"], imgs_per_s_last=last["imgs_per_s"],
+                data_wait_frac=last["data_wait_frac"],
+                device_wait_frac=last["device_wait_frac"],
+                host_frac=last["host_frac"], scrape=seen["scrape"],
+                trace_kernels_per_step=got,
+                # the batches the window spans: its warm-up step, then the
+                # recorded ones
+                profile_window=[window, window + trace["steps"] + 1],
+                events=events, syncs_per_drain=seen["syncs"] / len(metrics))
+
+
 def _tree_train(name: str, cfg, frame: str, dtype: str) -> dict:
     """``runners.train`` in-process on the flagship from a clip tree, one
     epoch: 55/55/55 depthwise launches a step and 55 forward launches an
@@ -3473,7 +3864,7 @@ def _tree_train(name: str, cfg, frame: str, dtype: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     t0 = time.perf_counter()
-    result = train_runner.main(cfg)
+    result, seen = _observed_main(cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _counts()
@@ -3481,6 +3872,7 @@ def _tree_train(name: str, cfg, frame: str, dtype: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     steps = len(result["train"]["step_s"])
     want = (55 * (steps + eval_batches), 55 * steps, 55 * steps)
+    seen["step_s"] = list(result["train"]["step_s"])
     if steps < 8 or steps != want_steps or flash != (0, 0, 0) or \
             launches != want or _counts(dtype) != want:
         raise AssertionError(
@@ -3554,9 +3946,55 @@ def _tree_train(name: str, cfg, frame: str, dtype: str) -> dict:
                    launches_per_step=sum(kinds.get(
                        "launches_per_iteration", {}).values()) or None,
                    device_ms_by_kind=kinds.get("ms_per_iteration"))
-    return dict(numbers=numbers, info=info, run=run,
+    return dict(numbers=numbers, info=info, run=run, seen=seen,
                 launches=dict(zip(("forward_launches", "dx_launches",
                                    "dwgrad_launches"), launches)))
+
+
+def _telemetry_off(root: Path, tr: dict, obs: dict) -> dict:
+    """The same tree run with ``--no-telemetry``: the same launches a step,
+    the same synchronizing calls a drain, and step ms within the
+    telemetry run's spread (its profiled steps and the first left out)."""
+    out = OBS_OFF_OUT
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = train_runner.parse_args(DATA_FLAGS + [
+        "--data", str(root), "--output", str(out), "--no-telemetry"])
+    _reset_counts()
+    result, seen = _observed_main(cfg)
+    torch.cuda.synchronize()
+    steps = len(result["train"]["step_s"])
+    on_steps = tr["info"]["steps"]
+    per = {k: v / (steps + (tr["info"]["eval_batches"] if k ==
+                            "forward_launches" else 0))
+           for k, v in zip(("forward_launches", "dx_launches",
+                            "dwgrad_launches"), _counts())}
+    per_on = {k: v / (on_steps + (tr["info"]["eval_batches"] if k ==
+                                  "forward_launches" else 0))
+              for k, v in tr["launches"].items()}
+    syncs = seen["syncs"] / steps
+    lo, hi = obs["profile_window"]
+    on = [v for i, v in enumerate(tr["seen"]["step_s"])
+          if i > 0 and not lo <= i < hi]
+    off = result["train"]["step_s"][1:]
+    gap = abs(float(np.median(on)) - float(np.median(off)))
+    spread = max(max(on) - min(on), max(off) - min(off))
+    shutil.rmtree(out, ignore_errors=True)
+    row = dict(steps=steps, launches_per_step=per,
+               launches_per_step_on=per_on, syncs_per_drain=syncs,
+               syncs_per_drain_on=obs["syncs_per_drain"],
+               sync_sites=dict(seen["sync_sites"]),
+               sync_sites_on=dict(tr["seen"]["sync_sites"]),
+               profiler_syncs_on=tr["seen"]["profiler_syncs"],
+               other_syncs=dict(seen["other_syncs"]),
+               other_syncs_on=dict(tr["seen"]["other_syncs"]),
+               step_ms_median=float(np.median(off)) * 1e3,
+               step_ms_median_on=float(np.median(on)) * 1e3,
+               spread_ms=spread * 1e3, telemetry_file=(
+                   seen["run_dir"] / "telemetry.jsonl").exists())
+    if per != per_on or syncs != obs["syncs_per_drain"] or gap > spread \
+            or row["telemetry_file"]:
+        raise AssertionError(f"telemetry changed the step: {row}")
+    return row
 
 
 def phase_train_data(frame: str, synthetic: dict) -> dict:
@@ -3566,13 +4004,20 @@ def phase_train_data(frame: str, synthetic: dict) -> dict:
     root = make_clip_tree(OUT / "tree")
     out = OUT / "train_data"
     shutil.rmtree(out, ignore_errors=True)
-    cfg = train_runner.parse_args(DATA_FLAGS + ["--data", str(root),
-                                                "--output", str(out)])
+    cfg = train_runner.parse_args(DATA_FLAGS + [
+        "--data", str(root), "--output", str(out), "--metrics-port",
+        str(_free_port()), "--profile-capture", str(OBS_PROFILE_STEPS)])
     tr = _tree_train("train_data", cfg, frame, "float32")
     prologue = phase_prologue(tr["run"])
     del tr["run"]
     gc.collect()
     torch.cuda.empty_cache()
+    steps = tr["info"]["steps"]
+    obs = _obs_checks("train_data", tr["seen"]["run_dir"], tr["seen"],
+                      steps, {k: 55 for k in ("depthwise_fwd", "depthwise_dx",
+                                              "depthwise_dwgrad")})
+    obs["telemetry_off"] = _telemetry_off(root, tr, obs)
+    emit(phase="obs", path="train_data", nvidia_smi=nvidia_smi_line(), **obs)
 
     # the packed cache of the same tree: the first two batches bitwise
     t0 = time.perf_counter()
@@ -4554,14 +4999,17 @@ def phase_tsf_train(amp: bool = False, beside: dict = None) -> dict:
     dtype = "bfloat16" if amp else "float32"
     out = OUT / name
     shutil.rmtree(out, ignore_errors=True)
+    # the f32 run is observed: /metrics mid-run and a PROFILE trigger
+    observe = [] if amp else ["--metrics-port", str(_free_port()),
+                              "--profile-capture", str(OBS_PROFILE_STEPS)]
     cfg = train_runner.parse_args(TSF_FLAGS + (["--amp"] if amp else F32)
-                                  + ["--output", str(out)])
+                                  + ["--output", str(out)] + observe)
     init = train_runner.build_model(cfg, "cpu").state_dict()
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     t0 = time.perf_counter()
-    result = train_runner.main(cfg)
+    result, seen = _observed_main(cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd, dq, dkv = _flash_counts()
@@ -4595,6 +5043,11 @@ def phase_tsf_train(amp: bool = False, beside: dict = None) -> dict:
     del init
     gc.collect()
     torch.cuda.empty_cache()
+    if observe:
+        emit(phase="obs", path=name, nvidia_smi=nvidia_smi_line(),
+             **_obs_checks(name, seen["run_dir"], seen, steps, {
+                 k: TSF_BLOCKS for k in ("flash_fwd", "flash_bwd_dq",
+                                         "flash_bwd_dkv")}))
 
     # the checkpoint's EMA, loaded into a fresh run, scores the eval set as
     # the run's last validation (the EMA's) did
@@ -4725,7 +5178,20 @@ def flash_entries(fl: dict, autograd_err: float, tsf: dict, tsfa: dict,
     return out
 
 
+PHASE_S = {}
+
+
+def timed(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall seconds printed and kept."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    PHASE_S[name] = time.perf_counter() - t0
+    emit(phase="seconds", of=name, s=PHASE_S[name])
+    return out
+
+
 def main() -> int:
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
               "NVIDIA GPU", file=sys.stderr)
@@ -4743,33 +5209,35 @@ def main() -> int:
                        .read_text().splitlines() if "registers" in ln]
                 for name, path in libs.items()},
          libraries=[path.name for path in libs.values()])
-    phase_flash_kernels(libs)
-    phase_depthwise_kernels(libs)
+    PHASE_S["build"] = build_s
+    timed("flash_kernels", phase_flash_kernels, libs)
+    timed("depthwise_kernels", phase_depthwise_kernels, libs)
 
     model = create_deepfake_model_v4(device="cpu")
     shapes = flagship_dw_shapes(model, 600)
     del model
     if dict(shapes) != FLAGSHIP_DW:
         raise AssertionError(f"flagship depthwise shapes {dict(shapes)}")
-    k = phase_kernels(shapes)
-    g = phase_dwgrad(shapes)
-    d = phase_dx(shapes)
-    b = phase_backward(shapes)
-    fl = phase_flash()
-    fl_autograd = phase_flash_autograd()
-    kb = phase_depthwise_bf16(shapes)
-    flb = phase_flash_bf16()
+    k = timed("kernels", phase_kernels, shapes)
+    g = timed("dwgrad", phase_dwgrad, shapes)
+    d = timed("dx", phase_dx, shapes)
+    b = timed("backward", phase_backward, shapes)
+    fl = timed("flash", phase_flash)
+    fl_autograd = timed("flash_autograd", phase_flash_autograd)
+    kb = timed("depthwise_bf16", phase_depthwise_bf16, shapes)
+    flb = timed("flash_bf16", phase_flash_bf16)
 
     # each path runs with the launch counts set to 0 just before it
     _reset_counts()
-    infer_launches, files, cli_scores = phase_main_path()
+    infer_launches, files, cli_scores = timed("main_path", phase_main_path)
     frame = files[0]
     if _counts()[1:] != (0, 0) or _flash_counts() != (0, 0, 0):
         raise AssertionError(f"the inference path launched the dx, "
                              f"dw-gradient and flash kernels {_counts()[1:]}"
                              f", {_flash_counts()} times")
     _reset_counts()
-    serve = phase_serve(OUT / "flagship.pth", files, cli_scores)
+    serve = timed("serve", phase_serve, OUT / "flagship.pth", files,
+                  cli_scores)
     if _counts()[0] == 0 or _counts()[1:] != (0, 0) \
             or _flash_counts() != (0, 0, 0):
         raise AssertionError(f"the serving path launched the depthwise "
@@ -4778,24 +5246,35 @@ def main() -> int:
     # the quantized servers and the int8 CLI: the eager launches are
     # counted here, the replays through the engines' capture counts
     _reset_counts()
-    quant = phase_quant(OUT / "flagship.pth", files, cli_scores)
+    quant = timed("quant", phase_quant, OUT / "flagship.pth", files,
+                  cli_scores)
     if _counts()[0] == 0 or _counts()[1:] != (0, 0) \
             or _flash_counts() != (0, 0, 0):
         raise AssertionError(f"the quantized serving path launched the "
                              f"depthwise kernels {_counts()} and the flash "
                              f"kernels {_flash_counts()} times")
     _reset_counts()
-    bf = phase_backfill(OUT / "flagship.pth")
+    bf = timed("backfill", phase_backfill, OUT / "flagship.pth")
     if _counts()[0] == 0 or _counts()[1:] != (0, 0) \
             or _flash_counts() != (0, 0, 0):
         raise AssertionError(f"the backfill path launched the depthwise "
                              f"kernels {_counts()} and the flash kernels "
                              f"{_flash_counts()} times")
+    # the warm start: every server and worker is a child in a fresh tree,
+    # so the counts of this process stay 0
+    _reset_counts()
+    ws = timed("warmstart", phase_warmstart, OUT / "flagship.pth", files,
+               cli_scores, bf["manifest"], bf["pack"])
+    if ws["launches"] == 0 or _counts() != (0, 0, 0) \
+            or _flash_counts() != (0, 0, 0):
+        raise AssertionError(f"the warm start: {ws['launches']} depthwise "
+                             f"launches in its children, {_counts()} and "
+                             f"{_flash_counts()} in this process")
     # the stream servers: the captures' eager runs and the card CLI here,
     # the replays through the engines' capture counts (phase_stream holds
     # them at 55 × replays)
     _reset_counts()
-    st = phase_stream(OUT / "flagship.pth")
+    st = timed("stream", phase_stream, OUT / "flagship.pth")
     if st["launches"] == 0 or _counts()[0] == 0 \
             or _counts()[1:] != (0, 0) or _flash_counts() != (0, 0, 0):
         raise AssertionError(f"the stream path launched the depthwise "
@@ -4805,8 +5284,8 @@ def main() -> int:
     # the fleet router: every replica is a child process, so the counts of
     # this process stay 0; the replicas' replays are read off /metrics
     _reset_counts()
-    rt = phase_router(OUT / "flagship.pth", files, cli_scores,
-                      bf["manifest"], bf["pack"])
+    rt = timed("router", phase_router, OUT / "flagship.pth", files,
+               cli_scores, bf["manifest"], bf["pack"])
     if rt["launches"] == 0 or _counts() != (0, 0, 0) \
             or _flash_counts() != (0, 0, 0):
         raise AssertionError(f"the router path: {rt['launches']} depthwise "
@@ -4820,15 +5299,20 @@ def main() -> int:
          stream_runner_ready_s=st["ready_s"],
          fleet_ready_s=rt["ready_s"],
          stream_fleet_ready_s=rt["stream_ready_s"],
-         autoscaled_replica_ready_s=rt["autoscale_spawn_ready_s"])
-    t = phase_train(frame)
-    td = phase_train_data(frame, {k: t[k] for k in (
+         autoscaled_replica_ready_s=rt["autoscale_spawn_ready_s"],
+         warm_start=dict(ready_s=ws["ready_s"], nvcc_s=ws["nvcc_s"],
+                         ready_saved_s=ws["ready_saved_s"],
+                         backfill_ready_s=ws["backfill_ready_s"]))
+    t = timed("train", phase_train, frame)
+    td = timed("train_data", phase_train_data, frame, {k: t[k] for k in (
         "ms_per_step", "samples_per_s", "peak_mem_gib",
         "host_wait_ms_per_step", "idle_share")})
-    ta = phase_train_amp(frame, td["root"], td["numbers"])
-    rs = phase_resume(td["root"])
-    tsf = phase_tsf_train()
-    tsfa = phase_tsf_train(amp=True, beside=tsf)
+    ta = timed("train_amp", phase_train_amp, frame, td["root"],
+               td["numbers"])
+    rs = timed("resume", phase_resume, td["root"])
+    tsf = timed("tsf_train", phase_tsf_train)
+    tsfa = timed("tsf_train_amp", phase_tsf_train, amp=True, beside=tsf)
+    t0 = time.perf_counter()
     f32_gate = phase_card_vs_cpu()
     phase_bf16_noise("flagship", _flagship, f32_gate)
     f32_gate = phase_card_vs_cpu(FLAGSHIP_CUT, _flagship_cut)
@@ -4837,6 +5321,8 @@ def main() -> int:
                                  batch=2)
     phase_card_vs_cpu_bf16(TSF_MODEL, _timesformer(300), f32_gate, 300)
     del f32_gate
+    PHASE_S["card_vs_cpu"] = time.perf_counter() - t0
+    emit(phase="seconds", of="card_vs_cpu", s=PHASE_S["card_vs_cpu"])
 
     dw_paths = {"train": t, "train_data": td, "train_amp": ta, "resume": rs}
 
@@ -4849,6 +5335,7 @@ def main() -> int:
                                       serve=serve["launches"],
                                       serve_quant=quant["launches"],
                                       backfill=bf["launches"],
+                                      warmstart=ws["launches"],
                                       stream=st["launches"],
                                       router=rt["launches"])
     dx_launches, dx_paths = by_path("dx_launches")
@@ -4863,6 +5350,8 @@ def main() -> int:
             timing="bf16 instantiation, device time summed over the 55 "
                    "stages as the f32 row; library: cuDNN in bf16")
 
+    emit(phase="seconds", of="all", s=time.perf_counter() - t_main,
+         by_phase=PHASE_S)
     emit(kernels=[
         dict(name="depthwise_fwd", route="cuda",
              source="deepfake_detection_tpu_torch/csrc/depthwise_fwd.cu",

@@ -117,15 +117,21 @@ class HostBatch:
 
 class LoaderStats:
     """Counters of the loaders: batches, the consumer's wait for the host
-    (``host_wait_s``) and the producer's load + collate time
-    (``fetch_s``)."""
+    (``host_wait_s``), the producer's load + collate time (``fetch_s``),
+    the host seconds of the Prologue's enqueue (``stage_s``: the copy to
+    the device and the augment chain's launches, with any wait they make)
+    and the samples × host-chain stages (warp, blur, mixup blend) the
+    device Prologue ran in their place (``augment_elided``)."""
 
-    __slots__ = ("batches", "host_wait_s", "fetch_s")
+    __slots__ = ("batches", "host_wait_s", "fetch_s", "stage_s",
+                 "augment_elided")
 
     def __init__(self):
         self.batches = 0
         self.host_wait_s = 0.0
         self.fetch_s = 0.0
+        self.stage_s = 0.0
+        self.augment_elided = 0
 
 
 class HostLoader:
@@ -411,10 +417,15 @@ class DeviceLoader:
                 batch = next(it)
             except StopIteration:
                 return
-            self.stats.host_wait_s += time.perf_counter() - t0
+            t1 = time.perf_counter()
+            self.stats.host_wait_s += t1 - t0
             self.stats.batches += 1
+            p = batch.params
+            self.stats.augment_elided += len(batch.indices) * (
+                ("coeffs" in p) + bool(p.get("blur")) + ("lam" in p))
             batch = self.to_device(batch)
             x = self.prologue(batch.images, batch.params)
+            self.stats.stage_s += time.perf_counter() - t1
             if batch.valid is None:
                 yield x, batch.targets
             else:

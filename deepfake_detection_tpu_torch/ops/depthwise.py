@@ -46,6 +46,7 @@ import.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from collections import Counter
 from typing import Callable, Optional, Sequence, Tuple, Union
@@ -53,7 +54,8 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from ..csrc.build import count_launch, kernel
+from ..csrc.build import (count_launch, kernel, register_canary,
+                          uncounted)
 from .conv import explicit_padding
 
 __all__ = ["FUSED_DW_ACTS", "fused_depthwise", "fused_depthwise_reference",
@@ -503,3 +505,84 @@ def fused_depthwise(x: torch.Tensor, w: torch.Tensor,
 
 fused_depthwise.launches = 0
 fused_depthwise.launches_by_dtype = Counter()
+
+
+# ---------------------------------------------------------------------------
+# warm-start canaries (csrc/build.py runs them on a library from the store)
+# ---------------------------------------------------------------------------
+
+#: the tolerances chip_smoke.py holds the kernels to: the forward's y
+#: elementwise within atol + rtol·|plain|, the gradients within _GRAD_TOL of
+#: their max |plain|
+_FWD_TOL = (1e-5, 1e-5)
+_GRAD_TOL = 1e-5
+_CANARY_SHAPE = (2, 12, 12, 32)
+_CANARY_PADS = (1, 1, 1, 1)
+
+
+def _canary_inputs():
+    g = torch.Generator(device="cuda").manual_seed(0xCA9A87)
+    c = _CANARY_SHAPE[-1]
+    x = torch.randn(_CANARY_SHAPE, generator=g, device="cuda")
+    w = torch.randn((3, 3, c), generator=g, device="cuda") * 0.2
+    scale = torch.rand(c, generator=g, device="cuda") + 0.5
+    bias = (torch.rand(c, generator=g, device="cuda") - 0.5) * 0.4
+    dz = torch.randn(_CANARY_SHAPE, generator=g, device="cuda")
+    return x, w, scale, bias, dz
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """The plain versions' convolutions in f32, as chip_smoke.py runs them
+    (cuDNN's default is TF32)."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _canary_fwd() -> Optional[str]:
+    x, w, scale, bias, _ = _canary_inputs()
+    with torch.no_grad(), uncounted(fused_depthwise):
+        y = _launch(x, w, scale, bias, 1, _CANARY_PADS, "silu")[0]
+    with _no_tf32():
+        ref = fused_depthwise_reference(x, w, scale, bias, 1, "", "silu")
+    diff = (y - ref).abs()
+    if not torch.isfinite(y).all() or bool(
+            (diff > _FWD_TOL[0] + _FWD_TOL[1] * ref.abs()).any()):
+        return f"forward max |kernel - plain| {diff.max().item():.3e}"
+    return None
+
+
+def _canary_dx() -> Optional[str]:
+    _, w, _, _, dz = _canary_inputs()
+    with uncounted(depthwise_dx):
+        dx = depthwise_dx(dz, w, _CANARY_SHAPE, 1, _CANARY_PADS,
+                          torch.float32)
+    with _no_tf32():
+        ref = depthwise_dx_reference(dz, w, _CANARY_SHAPE, 1, _CANARY_PADS,
+                                     torch.float32)
+    rel = _rel(dx, ref)
+    return None if torch.isfinite(dx).all() and rel <= _GRAD_TOL else \
+        f"dx |kernel - plain| / max|plain| {rel:.3e}"
+
+
+def _canary_dwgrad() -> Optional[str]:
+    x, _, _, _, dz = _canary_inputs()
+    with uncounted(depthwise_dwgrad):
+        got = depthwise_dwgrad(x, dz, 3, 1, _CANARY_PADS)
+    rel = _rel(got, depthwise_dwgrad_reference(x, dz, 3, 1, _CANARY_PADS))
+    return None if torch.isfinite(got).all() and rel <= _GRAD_TOL else \
+        f"dw |kernel - plain| / max|plain| {rel:.3e}"
+
+
+register_canary("depthwise_fwd", _canary_fwd)
+register_canary("depthwise_dx", _canary_dx)
+register_canary("depthwise_dwgrad", _canary_dwgrad)

@@ -43,7 +43,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..csrc.build import count_launch, kernel
+from ..csrc.build import (count_launch, kernel, register_canary,
+                          uncounted)
 
 __all__ = ["flash_attention", "FlashAttentionFunction", "flash_fwd",
            "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_reference",
@@ -305,3 +306,65 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         out = flash_fwd(qb, kb, vb, scale, l, causal)[0]
     return out.view(b, h, l, d).permute(0, 2, 1, 3)
+
+
+# ---------------------------------------------------------------------------
+# warm-start canaries (csrc/build.py runs them on a library from the store)
+# ---------------------------------------------------------------------------
+
+#: the tolerances chip_smoke.py holds the kernels to: O and lse elementwise
+#: within atol + rtol·|plain|, dQ/dK/dV within _GRAD_TOL of their max
+_FWD_TOL = (2e-5, 2e-5)
+_GRAD_TOL = 1e-5
+
+
+def _canary_inputs():
+    g = torch.Generator(device="cuda").manual_seed(0xCA9A87)
+    q, k, v, do = (torch.randn((4, 64, 64), generator=g, device="cuda")
+                   for _ in range(4))
+    scale = 64 ** -0.5
+    o, lse = flash_fwd_reference(q, k, v, scale, 64)
+    delta = (do * o).sum(-1)
+    return q, k, v, do, o, lse, delta, scale
+
+
+def _far(got: torch.Tensor, want: torch.Tensor) -> bool:
+    return not torch.isfinite(got).all() or bool(
+        ((got - want).abs() > _FWD_TOL[0] + _FWD_TOL[1] * want.abs()).any())
+
+
+def _grad_off(got: torch.Tensor, want: torch.Tensor) -> bool:
+    return not torch.isfinite(got).all() or (
+        (got - want).abs().max() / want.abs().max().clamp_min(1e-30)
+    ).item() > _GRAD_TOL
+
+
+def _canary_fwd() -> Optional[str]:
+    q, k, v, _, ro, rlse, _, scale = _canary_inputs()
+    with uncounted(flash_fwd):
+        o, lse = flash_fwd(q, k, v, scale, 64)
+    return "O or lse off the plain version" if _far(o, ro) or \
+        _far(lse, rlse) else None
+
+
+def _canary_dq() -> Optional[str]:
+    q, k, v, do, _, lse, delta, scale = _canary_inputs()
+    with uncounted(flash_bwd_dq):
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, scale, 64)
+    return "dQ off the plain version" if _grad_off(
+        dq, flash_bwd_dq_reference(q, k, v, do, lse, delta, scale, 64)) \
+        else None
+
+
+def _canary_dkv() -> Optional[str]:
+    q, k, v, do, _, lse, delta, scale = _canary_inputs()
+    with uncounted(flash_bwd_dkv):
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale, 64)
+    rdk, rdv = flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale, 64)
+    return "dK or dV off the plain version" if _grad_off(dk, rdk) or \
+        _grad_off(dv, rdv) else None
+
+
+register_canary("flash_fwd", _canary_fwd)
+register_canary("flash_bwd_dq", _canary_dq)
+register_canary("flash_bwd_dkv", _canary_dkv)

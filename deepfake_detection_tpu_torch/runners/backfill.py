@@ -44,9 +44,18 @@ pipeline at one fixed batch:
   the shard of acquisition attempt N first), ``backfill_torn_shard@N``
   (half a record, then a hard exit).
 
+* **Warm start** (``--warmstart-dir``, ``serving/warmstart.py``): the
+  kernel libraries come from the store where it holds them (no nvcc), and
+  the capture is held to the store's manifest of this program: bitwise
+  its golden-batch scores under the same checkpoint fingerprint, else
+  finite and of the right shape (the manifest is then re-stamped).  A
+  reject rebuilds the store's libraries by nvcc and captures again; a miss
+  or a fallback saves the manifest.  The summary's ``warmstart_source``
+  is ``store`` when the manifest passed, ``compile`` otherwise, and
+  ``warmstart_fallback`` names why a present entry was not used.
+
 The JAX runner's mesh is one card here (multi-GPU is ROADMAP item 9);
-``--stem-s2d`` (item 12), ``--warmstart-dir`` and ``--compile-cache-dir``
-(item 10's warm start) raise.
+``--stem-s2d`` (item 12) and the XLA-only ``--compile-cache-dir`` raise.
 
 Usage::
 
@@ -129,9 +138,9 @@ class BackfillConfig(FlagConfig):
     # --- dedup (cache/content) ---
     dedup: bool = False                  # packed source only
 
-    # --- warm start: not ported (raise when set) ---
-    warmstart_dir: str = ""
-    compile_cache_dir: str = ""
+    # --- warm start ---
+    warmstart_dir: str = ""              # the warm-start store's root
+    compile_cache_dir: str = ""          # XLA-only (raises when set)
 
     # --- the port's own ---
     device: str = "cuda"                 # 'cpu' runs the plain program
@@ -155,16 +164,11 @@ class BackfillConfig(FlagConfig):
             raise NotImplementedError(
                 "--stem-s2d: the space-to-depth stem is not ported "
                 "(ROADMAP Queue 1, item 12)")
-        if self.warmstart_dir:
-            raise NotImplementedError(
-                "--warmstart-dir: the executable store is not ported (a "
-                "CUDA graph cannot be serialized; ROADMAP Queue 1, item "
-                "10, warm start)")
         if self.compile_cache_dir:
             raise NotImplementedError(
                 "--compile-cache-dir is XLA's persistent compilation "
-                "cache; the port compiles no XLA (ROADMAP Queue 1, item "
-                "10, warm start)")
+                "cache; the port compiles no XLA: its warm start (ROADMAP "
+                "Queue 1, item 10) is the --warmstart-dir store")
         if self.device not in ("cuda", "cpu") and \
                 not str(self.device).startswith("cuda:"):
             raise ValueError(f"--device must be cuda, cuda:N or cpu, got "
@@ -214,13 +218,19 @@ class _Pipeline:
         import numpy as np
         import torch
 
+        from ..csrc import build as kernels
         from ..models import create_model, load_checkpoint
         from ..models.factory import resolve_device
         from ..params import img_mean, img_std
-        from ..serving.engine import _Slot, capture_program
+        from ..serving.engine import _Slot
         from ..serving.metrics import capture_count
+        from ..serving.warmstart import WarmStore
 
         self.device = resolve_device(cfg.device)   # no card: raises
+        self.store = None
+        if cfg.warmstart_dir:
+            self.store = WarmStore(cfg.warmstart_dir)
+            kernels.set_store(self.store)        # before the first kernel
         self.batch = int(cfg.batch_size)
         self.frames = int(frames)
         self.hw = hw
@@ -262,25 +272,124 @@ class _Pipeline:
         if self.graphs:
             self.stream = torch.cuda.Stream(self.device)
             self.x = torch.zeros(shape, dtype=torch.uint8, device=self.device)
-            self.graph, self.out, self.launches = capture_program(
-                score, self.x, pool=torch.cuda.graph_pool_handle(),
-                stream=self.stream, lock=threading.RLock())
-            # warm once: the first replay's own first-use work lands
-            # before the steady-state capture count is read
-            with torch.cuda.stream(self.stream):
-                self.graph.replay()
-            self.stream.synchronize()
-        else:
-            with torch.no_grad():
-                score(torch.zeros(shape, dtype=torch.uint8))
+        self._capture()
+        self.replays = 0
+        self.warm_source, self.warm_fallback = "compile", ""
+        if self.store is not None:
+            self._warm_store(model, mean, std)
         self.capture_s = time.monotonic() - t0
         self.captures = capture_count() - captures0
-        self.replays = 0
         self.slots = [_Slot(shape, torch.uint8, (self.batch, 2), self.device)
                       for _ in range(self.SLOTS)]
         self.free: "queue.Queue" = queue.Queue()
         for s in self.slots:
             self.free.put(s)
+
+    def _capture(self) -> None:
+        """Capture the score function (on the CPU: run it once)."""
+        import torch
+
+        from ..serving.engine import capture_program
+
+        if not self.graphs:
+            with torch.no_grad():
+                self.fn(torch.zeros(self.x_shape, dtype=torch.uint8))
+            return
+        self.graph, self.out, self.launches = capture_program(
+            self.fn, self.x, pool=torch.cuda.graph_pool_handle(),
+            stream=self.stream, lock=threading.RLock())
+        # warm once: the first replay's own first-use work lands before
+        # the steady-state capture count is read
+        with torch.cuda.stream(self.stream):
+            self.graph.replay()
+        self.stream.synchronize()
+
+    @property
+    def x_shape(self) -> Tuple[int, int, int, int]:
+        return (self.batch, self.hw[0], self.hw[1], self.chans)
+
+    def _golden(self):
+        """Scores of the fixed seeded canary batch (the serving engine's
+        seed) through the program, synchronously."""
+        import numpy as np
+        import torch
+
+        x = np.random.default_rng(0xCA9A87).integers(
+            0, 256, self.x_shape, dtype=np.uint8)
+        if not self.graphs:
+            with torch.no_grad():
+                return self.fn(torch.from_numpy(x)).numpy()
+        self.replays += 1
+        with torch.cuda.stream(self.stream):
+            self.x.copy_(torch.from_numpy(x))
+            self.graph.replay()
+            out = self.out.cpu()
+        return out.numpy()
+
+    def _warm_store(self, model, mean, std) -> None:
+        """The store's manifest of this program: the canary on a hit
+        (bitwise under the same fingerprint; a skewed one passing is
+        re-stamped), a rebuild of the store's libraries and a recapture on
+        a reject, a save after a miss, a fallback or a reject."""
+        import hashlib
+
+        import numpy as np
+
+        from ..csrc import build as kernels
+        from ..serving import warmkey
+        from ..serving.engine import _params_fingerprint
+        from ..serving.warmstart import WarmstartMiss
+
+        h = hashlib.sha256(repr(model).encode())
+        for name, v in sorted(model.state_dict().items()):
+            h.update(f"{name}{tuple(v.shape)}{v.dtype}".encode())
+        h.update(mean.cpu().numpy().tobytes())
+        h.update(std.cpu().numpy().tobytes())
+        for digest in kernels.library_digests():
+            h.update(digest.encode())
+        kind, capability = kernels._device_fields() if self.graphs \
+            else ("cpu", "")
+        fields = warmkey.key_fields(
+            device_kind=kind, capability=capability, program=h.hexdigest(),
+            geometry={"hw": list(self.hw), "frames": self.frames,
+                      "model_class": type(model).__name__,
+                      "pipeline": "backfill"},
+            bucket=self.batch, chans=self.chans, wire="uint8", quant="none")
+        fingerprint = _params_fingerprint(model.state_dict(), "none")
+        try:
+            manifest = self.store.load(fields)
+        except WarmstartMiss as miss:
+            manifest = None
+            if miss.reason != "absent":
+                self.warm_fallback = miss.reason
+                _logger.warning("warm store entry unusable (%s): %s",
+                                miss.reason, miss)
+        scores = self._golden()
+        if manifest is not None:
+            why = ""
+            if scores.ndim != 2 or scores.shape[0] != self.batch or \
+                    not np.isfinite(scores).all():
+                why = f"bad golden scores (shape {scores.shape})"
+            elif manifest.get("params_fingerprint") == fingerprint:
+                ref = warmkey.decode_array(manifest["golden_scores"])
+                if ref.shape != scores.shape or \
+                        not np.array_equal(ref, scores):
+                    why = "golden scores drifted from the manifest"
+            if not why:
+                self.warm_source = "store"
+                if manifest.get("params_fingerprint") != fingerprint:
+                    self.store.refresh_manifest(
+                        fields, golden_scores=scores,
+                        params_fingerprint=fingerprint)
+                return
+            _logger.error("warm store canary: %s; rebuilding the store's "
+                          "libraries and capturing again", why)
+            self.warm_fallback = "canary-reject"
+            kernels.rebuild_store_libraries()
+            self._capture()
+            scores = self._golden()
+        self.store.save(fields, golden_scores=scores,
+                        params_fingerprint=fingerprint)
 
     def dispatch(self, slot) -> None:
         """Enqueue one batch from ``slot``'s filled input: on the card copy
@@ -407,7 +516,7 @@ def run_backfill(cfg: BackfillConfig,
         "steady_recompiles": 0, "clips_per_s": 0.0, "elapsed_s": 0.0,
         "captures": 0, "capture_s": 0.0, "load_s": 0.0,
         "dedup_s": round(dedup_s, 3), "ready_s": 0.0, "launches": {},
-        "replays": 0,
+        "replays": 0, "warmstart_source": "", "warmstart_fallback": "",
     }
     pipe: Optional[_Pipeline] = None
     if pending:
@@ -430,7 +539,10 @@ def run_backfill(cfg: BackfillConfig,
         pipe = _Pipeline(cfg, frames, source.sample_hw)
         summary.update(captures=pipe.captures,
                        capture_s=round(pipe.capture_s, 3),
-                       load_s=round(pipe.load_s, 3))
+                       load_s=round(pipe.load_s, 3),
+                       warmstart_source=pipe.warm_source
+                       if pipe.store is not None else "",
+                       warmstart_fallback=pipe.warm_fallback)
         _logger.info(
             "bucket %s in %.1fs: batch %d × %dx%d × %dch on %s; %d/%d "
             "shards pending", "captured" if pipe.graphs else "ready "
@@ -758,6 +870,9 @@ def run_backfill(cfg: BackfillConfig,
     if pipe is not None:
         summary["launches"] = pipe.launch_counts()
         summary["replays"] = pipe.replays
+        if pipe.store is not None:
+            from ..csrc.build import library_counts
+            summary["warmstart_kernels"] = library_counts()
     if t_first is not None:
         # cold start: entry to the first batch dispatched (manifest, source
         # audit, dedup pass, model load, capture)

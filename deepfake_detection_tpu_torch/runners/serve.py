@@ -11,7 +11,7 @@ Usage::
     python -m deepfake_detection_tpu_torch.runners.serve \\
         --model-path model.pth [--port 8377] [--buckets 1,4,16,64] \\
         [--batch-deadline-ms 5] [--max-queue 128] [--reload-dir ckpts/] \\
-        [--wire float32|uint8] [--device cuda]
+        [--wire float32|uint8] [--warmstart-dir STORE] [--device cuda]
 
     curl -s -X POST --data-binary @face.npy \\
         -H 'Content-Type: application/octet-stream' \\
@@ -23,10 +23,15 @@ Checkpoints load as in ``runners/test.py`` (torch files with timm keys,
 strict; ``--use-ema`` picks the EMA stream ``train/checkpoint.py``
 writes); without one the server serves the seeded init.  Frames are
 ``.npy`` (uint8 H×W×3) or, where Pillow is installed, any image format.
+``--warmstart-dir`` keeps the built kernel libraries and the capture
+manifests in a store (``serving/warmstart.py``) that a fresh checkout or
+process reuses: a hit skips nvcc, and every capture of a stored unit is
+held to its golden-batch scores before ready.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import signal
@@ -78,6 +83,13 @@ def build_engine(cfg):
                         image_size=cfg.image_size, use_ema=cfg.use_ema,
                         name=cfg.model, device=cfg.device)
     metrics = ServingMetrics(throughput_window_s=cfg.throughput_window_s)
+    warmstart = None
+    if cfg.warmstart_dir:
+        from ..csrc import build as kernels
+        from ..serving.warmstart import WarmStore
+        warmstart = WarmStore(cfg.warmstart_dir)
+        kernels.set_store(warmstart)        # before the first kernel
+        _logger.info("warm-start store: %s", warmstart.root)
     engine = InferenceEngine(
         model, image_size=cfg.image_size, img_num=cfg.img_num,
         buckets=cfg.buckets, metrics=metrics, wire=cfg.wire,
@@ -87,7 +99,7 @@ def build_engine(cfg):
         breaker_threshold=cfg.breaker_threshold,
         breaker_open_s=cfg.breaker_open_s,
         reload_drift_tol=cfg.reload_drift_tol,
-        retry_jitter_s=cfg.retry_jitter_s,
+        retry_jitter_s=cfg.retry_jitter_s, warmstart=warmstart,
         warm_priority=cfg.warm_priority_buckets() or None)
     specs = cfg.model_specs()
     for spec in specs:
@@ -108,6 +120,7 @@ def build_engine(cfg):
                  list(cfg.buckets), 1 + len(specs),
                  " (staged)" if cfg.warm_staged else "")
     engine.warmup(staged=cfg.warm_staged)
+    _logger.info("warm start report: %s", json.dumps(engine.warm_report()))
     if engine.chaos.active:
         _logger.warning("DFD_CHAOS active: %s", sorted(engine.chaos.points))
     cache = None

@@ -50,6 +50,17 @@ row (``--guard-*``) rewind to the last snapshot; ``--watchdog-timeout``
 seconds without a step dump every thread's stack and exit 85.  The
 ``DFD_CHAOS`` points of ``chaos.py`` inject those faults.
 
+Observability (``obs/``): telemetry is on by default (``--no-telemetry``
+turns it off): the run directory's ``telemetry.jsonl`` gets one record a
+drain (the data / device / host breakdown of the window, throughput and
+the live MFU gauge against the card's dense bf16 peak) and the run's
+lifecycle events (``run_start``, ``resume``, ``rewind``, ``epoch_end``,
+``preempted``, ``run_end``); ``--metrics-port`` serves it as Prometheus
+text (``/metrics``, ``/healthz``); ``SIGUSR2`` or a ``PROFILE`` file in the
+run directory captures a ``torch.profiler`` trace of the next
+``--profile-capture`` steps under ``profile/``.  ``python
+tools/obs_report.py RUN_DIR`` summarizes a run.
+
 Training runs on ``--device cuda`` unless the caller asks for ``cpu`` (the
 plain PyTorch path the tests use).  Every flag of ``scripts/train.sh``
 parses; ``--augment-device off`` raises, naming its ROADMAP item; an
@@ -179,6 +190,12 @@ class TrainConfig:
     experiment: str = ""
     device: str = "cuda"
     attn_impl: str = ""
+    # observability (obs/): the telemetry tracker and its JSONL log,
+    # default on; a Prometheus endpoint (0 = off); the on-demand profiler
+    # window in steps (0 = no trigger)
+    no_telemetry: bool = False
+    metrics_port: int = 0
+    profile_capture: int = 20
 
     def resolved_lr(self, world_size: int = 1) -> float:
         """Linear LR scaling: ``batch × world × basic_lr`` unless ``lr``."""
@@ -290,9 +307,22 @@ def parse_args(argv=None) -> TrainConfig:
                    help="torch device; the CPU runs the plain PyTorch path")
     p.add_argument("--attn-impl", default=d.attn_impl,
                    help="ViT/TimeSformer attention: full | flash")
+    p.add_argument("--no-telemetry", action="store_true",
+                   help="no telemetry.jsonl, /metrics or profiler triggers")
+    p.add_argument("--metrics-port", type=int, default=d.metrics_port,
+                   help="serve /metrics and /healthz on this port (0: off)")
+    p.add_argument("--profile-capture", type=int, default=d.profile_capture,
+                   help="steps a SIGUSR2/PROFILE-file trace captures "
+                        "(0: off)")
     ns = vars(p.parse_args(argv))
     if ns["augment_device"] == "off":
         raise NotImplementedError(f"--augment-device off: {HOST_CHAIN_ITEM}")
+    if not 0 <= ns["metrics_port"] <= 65535:
+        raise ValueError(f"--metrics-port must be in [0, 65535], got "
+                         f"{ns['metrics_port']}")
+    if ns["profile_capture"] < 0:
+        raise ValueError(f"--profile-capture must be >= 0, got "
+                         f"{ns['profile_capture']}")
     return TrainConfig(**ns)
 
 
@@ -481,6 +511,36 @@ def _position(meta: Dict[str, Any], num_batches: int) -> Tuple[int, int]:
     return int(meta.get("epoch", -1)) + 1, 0
 
 
+def _observe(cfg: TrainConfig, run: Run, output_dir: str, resilience):
+    """``(telemetry, metrics server, profiler)`` of the run, each None
+    where it is off: the tracker with its JSONL log in the run dir, its
+    collectors and the MFU inputs (the port's forward FLOP count, the
+    card's dense bf16 peak)."""
+    if cfg.no_telemetry:
+        return None, None, None
+    from ..obs import (EventLog, ProfilerCapture, TrainTelemetry,
+                       forward_flops_per_sample, loader_collector,
+                       peak_flops, resilience_collector,
+                       start_metrics_server)
+    c, h, w = cfg.input_size()
+    telemetry = TrainTelemetry(
+        event_log=EventLog(os.path.join(output_dir, "telemetry.jsonl")),
+        flops_per_sample=forward_flops_per_sample(run.state.model,
+                                                  (1, c, h, w)),
+        peak_flops=peak_flops(run.device),
+        meta=dict(model=cfg.model, global_batch=cfg.batch_size))
+    telemetry.register_collector(loader_collector(run.train_loader))
+    telemetry.register_collector(resilience_collector(resilience))
+    server = start_metrics_server(telemetry, port=cfg.metrics_port) \
+        if cfg.metrics_port else None
+    profiler = None
+    if cfg.profile_capture > 0:
+        profiler = ProfilerCapture(output_dir, num_steps=cfg.profile_capture,
+                                   telemetry=telemetry)
+        telemetry.profiler = profiler
+    return telemetry, server, profiler
+
+
 def main(cfg: TrainConfig) -> Dict[str, Any]:
     """Train to ``cfg.epochs``; returns the best eval metric and epoch,
     the last eval and train metrics, the train loader's counters
@@ -498,7 +558,9 @@ def main(cfg: TrainConfig) -> Dict[str, Any]:
                             bak_dir=os.path.join(output_dir, "_bak"))
     num_batches = len(run.train_loader)
     start_epoch, resume_batch = cfg.start_epoch or 0, 0
+    resumed_from = ""
     if cfg.resume:
+        resumed_from = cfg.resume
         meta = restore_train_state(cfg.resume, state, not cfg.no_resume_opt)
         start_epoch = cfg.start_epoch if cfg.start_epoch is not None \
             else int(meta.get("epoch", -1)) + 1
@@ -510,6 +572,7 @@ def main(cfg: TrainConfig) -> Dict[str, Any]:
                                           not cfg.no_resume_opt)
         if restored is not None:
             meta, path = restored
+            resumed_from = path
             start_epoch, resume_batch = _position(meta, num_batches)
             _logger.info("Auto-resumed from %s (epoch %d, batch %d)", path,
                          start_epoch, resume_batch)
@@ -527,8 +590,23 @@ def main(cfg: TrainConfig) -> Dict[str, Any]:
     exit_code: Optional[int] = None
     rewinds = 0
     resilience = Resilience.from_config(cfg, output_dir=output_dir)
+    telemetry, obs_server, profiler = _observe(cfg, run, output_dir,
+                                               resilience)
+    if telemetry is not None:
+        telemetry.event("run_start", model=cfg.model, epochs=run.num_epochs,
+                        start_epoch=start_epoch,
+                        global_batch=cfg.batch_size, world_size=1,
+                        mesh_shape=[1, 1], axis_names=["batch", "model"],
+                        device=str(run.device))
+        if resumed_from:
+            telemetry.event("resume", path=resumed_from, epoch=start_epoch,
+                            batch=resume_batch)
     try:
         with resilience:
+            if profiler is not None and not profiler.install():
+                _logger.warning("not in the main thread: the SIGUSR2 "
+                                "profiler trigger is not installed (the "
+                                "PROFILE file trigger still works)")
             epoch = start_epoch
             while epoch < run.num_epochs:
                 run.train_loader.set_epoch(epoch)
@@ -542,7 +620,7 @@ def main(cfg: TrainConfig) -> Dict[str, Any]:
                         epoch, run.train_step, state, run.train_loader, cfg,
                         lr_scheduler=run.lr_scheduler, saver=saver,
                         args=args, start_batch=resume_batch,
-                        resilience=resilience)
+                        resilience=resilience, telemetry=telemetry)
                 except RewindRequested as e:
                     # K bad steps in a row: reload the last snapshot (the
                     # run's own, so with its optimizer) and replay from it
@@ -557,6 +635,9 @@ def main(cfg: TrainConfig) -> Dict[str, Any]:
                     meta, path = restored
                     rewinds += 1
                     _logger.warning("rewound to %s", path)
+                    if telemetry is not None:
+                        telemetry.event("rewind", reason=str(e),
+                                        restored_from=path)
                     epoch, resume_batch = _position(meta, num_batches)
                     if run.lr_scheduler is not None and resume_batch == 0 \
                             and epoch > 0:
@@ -577,6 +658,10 @@ def main(cfg: TrainConfig) -> Dict[str, Any]:
                         epoch + 1, eval_metrics[cfg.eval_metric]))
                 best_metric, best_epoch = saver.save_checkpoint(
                     state, args, epoch, metric=eval_metrics[cfg.eval_metric])
+                if telemetry is not None:
+                    telemetry.event("epoch_end", epoch=epoch, train={
+                        k: v for k, v in train_metrics.items()
+                        if k != "step_s"}, eval=dict(eval_metrics))
                 resilience.heartbeat(f"epoch {epoch} done")
                 epoch += 1
     except Preempted as e:
@@ -584,8 +669,20 @@ def main(cfg: TrainConfig) -> Dict[str, Any]:
         # (scripts/train_torch.sh) relaunches into --auto-resume on
         _logger.warning("%s; exiting with code %d", e, EXIT_PREEMPTED)
         exit_code = EXIT_PREEMPTED
+        if telemetry is not None:
+            telemetry.event("preempted", epoch=e.epoch, batch=e.batch_idx,
+                            signum=e.signum)
     finally:
         wait_pending_saves()
+        if profiler is not None:
+            profiler.close()            # stops a live trace, restores SIGUSR2
+        if obs_server is not None:
+            obs_server.shutdown()
+            obs_server.server_close()
+        if telemetry is not None:
+            telemetry.event("run_end", exit_code=exit_code,
+                            best_metric=best_metric, best_epoch=best_epoch)
+            telemetry.close()
     if exit_code is not None:
         raise SystemExit(exit_code)
     if best_metric is not None:

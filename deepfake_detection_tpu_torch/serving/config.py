@@ -9,13 +9,13 @@ default; ``cpu`` runs the plain PyTorch programs, for the tests).
 
 ``--dtype`` and a ``--models`` entry's ``dtype`` take f32, bf16 or int8
 (aliases float32, bfloat16): the weight-only PTQ of ``serving/quant.py``.
-The flags of pieces the port does not have yet parse, and raise
-``NotImplementedError`` naming their ROADMAP item when set away from their
-defaults: ``--warmstart-dir`` (the executable store of
-``serving/warmstart.py``; a CUDA graph cannot be serialized, item 10's warm
-start), and the XLA-only ``--compile-cache-dir`` and
-``--single-thread-xla``.  ``--warm-parallel`` above 1 raises too: the
-captures of one engine share one memory pool and run one at a time.
+``--warmstart-dir`` attaches the warm-start store of
+``serving/warmstart.py`` (the built kernel libraries and the capture
+manifests with their golden-batch scores; a CUDA graph itself cannot be
+serialized).  The XLA-only ``--compile-cache-dir`` and
+``--single-thread-xla`` parse and raise ``NotImplementedError`` when set,
+and so does ``--warm-parallel`` above 1: the captures of one engine share
+one memory pool and run one at a time.
 :class:`StreamConfig` inherits all of this, as the JAX one inherits
 ``ServeConfig`` (``deepfake_detection_tpu/config.py``).
 :class:`RouterConfig` is the fleet router's (``runners/router.py``), whose
@@ -252,7 +252,7 @@ class ServeConfig(FlagConfig):
     single_thread_xla: bool = False
 
     # --- warm start ---
-    warmstart_dir: str = ""              # not ported (raises when set)
+    warmstart_dir: str = ""              # the warm-start store's root
     compile_cache_dir: str = ""          # XLA-only (raises when set)
     # staged readiness: capture the first priority bucket, report /readyz
     # 200 in phase "degraded", capture the rest in the background
@@ -316,16 +316,11 @@ class ServeConfig(FlagConfig):
         if bad:
             raise ValueError(f"--warm-priority buckets {bad} not in "
                              f"--buckets {self.buckets}")
-        if self.warmstart_dir:
-            raise NotImplementedError(
-                "--warmstart-dir: the executable store of "
-                "serving/warmstart.py is not ported (a CUDA graph cannot be "
-                "serialized; ROADMAP Queue 1, item 10, warm start)")
         if self.compile_cache_dir:
             raise NotImplementedError(
                 "--compile-cache-dir is XLA's persistent compilation cache; "
-                "the port compiles no XLA (its kernels' build cache is "
-                "build/kernels/; ROADMAP Queue 1, item 10, warm start)")
+                "the port compiles no XLA: its warm start (ROADMAP Queue 1, "
+                "item 10) is the --warmstart-dir store")
         if self.single_thread_xla:
             raise NotImplementedError(
                 "--single-thread-xla caps XLA's CPU backend, which the port "

@@ -73,6 +73,21 @@ this one captures a CUDA graph.
   resident store.  A rejected reload leaves the live tensors, and so the
   scores, bitwise unchanged.
 
+* **Warm start** (``warmstart=``, serving/warmstart.py) — a CUDA graph
+  cannot be serialized, so a store holds what carries across processes:
+  the kernel libraries (``csrc/build.py`` consults the store before nvcc
+  and canaries what it loads) and one capture manifest per (model program,
+  bucket, chans, wire, quant) with the golden-batch scores and the params
+  fingerprint at save time.  Every unit is captured; on a manifest hit the
+  golden-batch canary (:meth:`_warm_canary`) replays the capture: bitwise
+  the manifest's scores under the same fingerprint, else finite and of the
+  right shape (and the manifest is re-stamped).  On a miss or a fallback
+  the manifest is saved after the capture.  A canary reject rebuilds the
+  libraries that came from the store by nvcc (under new file names: a
+  graph holds its library's function addresses, and no library is ever
+  unloaded) and captures every unit of every entry again.  The store's and
+  the libraries' counts land in the ``warmstart_*`` counters.
+
 * **Self-healing** (serving/resilience.py) — the JAX engine's contracts,
   each counted in /metrics and reachable through ``DFD_CHAOS``
   (``serve_exc`` / ``serve_nan`` / ``serve_hang`` / ``serve_kill`` /
@@ -86,6 +101,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import hashlib
 import logging
 import os
 import tempfile
@@ -98,6 +114,7 @@ import torch
 
 from ..cache.content import tree_fingerprint
 from ..chaos import chaos_from_env
+from ..csrc import build as kernels
 from ..models.helpers import load_state_dict
 from ..ops import depthwise as dw
 from ..params import image_max_height, img_mean, img_num as _default_img_num, \
@@ -109,6 +126,7 @@ from .quant import (canonical_mode, module_forward, ptq_names,
                     strip_module)
 from .resilience import (CircuitBreaker, EngineStalled, NonFiniteScores,
                          ServeWatchdog, torn_copy)
+from .warmstart import WarmstartMiss
 
 _logger = logging.getLogger(__name__)
 
@@ -317,11 +335,15 @@ class InferenceEngine:
                  breaker_open_s: float = 5.0,
                  reload_drift_tol: float = -1.0,
                  retry_jitter_s: float = 2.0,
+                 warmstart=None,
                  warm_priority: Optional[Sequence[int]] = None,
                  chaos=None):
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"invalid buckets {buckets}")
+        #: warm-start store (serving/warmstart.py) or None: warmup holds
+        #: every capture of a stored unit to its manifest's golden scores
+        self.warmstart = warmstart
         self._warm_priority = tuple(int(b) for b in (warm_priority or ()))
         bad = [b for b in self._warm_priority if b not in self.buckets]
         if bad:
@@ -667,6 +689,18 @@ class InferenceEngine:
             "inflight": int(self.metrics.inflight),
         }
 
+    def warm_report(self) -> Dict[str, Any]:
+        """What warmup made of the kernel libraries (each one's store books
+        and nvcc runs, ``csrc/build.library_counts``) and the kernel
+        launches each program's capture recorded, by model and
+        ``<bucket>x<chans>``."""
+        return {"kernels": kernels.library_counts(),
+                "capture_launches": {
+                    mid: {f"{b}x{c}": dict(p.launches) for (b, c), p in
+                          sorted(list(e.compiled.items()),
+                                 key=lambda kv: kv[0])}
+                    for mid, e in list(self._models.items())}}
+
     def _warm_order(self) -> Tuple[int, ...]:
         """Bucket warm order: the configured priority first, remaining
         buckets smallest-first."""
@@ -741,7 +775,9 @@ class InferenceEngine:
     def _warm_entry(self, entry: _ModelEntry,
                     buckets: Optional[Sequence[int]] = None) -> None:
         """Make one entry's programs for ``buckets`` (None = the full warm
-        order), run every new one once, then take the golden baseline."""
+        order), run every new one once, hold each to the warm-start store
+        (canary on a hit, save on a miss), then take the golden
+        baseline."""
         warm_buckets = tuple(buckets) if buckets is not None \
             else self._warm_order()
         s = entry.image_size
@@ -749,12 +785,26 @@ class InferenceEngine:
         units = [(b, chans) for chans in self._entry_chans(entry)
                  for b in warm_buckets if (b, chans) not in entry.compiled]
         t_compile0 = time.monotonic()
+        libs0 = kernels.store_totals()
         for unit in units:
             self._build_program(entry, *unit)
         self.metrics.warmup_seconds["compile"] += \
             time.monotonic() - t_compile0
         for b, chans in units:
             self._run(entry, b, chans, np.zeros((b, s, s, chans), dtype))
+        if self.warmstart is not None:
+            self._warm_store(entry, units)
+        # the kernel libraries' store books, built during these captures
+        libs = kernels.store_totals() - libs0
+        for key, counter in (
+                ("hits", self.metrics.warmstart_hits_total),
+                ("misses", self.metrics.warmstart_misses_total),
+                ("fallbacks", self.metrics.warmstart_fallbacks_total),
+                ("canary_rejects",
+                 self.metrics.warmstart_canary_rejects_total),
+                ("serialized", self.metrics.warmstart_serialized_total)):
+            if libs[key]:
+                counter.inc(libs[key])
         # golden canary batch: a fixed seeded input whose scores under the
         # CURRENT weights baseline the reload canary (and its drift
         # tolerance), tied to the smallest bucket
@@ -766,6 +816,135 @@ class InferenceEngine:
             entry.golden_ref = self._run(entry, self.buckets[0],
                                          base_chans, entry.golden)
         entry.warmed = True
+
+    # ------------------------------------------------------------------
+    # warm-start store
+    # ------------------------------------------------------------------
+    def _store_fields(self, entry: _ModelEntry, bucket: int,
+                      chans: int) -> Dict[str, Any]:
+        """The complete store key fields of one capture (see
+        serving/warmkey.py).  The program hash digests the module's repr,
+        the state_dict's (name, shape, dtype) (weights are not in it:
+        checkpoints of one architecture share entries), the normalization
+        constants and the kernel libraries' source digests."""
+        from . import warmkey
+        h = hashlib.sha256()
+        h.update(repr(entry.model).encode())
+        for name, shape in sorted(entry.var_shapes.items()):
+            h.update(f"{name}{shape}".encode())
+        for a in (entry.mean, entry.std, entry.mean_multi, entry.std_multi):
+            h.update(a.detach().cpu().numpy().tobytes())
+        for digest in kernels.library_digests():
+            h.update(digest.encode())
+        if self.graphs:
+            major, minor = torch.cuda.get_device_capability(self.device)
+            kind, capability = (torch.cuda.get_device_name(self.device),
+                                f"{major}.{minor}")
+        else:
+            kind, capability = "cpu", ""
+        return warmkey.key_fields(
+            device_kind=kind, capability=capability, program=h.hexdigest(),
+            geometry={"image_size": entry.image_size,
+                      "img_num": entry.img_num,
+                      "multi_frame": entry.multi_frame,
+                      "model_class": type(entry.model).__name__},
+            bucket=bucket, chans=chans, wire=self.wire, quant=entry.dtype)
+
+    def _warm_store(self, entry: _ModelEntry,
+                    units: Sequence[Tuple[int, int]]) -> None:
+        """Hold each new unit to the store: on a manifest hit the golden
+        canary, on a miss or a fallback a save; a reject recaptures every
+        unit (on rebuilt libraries) and saves the rejected units over."""
+        rejected = []
+        for unit in units:
+            fields = self._store_fields(entry, *unit)
+            try:
+                manifest = self.warmstart.load(fields)
+            except WarmstartMiss as e:
+                if e.reason == "absent":
+                    self.metrics.warmstart_misses_total.inc()
+                else:
+                    self.metrics.warmstart_fallbacks_total.inc()
+                    _logger.warning("warmstart: %s bucket %d (%dch): %s",
+                                    entry.model_id, unit[0], unit[1], e)
+                self._store_save(entry, unit, fields)
+                continue
+            self.metrics.warmstart_hits_total.inc()
+            if not self._warm_canary(entry, unit, fields, manifest):
+                rejected.append((unit, fields))
+        if rejected:
+            self._recapture_all()
+            for unit, fields in rejected:
+                self._store_save(entry, unit, fields)
+
+    def _warm_canary(self, entry: _ModelEntry, unit: Tuple[int, int],
+                     fields: Dict[str, Any],
+                     manifest: Dict[str, Any]) -> bool:
+        """Golden-batch gate of one capture of a stored unit: finite,
+        shape-correct scores and, when the manifest was written under the
+        entry's checkpoint (the fingerprint matches), bitwise the manifest's.
+        A fingerprint-skewed entry that passes has its manifest re-stamped
+        so the next same-checkpoint start regains the bitwise gate."""
+        from . import warmkey
+        bucket, chans = unit
+        why = ""
+        scores = None
+        try:
+            scores = self._run(entry, bucket, chans, self._warm_golden_input(
+                entry, bucket, chans))
+        except Exception as e:                         # noqa: BLE001
+            why = f"replay failed: {e}"
+        if why == "" and (scores.ndim != 2 or scores.shape[0] != bucket):
+            why = f"scores shape {scores.shape} for bucket {bucket}"
+        if why == "" and not np.isfinite(scores).all():
+            why = "non-finite scores"
+        same_ckpt = manifest.get("params_fingerprint") == entry.fingerprint
+        if why == "" and same_ckpt:
+            try:
+                ref = warmkey.decode_array(manifest["golden_scores"])
+            except Exception as e:                     # noqa: BLE001
+                why = f"manifest golden scores unreadable: {e}"
+            else:
+                if ref.shape != scores.shape or \
+                        not np.array_equal(ref, scores):
+                    why = ("scores not bitwise the manifest's (same "
+                           "checkpoint fingerprint)")
+        if why:
+            self.metrics.warmstart_canary_rejects_total.inc()
+            _logger.error("warmstart: canary REJECTED the capture of %s "
+                          "bucket %d (%dch): %s; recapturing every unit",
+                          entry.model_id, bucket, chans, why)
+            return False
+        if not same_ckpt:
+            self.warmstart.refresh_manifest(
+                fields, golden_scores=scores,
+                params_fingerprint=entry.fingerprint)
+        return True
+
+    def _store_save(self, entry: _ModelEntry, unit: Tuple[int, int],
+                    fields: Dict[str, Any]) -> None:
+        scores = self._run(entry, *unit, self._warm_golden_input(entry,
+                                                                 *unit))
+        if self.warmstart.save(fields, golden_scores=scores,
+                               params_fingerprint=entry.fingerprint):
+            self.metrics.warmstart_serialized_total.inc()
+
+    def _recapture_all(self) -> None:
+        """After a canary reject: nvcc the libraries that came from the
+        store again (new file names; the old ones stay mapped) and capture
+        every unit of every entry again, so no graph replays a rejected
+        library's functions."""
+        rebuilt = kernels.rebuild_store_libraries()
+        with self._recover_lock:
+            entries = list(self._models.values())
+        for entry in entries:
+            s = entry.image_size
+            _, dtype = self._entry_wire_spec(entry)
+            for b, chans in sorted(entry.compiled):
+                self._build_program(entry, b, chans)
+                self._run(entry, b, chans, np.zeros((b, s, s, chans), dtype))
+        _logger.warning("warmstart: rebuilt libraries %s and recaptured every "
+                        "unit", rebuilt)
 
     def _rewarm(self) -> None:
         """Run every program of every model once against the serving

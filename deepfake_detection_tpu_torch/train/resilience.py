@@ -231,9 +231,10 @@ class StallWatchdog:
     ``dump_path``: the all-thread stack dump also lands in this file
     (``<outdir>/watchdog_dump.txt``) — stderr is routinely lost when the
     restart wrapper relaunches, and a post-mortem needs the stacks.
-    ``beats_total`` counts the beats.  (The JAX class's telemetry gauges,
-    ``near_miss_total`` and ``beat_age``, wait for the port's telemetry,
-    ROADMAP Queue 1 item 8.)
+    Telemetry counters: ``beats_total``; ``near_miss_total`` counts beats
+    that arrived with the previous beat older than half the timeout — a
+    run skating toward an abort shows up as a rising gauge before it dies;
+    :meth:`beat_age` is the seconds since the last beat.
     """
 
     def __init__(self, timeout: float,
@@ -249,13 +250,21 @@ class StallWatchdog:
         self._last = time.monotonic()
         self._seen_beat = False
         self.beats_total = 0
+        self.near_miss_total = 0
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
     def beat(self) -> None:
-        self._last = time.monotonic()
+        now = time.monotonic()
+        if self._seen_beat and now - self._last > 0.5 * self.timeout:
+            self.near_miss_total += 1
+        self._last = now
         self._seen_beat = True
         self.beats_total += 1
+
+    def beat_age(self) -> float:
+        """Seconds since the last heartbeat (telemetry gauge)."""
+        return time.monotonic() - self._last
 
     def start(self) -> None:
         if self.timeout <= 0 or self._thread is not None:

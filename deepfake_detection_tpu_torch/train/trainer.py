@@ -1,11 +1,11 @@
 """Epoch-level training and validation loops.
 
 Counterparts of ``train_one_epoch`` and ``validate`` in
-``deepfake_detection_tpu/train/trainer.py``, with its resilience hooks and
-chaos points, without telemetry or the profiler (ROADMAP Queue 1 item 8).
-The train step returns device scalars; the loop buffers them and reads
-them back only at the log interval and at the last batch, so the host
-keeps queueing steps while the card works.  A buffered step whose loss or
+``deepfake_detection_tpu/train/trainer.py``, with its resilience hooks,
+chaos points, telemetry and on-demand profiler.  The train step returns
+device scalars; the loop buffers them and reads them back only at the log
+interval and at the last batch, so the host keeps queueing steps while the
+card works.  A buffered step whose loss or
 guard flag is not finite is counted and logged, and its loss stays out of
 the average.
 
@@ -18,6 +18,12 @@ snapshot every that many batches and at the epoch's last one.  The
 ``DFD_CHAOS`` points ``nanbatch`` (a NaN batch), ``truncate_ckpt`` (tear
 the newest snapshot) and ``sigterm`` (signal itself) count optimizer
 updates.
+
+With a ``telemetry`` (``obs/telemetry.py``) the loop hands it each step's
+host seconds and, at each drain, how long the read-back blocked: the
+window's data / device / host breakdown and the MFU gauge, with no read
+of a device tensor added.  Its ``profiler`` (``obs/profiler.py``) gets a
+window check a step and a trigger-file check a drain.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ __all__ = ["train_one_epoch", "validate"]
 def train_one_epoch(epoch: int, train_step: Callable, state: TrainState,
                     loader, cfg, lr_scheduler=None, saver=None,
                     args: Optional[Dict[str, Any]] = None,
-                    start_batch: int = 0, resilience=None):
+                    start_batch: int = 0, resilience=None, telemetry=None):
     """One epoch over ``loader``; returns ``(state, metrics)`` with the
     epoch's average ``loss`` and ``prec1``, the ``learning_rate``, the count
     of ``nonfinite`` steps and the host seconds of each step
@@ -69,6 +75,11 @@ def train_one_epoch(epoch: int, train_step: Callable, state: TrainState,
     if chaos is not None and not chaos.active:
         chaos = None
     recovery_interval = getattr(cfg, "recovery_interval", 0)
+    # telemetry window: how long drains blocked (device-bound time) and how
+    # many drained steps were bad, since the last record
+    drain_wait_acc = 0.0
+    drain_bad_acc = 0
+    profiler = getattr(telemetry, "profiler", None)
 
     def save_recovery(batch_idx: int, sync: bool = False) -> None:
         if saver is not None:
@@ -76,7 +87,8 @@ def train_one_epoch(epoch: int, train_step: Callable, state: TrainState,
                                 num_updates, sync=sync)
 
     def drain() -> None:
-        nonlocal nonfinite_total
+        nonlocal nonfinite_total, drain_wait_acc, drain_bad_acc
+        t_drain = time.perf_counter()
         for m, n, step_i in pending:
             loss_value = float(m["loss"])
             bad = not np.isfinite(loss_value)
@@ -84,6 +96,7 @@ def train_one_epoch(epoch: int, train_step: Callable, state: TrainState,
                 bad = bad or float(m["nonfinite"]) > 0
             if bad:
                 nonfinite_total += 1
+                drain_bad_acc += 1
                 _logger.warning(
                     "non-finite training step at update %d (loss %r%s)",
                     step_i, loss_value,
@@ -96,6 +109,9 @@ def train_one_epoch(epoch: int, train_step: Callable, state: TrainState,
                 # raises RewindRequested after K consecutive bad steps
                 resilience.observe_step(step_i, loss_value, bad)
         pending.clear()
+        # the reads above are the loop's only synchronizing calls, so their
+        # block time IS the device-bound share of the window
+        drain_wait_acc += time.perf_counter() - t_drain
 
     end = time.perf_counter()
     for batch_idx, batch in enumerate(loader, start=start_batch):
@@ -115,6 +131,11 @@ def train_one_epoch(epoch: int, train_step: Callable, state: TrainState,
             drain()
         batch_time_m.update(time.perf_counter() - end)
         step_s.append(batch_time_m.val)
+        if telemetry is not None:
+            # host floats the loop already holds: no device access
+            telemetry.on_step(bs, data_time_m.val, batch_time_m.val)
+        if profiler is not None:
+            profiler.on_step(num_updates, metrics.get("loss"))
         if log_now:
             lr = get_learning_rate(state) or 0.0
             _logger.info(
@@ -126,9 +147,20 @@ def train_one_epoch(epoch: int, train_step: Callable, state: TrainState,
                 batch_time_m.avg, batch_time_m.val / bs,
                 batch_time_m.avg / bs, lr, data_time_m.val,
                 data_time_m.avg)
+            if telemetry is not None:
+                telemetry.on_drain(
+                    epoch=epoch, batch_idx=batch_idx,
+                    num_updates=num_updates, loss=losses_m.avg,
+                    prec1=prec1_m.avg, lr=lr, drain_wait_s=drain_wait_acc,
+                    nonfinite_steps=drain_bad_acc)
+                drain_wait_acc, drain_bad_acc = 0.0, 0
+            if profiler is not None:
+                profiler.poll()         # PROFILE trigger file: 1 stat a drain
         if recovery_interval and (
                 last_batch or (batch_idx + 1) % recovery_interval == 0):
             save_recovery(batch_idx)
+            if telemetry is not None:
+                telemetry.inc("recovery_snapshots_total")
         if chaos is not None and saver is not None and \
                 chaos.fires("truncate_ckpt", num_updates):
             _chaos_truncate(saver.curr_recovery_file or saver.find_recovery())
@@ -147,6 +179,8 @@ def train_one_epoch(epoch: int, train_step: Callable, state: TrainState,
                 # the state after this step, on disk before the exit
                 drain()
                 save_recovery(batch_idx, sync=True)
+                if telemetry is not None:
+                    telemetry.inc("recovery_snapshots_total")
                 raise Preempted(epoch, batch_idx, resilience.stop_signum)
         end = time.perf_counter()
     return state, OrderedDict([("loss", losses_m.avg),

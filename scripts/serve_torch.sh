@@ -13,7 +13,10 @@
 # POST /score takes .npy frames (uint8 H x W x 3) without Pillow, other
 # image formats where Pillow is installed.  --device cpu runs the same
 # programs eagerly (tests).  --dtype bf16|int8 quantize the served
-# weights (weight-only PTQ, realized inside each graph); --warmstart-dir,
-# --compile-cache-dir and --single-thread-xla raise (not ported).
+# weights (weight-only PTQ, realized inside each graph).
+# --warmstart-dir STORE keeps the built kernel libraries and the capture
+# manifests (golden-batch scores) in a store a fresh checkout reuses: a
+# hit skips nvcc, and each capture is held to its stored scores.  The
+# XLA-only --compile-cache-dir and --single-thread-xla raise.
 python -m deepfake_detection_tpu_torch.runners.serve \
     --model-path "${MODEL_PATH:-../models/model_best.pth.tar}" "$@"

@@ -14,7 +14,8 @@
 #     http://127.0.0.1:8378/streams/ID/frames
 # JPEG, MJPEG and image/* chunks need Pillow and answer 501 without it;
 # video/* needs an ffmpeg binary (501 without).  --device cpu runs the
-# same programs eagerly (tests); --warmstart-dir, --compile-cache-dir and
-# --single-thread-xla raise (not ported).
+# same programs eagerly (tests).  --warmstart-dir STORE reuses the kernel
+# libraries and capture manifests of an earlier start (serve_torch.sh);
+# the XLA-only --compile-cache-dir and --single-thread-xla raise.
 python -m deepfake_detection_tpu_torch.runners.stream \
     --model-path "${MODEL_PATH:-../models/model_best.pth.tar}" "$@"

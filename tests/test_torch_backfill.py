@@ -48,6 +48,7 @@ from deepfake_detection_tpu_torch.backfill.manifest import save_manifest
 from deepfake_detection_tpu_torch.backfill.source import (PackSource,
                                                           TreeSource)
 from deepfake_detection_tpu_torch.backfill.writer import verdict_path
+from deepfake_detection_tpu_torch.csrc import build as kernels
 from deepfake_detection_tpu_torch.models import create_model
 from deepfake_detection_tpu_torch.runners import backfill as t_runner
 from deepfake_detection_tpu_torch.runners.backfill import (BackfillConfig,
@@ -518,7 +519,28 @@ def test_every_jax_backfill_flag_is_a_port_flag_with_its_default():
     (["--warmstart-dir", "ws"], "item 10"),
     (["--compile-cache-dir", "cc"], "item 10"),
 ])
-def test_unported_backfill_flags_raise_naming_their_item(argv, item):
+def test_unported_backfill_flags_raise_naming_their_item(argv, item,
+                                                         tmp_path, corpus,
+                                                         ckpts):
+    if argv[0] == "--warmstart-dir":
+        # item 10 is ported: the flag is accepted and attaches the store; a
+        # second worker's capture passes the first one's golden scores
+        store = tmp_path / argv[1]
+        assert BackfillConfig.from_args(
+            ["--manifest", "m", "--out", "o", "--data-packed", "p",
+             "--warmstart-dir", str(store)]).warmstart_dir == str(store)
+        try:
+            first, second = (run_backfill(_cfg(
+                corpus, tmp_path / f"run{i}", ckpts[0], max_shards=1,
+                warmstart_dir=str(store))) for i in range(2))
+        finally:
+            kernels.set_store(None)
+        assert (first["warmstart_source"], second["warmstart_source"]) == \
+            ("compile", "store")
+        assert first["warmstart_fallback"] == \
+            second["warmstart_fallback"] == ""
+        assert len(list(store.glob("*.json"))) == 1
+        return
     with pytest.raises(NotImplementedError, match=item):
         BackfillConfig.from_args(["--manifest", "m", "--out", "o",
                                   "--data-packed", "p"] + argv)

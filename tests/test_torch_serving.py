@@ -51,6 +51,7 @@ from deepfake_detection_tpu.serving.http import \
     serve_forever_in_thread as j_serve_forever
 from deepfake_detection_tpu.serving.metrics import \
     ServingMetrics as JServingMetrics
+from deepfake_detection_tpu_torch.csrc import build as kernels
 from deepfake_detection_tpu_torch.models import (create_deepfake_model_v4,
                                                  create_model)
 from deepfake_detection_tpu_torch.params import (normalize_concat,
@@ -478,7 +479,28 @@ def test_every_jax_serve_flag_is_a_port_flag_with_its_default():
     (["--single-thread-xla"], "item 10"),
     (["--warm-parallel", "2"], "one at a time"),
 ])
-def test_unported_flags_raise_naming_their_roadmap_item(argv, item):
+def test_unported_flags_raise_naming_their_roadmap_item(argv, item,
+                                                        tmp_path):
+    if argv[0] == "--warmstart-dir":
+        # item 10 is ported: the flag is accepted and attaches the store;
+        # the second engine's capture hits the first one's manifest
+        store = str(tmp_path / argv[1])
+        cfg = ServeConfig.from_args(
+            ["--warmstart-dir", store, "--device", "cpu", "--model",
+             "efficientnet_b0", "--image-size", "32", "--img-num", "1",
+             "--buckets", "1"])
+        books = []
+        try:
+            for _ in range(2):
+                engine, _, metrics = serve_runner.build_engine(cfg)
+                assert engine.warmstart.root == store
+                books.append((metrics.warmstart_hits_total.value,
+                              metrics.warmstart_misses_total.value,
+                              metrics.warmstart_serialized_total.value))
+        finally:
+            kernels.set_store(None)
+        assert books == [(0, 1, 1), (1, 0, 0)]
+        return
     with pytest.raises(NotImplementedError, match=item):
         ServeConfig.from_args(argv)
 

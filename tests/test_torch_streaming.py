@@ -45,6 +45,7 @@ from deepfake_detection_tpu.streaming import ring as j_ring
 from deepfake_detection_tpu.streaming import tracker as j_tracker
 from deepfake_detection_tpu.streaming import verdict as j_verdict
 from deepfake_detection_tpu.streaming import windows as j_windows
+from deepfake_detection_tpu_torch.csrc import build as kernels
 from deepfake_detection_tpu_torch.models import create_model
 from deepfake_detection_tpu_torch.params import (img_mean, img_std,
                                                  normalize_concat,
@@ -322,7 +323,7 @@ def test_framestack_gather_matches_jax(wire):
     np.testing.assert_array_equal(ps.materialize(), got)
 
 
-def test_stream_config_flags_match_jax():
+def test_stream_config_flags_match_jax(tmp_path):
     """Every JAX ``StreamConfig`` field, with its default; the port adds
     ``--device`` (cuda by default); the XLA-only and warm-start flags
     raise, as in the port's ``ServeConfig``."""
@@ -335,10 +336,23 @@ def test_stream_config_flags_match_jax():
                                   "--buckets", "1,4", "--device", "cpu"])
     assert (cfg.window_hop, cfg.dedup_frames, cfg.buckets) == (2, True,
                                                               (1, 4))
-    for flag in (["--warmstart-dir", "x"], ["--compile-cache-dir", "x"],
-                 ["--single-thread-xla"]):
+    for flag in (["--compile-cache-dir", "x"], ["--single-thread-xla"]):
         with pytest.raises(NotImplementedError):
             StreamConfig.from_args(flag)
+    # item 10 is ported: the stream server's engine attaches the store
+    store = str(tmp_path / "ws")
+    srv = stream_runner.build_stream_server(StreamConfig.from_args(
+        ["--warmstart-dir", store, "--device", "cpu", "--model", MODEL,
+         "--image-size", str(SIZE), "--img-num", str(NUM), "--buckets", "1",
+         "--port", "0"]))
+    try:
+        assert srv.engine.warmstart.root == store
+        assert srv.engine.metrics.warmstart_serialized_total.value == 1
+    finally:
+        kernels.set_store(None)
+        srv.manager.shutdown()
+        srv.batcher.close()
+        srv.server_close()
     for bad in (["--fake-enter", "0.4"], ["--verdict-ema-alpha", "0"],
                 ["--assembly", "x"], ["--window-hop", "-1"]):
         with pytest.raises(ValueError):
