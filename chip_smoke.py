@@ -16,6 +16,14 @@ before the result line:
    every instantiation of the depthwise forward and dx kernels, ptxas'
    registers and spills, and the card's registers, local bytes, largest
    dynamic shared memory and resident blocks per SM;
+2a. JPEG decode (``jpeg``): the port's own decoder
+   (``native/jpeg_decode.cc``) built by the host C++ compiler (timed);
+   every fixture of ``tests/data/jpeg`` decoded to its committed
+   libjpeg-turbo digest (the CMYK one declined), the committed truncation
+   and bit-flip sweeps over one baseline and one progressive fixture each
+   equal to the CPU's digest or None as committed; ms a frame on one
+   thread (640² and 640×480, 4:2:0) and the pool's frames/s at 1, 4 and 8
+   threads;
 3. forward kernel vs plain: the depthwise kernel at every depthwise shape
    of the flagship ``efficientnet_deepfake_v4`` at a 600² input (batch 1,
    the inference path's, and batch 2; f32, TF32 off), bf16 on a few of them,
@@ -86,7 +94,13 @@ before the result line:
    wall and device ms, graph replay against the eager forward; clips/s,
    p50 and p99 at 1, 8 and 32 clients posting 4-frame ``.npy`` clips at
    600² for 3 s each (a child interpreter's threads; the batch histogram
-   from ``/metrics``); a NaN batch (503, then 200), a hang (the watchdog
+   from ``/metrics``); the JPEG row: the four 640² fixtures as a multipart
+   clip, its scores bitwise those of the same frames decoded and sent as
+   ``.npy``, then 32 clients for 3 s with each body (clips/s, p50/p99,
+   ``preprocess`` ms side by side), the host's ms a frame on one idle
+   thread of the decode and of the 640² → 600² canvas, and the launches
+   of the JPEG requests alone (``serve_jpeg``; the ``.npy`` twins' stay
+   with ``serve``); a NaN batch (503, then 200), a hang (the watchdog
    fails it 503, replays every graph, no capture), a perturbed checkpoint
    hot-reloaded (the graph then equal to an eager forward of it), a torn
    one rejected (scores bitwise); a second model added live under load
@@ -143,25 +157,30 @@ before the result line:
    1e-6 of the card CLI's ``--clip`` on the same frames, and a planted
    verdict vector (``0.05*4,0.95*8``, EMA 0.3) that must give exactly
    real→suspect at window 6 and suspect→fake at window 10; on the uint8
-   wire 1, 4 and 16 streams pushing ``application/x-dfd-raw`` 640×480
+   wire 1 and 4 streams pushing ``application/x-dfd-raw`` 640×480
    chunks of 8 frames at 30 frames/s for 3 s each (a child interpreter):
    frames/s, windows scored/s, ack p50 and p99, the mean stage ms of the
    streaming histograms, ring overflow, elided copies, each stream's books
    exact (emitted = scored + dropped + shed + failed + cache hits +
-   duplicates), no program and no capture after ready, and at 16 streams
+   duplicates), no program and no capture after ready, and at 4 streams
    the device's busy share (each bucket's profiled batch × its batches,
-   over the level's wall); the depthwise launches 55 × replays; then
+   over the level's wall); the MJPEG row: a stream of MJPEG chunks of the
+   two 640×480 fixtures and one of the raw chunks of their decodes, a
+   window at a time, windows bitwise equal, then 4 MJPEG streams at 30
+   frames/s for 3 s, every chunk 200, books exact (frames/s and the
+   ``decode`` stage ms), the MJPEG chunks' launches counted alone
+   (``stream_mjpeg``; the raw twin's stay with ``stream``); the depthwise
+   launches 55 × replays; then
    ``runners.stream`` as a child with ``--state-dir``: seconds to
    ``/readyz`` 200, two streams pushed, SIGTERM → exit 0 and two
    snapshots, the relaunch restores both and their windows and verdicts
    continue from the snapshot;
 13. the fleet router (``router``): ``runners.router`` as a child process
-   spawning N = 1, 2 and 4 serve replicas of the same checkpoint (each its
+   spawning N = 1 and 2 serve replicas of the same checkpoint (each its
    own process, uint8 wire, buckets 1, 4, 16, ``--device cuda``): seconds
    to ready with N cold starts at once and each replica's warmup stages,
    6 captures a replica and none after ready, P(fake) through the router
-   bitwise the card CLI, 32 closed-loop clients for 3 s (and 64 at N = 4)
-   with clips/s, p50/p99, statuses, the replicas' stage ms, each replica's
+   bitwise the card CLI, 32 closed-loop clients for 3 s with clips/s, p50/p99, statuses, the replicas' stage ms, each replica's
    share of the forwards, device memory by process (``nvidia-smi
    --query-compute-apps``), nvidia-smi's sampled ``utilization.gpu`` and
    the router's CPU ms a relay, router books exact (routed = cache hits +
@@ -202,7 +221,11 @@ before the result line:
    kernels 55 times a step each; then the same run with
    ``--no-telemetry``: the same launches a step, the same synchronizing
    calls a drain (``torch.cuda.set_sync_debug_mode`` warnings) and step
-   ms within the runs' spread;
+   ms within the runs' spread; then the same clips and lists as ``.jpg``
+   frames only (the four 640² fixtures, no ``.npy``) and as the ``.npy``
+   of their decodes: the first batches bitwise equal, and 4 steps of each
+   (ms a step, host wait), 55/55/55 launches a step, each tree's counted
+   alone (``train_jpeg``; the ``.npy`` twin's go to ``train_data``);
 16. ``train_amp``: the same tree with ``scripts/train.sh``'s whole argument
    list (``--amp``, ``--auto-resume``, ``--recovery-interval`` 3, one
    epoch): every depthwise launch of the bf16 instantiations (55/55/55 a
@@ -297,6 +320,7 @@ from deepfake_detection_tpu_torch.data.device_augment import (
 from deepfake_detection_tpu_torch.data.loader import Prologue
 from deepfake_detection_tpu_torch.data.random_erasing import \
     draw_random_erasing
+from deepfake_detection_tpu_torch.data import native as jpeg_native
 from deepfake_detection_tpu_torch.data.dataset import read_rgb
 from deepfake_detection_tpu_torch.data.packed import write_pack
 from deepfake_detection_tpu_torch.fleet.autoscaler import replay_trace
@@ -477,6 +501,101 @@ def jpeg_probe() -> dict:
                              timeout=60)
         out["jpeg_lib_version"] = run.stdout.strip()
     return out
+
+
+# the port's JPEG decoder (data/native.py): the committed fixtures, their
+# libjpeg-turbo digests and the sweeps (tests/torch_jpeg_fixtures.py)
+JPEG_DIR = ROOT / "tests" / "data" / "jpeg"
+JPEG_FACES = tuple(f"face{i}" for i in range(4))      # 640², 4:2:0, q90
+JPEG_STREAMS = ("stream0", "stream1")                 # 640×480, 4:2:0, q85
+JPEG_POOL_THREADS = (1, 4, 8)
+JPEG_POOL_FRAMES = 64                                 # frames a pool call
+JPEG_TRAIN_STEPS = 4
+
+
+def jpeg_bytes(name: str) -> bytes:
+    return (JPEG_DIR / f"{name}.jpg").read_bytes()
+
+
+def _sha(arr: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def _sweep_case(data: bytes, case: list) -> bytes:
+    """One committed sweep case: ``["trunc", n]`` or ``["flip", pos,
+    bit]``."""
+    if case[0] == "trunc":
+        return data[:case[1]]
+    b = bytearray(data)
+    b[case[1]] ^= 1 << case[2]
+    return bytes(b)
+
+
+def phase_jpeg() -> dict:
+    """The port's JPEG decoder on the card's host: built by the host C++
+    compiler (timed); every committed fixture decoded to its committed
+    libjpeg-turbo digest, the declined one declined; the committed
+    truncation and bit-flip sweeps over one baseline and one progressive
+    fixture, each case its CPU digest or None as committed; ms a frame on
+    one thread (640² and 640×480, 4:2:0) and the pool's frames/s at 1, 4
+    and 8 threads."""
+    t0 = time.perf_counter()
+    info = jpeg_native.build_info()
+    build_s = time.perf_counter() - t0
+    digests = json.loads((JPEG_DIR / "digests.json").read_text())
+    fixtures, bad = {}, []
+    for name, entry in sorted(digests["fixtures"].items()):
+        reasons = []
+        arr = jpeg_native.decode_jpeg_bytes(jpeg_bytes(name),
+                                            reasons=reasons)
+        got = "declined" if arr is None else _sha(arr)
+        fixtures[name] = got == entry["sha256"]
+        if got != entry["sha256"]:
+            bad.append((name, got, reasons))
+    sweeps = {}
+    for name, rows in sorted(digests["sweeps"].items()):
+        data = jpeg_bytes(name)
+        wrong = []
+        for case, want in rows:
+            arr = jpeg_native.decode_jpeg_bytes(_sweep_case(data, case))
+            got = None if arr is None else _sha(arr)[:16]
+            if got != want:
+                wrong.append((case, got, want))
+        sweeps[name] = dict(cases=len(rows), equal=len(rows) - len(wrong),
+                            declined=sum(w is None for _, w in rows),
+                            wrong=wrong[:5])
+        bad += [(name, w) for w in wrong]
+    single = {}
+    for name in (JPEG_FACES[0], JPEG_STREAMS[0]):
+        data = jpeg_bytes(name)
+        times = []
+        for _ in range(30):
+            s = time.perf_counter()
+            jpeg_native.decode_jpeg_bytes(data)
+            times.append(time.perf_counter() - s)
+        single[name] = dict(shape=list(jpeg_native.decode_jpeg_bytes(
+            data).shape), ms_median=float(np.median(times[5:])) * 1e3,
+            ms_min=float(np.min(times)) * 1e3)
+    frames = [jpeg_bytes(JPEG_FACES[i % 4]) for i in range(JPEG_POOL_FRAMES)]
+    pool = {}
+    for n in JPEG_POOL_THREADS:
+        p = jpeg_native.DecodePool(n)
+        try:
+            p.decode_buffers(frames)
+            s = time.perf_counter()
+            for _ in range(3):
+                p.decode_buffers(frames)
+            pool[str(n)] = 3 * JPEG_POOL_FRAMES / (time.perf_counter() - s)
+        finally:
+            p.close()
+    emit(phase="jpeg", nvidia_smi=nvidia_smi_line(), cpu_count=os.cpu_count(),
+         compiler=info["compiler"], build_s=info["build_s"],
+         first_use_s=build_s, library=Path(info["library"]).name,
+         fixtures_bitwise=fixtures, sweeps=sweeps,
+         single_thread=single, pool_frames_per_s_640sq=pool, bad=bad[:5])
+    if bad:
+        raise AssertionError(f"the JPEG decoder on this host: {bad[:5]}")
+    return dict(single=single, pool=pool, build_s=info["build_s"])
 
 
 def call_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1344,6 +1463,76 @@ def _perturbed_file(ckpt_path: Path, dst: Path, seed: int) -> None:
     os.replace(tmp, dst)
 
 
+def _host_stage_ms(fn, iters: int = 10) -> dict:
+    """Median and least wall ms of ``fn()`` on this thread, alone."""
+    fn()
+    ms = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return dict(ms_median=float(np.median(ms)), ms_min=float(min(ms)))
+
+
+def _serve_jpeg(srv, size: int) -> dict:
+    """The JPEG row of the uint8 server: the four 640² fixtures as one
+    multipart clip, its scores bitwise those of the same frames decoded
+    and sent as ``.npy``; then 32 clients for 3 s posting each body (the
+    ``.npy`` one of the decoded frames beside it), and the host's ms a
+    frame, on one idle thread, of the decode and of the 640² → ``size``
+    canvas.  Returns the rows and the depthwise launches of the replays
+    the JPEG requests alone caused."""
+    port = srv.server_address[1]
+    faces = [jpeg_bytes(n) for n in JPEG_FACES]
+    decoded = [jpeg_native.decode_jpeg_bytes(b) for b in faces]
+    bodies = {"jpeg": _multipart(faces),
+              "npy": _multipart(_npy_bytes(d) for d in decoded)}
+    host = dict(decode=_host_stage_ms(
+        lambda: jpeg_native.decode_jpeg_bytes(faces[0])),
+        canvas_640=_host_stage_ms(lambda: prepare_canvas(decoded[0], size)),
+        canvas_600=_host_stage_ms(lambda: prepare_canvas(
+            np.ascontiguousarray(decoded[0][:size, :size]), size)))
+
+    launches = 0
+
+    def counted(kind, fn):
+        # the depthwise launches of the JPEG requests alone: the .npy
+        # twins' replays stay with the serve path
+        nonlocal launches
+        before = srv.engine.launch_counts().get("depthwise_fwd", 0)
+        out = fn()
+        if kind == "jpeg":
+            launches += srv.engine.launch_counts().get("depthwise_fwd", 0) \
+                - before
+        return out
+
+    answers = {k: counted(k, lambda: _http(port, "POST", "/score", *b))
+               for k, b in bodies.items()}
+    bitwise = all(st == 200 for st, _ in answers.values()) and \
+        answers["jpeg"][1]["scores"] == answers["npy"][1]["scores"]
+    rows = {}
+    for kind in ("npy", "jpeg"):
+        before = _bucket_rows(port)
+        row = counted(kind, lambda: _load(port, *bodies[kind],
+                                          SERVE_CLIENTS[-1], SERVE_LOAD_S))
+        row.update(wire="uint8", body_bytes=len(bodies[kind][0]),
+                   buckets=_histogram(before, _bucket_rows(port)))
+        rows[kind] = row
+        if row["statuses"] != {"200": row["statuses"].get("200", 0)}:
+            raise AssertionError(f"JPEG serve load: non-200 answers {row}")
+    emit(phase="serve_jpeg", nvidia_smi=nvidia_smi_line(),
+         fixtures=list(JPEG_FACES), scores_bitwise_npy_wire=bitwise,
+         p_fake={k: a[1].get("fake_score") for k, a in answers.items()},
+         jpeg=rows["jpeg"], npy=rows["npy"], launches=launches,
+         host_ms_per_frame=host,
+         body="4 frames at 640² (JPEG 4:2:0 q90, or their decodes as .npy),"
+              " multipart")
+    if not bitwise:
+        raise AssertionError(f"JPEG clip scores {answers['jpeg']} are not "
+                             f"the .npy wire's {answers['npy']}")
+    return dict(rows=rows, launches=launches)
+
+
 def phase_serve(ckpt_path: Path, files: list, cli: dict, size: int = 600,
                 device: str = "cuda") -> dict:
     """The serving replica on the card: the calibrated flagship of
@@ -1462,6 +1651,7 @@ def phase_serve(ckpt_path: Path, files: list, cli: dict, size: int = 600,
     emit(phase="serve_speed", nvidia_smi=nvidia_smi_line(),
          batch_1=batch1, load=loads, cli_clips_per_s=CLI_CLIPS_PER_S,
          body="4 .npy frames at 600², multipart")
+    jpeg = _serve_jpeg(u8, size)
 
     # 5. resilience: NaN batch, hang, reload, torn reload
     port = u8.server_address[1]
@@ -1621,8 +1811,9 @@ def phase_serve(ckpt_path: Path, files: list, cli: dict, size: int = 600,
     torch.cuda.empty_cache()
     sys.setswitchinterval(old_switch)
     emit(phase="serve", replay_launches=dict(launches),
-         captures=capture_count() - caps0)
-    return dict(launches=launches["depthwise_fwd"], peak_gib=u8_peak,
+         captures=capture_count() - caps0, jpeg_launches=jpeg["launches"])
+    return dict(launches=launches["depthwise_fwd"] - jpeg["launches"],
+                jpeg_launches=jpeg["launches"], peak_gib=u8_peak,
                 big_peak_gib=big_peak)
 
 
@@ -2021,7 +2212,7 @@ STREAM_HW = (480, 640)            # a webcam or video-call feed, RGB
 STREAM_TOL = 1e-6                 # P(fake), a window against the card CLI
 STREAM_VECTOR = "0.05*4,0.95*8"   # planted scores, EMA alpha 0.3
 STREAM_TRANSITIONS = [("real", "suspect", 6), ("suspect", "fake", 10)]
-STREAM_LEVELS = (1, 4, 16)        # concurrent streams
+STREAM_LEVELS = (1, 4)            # concurrent streams (16 cut for time)
 STREAM_FPS = 30.0                 # frames/s a stream
 STREAM_CHUNK = 8                  # frames a POST
 STREAM_LOAD_S = 3.0
@@ -2048,7 +2239,8 @@ def _raw_headers() -> dict:
 
 
 # the stream pushers: a child interpreter, one thread a stream, each
-# opening its stream and posting raw chunks paced at STREAM_FPS
+# opening its stream and posting chunks paced at STREAM_FPS: raw chunks of
+# seeded frames, or the one body of a file with its Content-Type
 _STREAM_CLIENTS = r"""
 import http.client, json, sys, threading, time
 import numpy as np
@@ -2056,11 +2248,15 @@ port, streams, seconds, fps, chunk, prefix = (int(sys.argv[1]),
     int(sys.argv[2]), float(sys.argv[3]), float(sys.argv[4]),
     int(sys.argv[5]), sys.argv[6])
 h, w = 480, 640
-rng = np.random.default_rng(5)
-bodies = [rng.integers(0, 256, (chunk, h, w, 3), dtype=np.uint8).tobytes()
-          for _ in range(4)]
-headers = {"Content-Type": "application/x-dfd-raw",
-           "X-Frame-Width": str(w), "X-Frame-Height": str(h)}
+if len(sys.argv) > 7:
+    bodies = [open(sys.argv[7], "rb").read()] * 4
+    headers = {"Content-Type": sys.argv[8]}
+else:
+    rng = np.random.default_rng(5)
+    bodies = [rng.integers(0, 256, (chunk, h, w, 3),
+                           dtype=np.uint8).tobytes() for _ in range(4)]
+    headers = {"Content-Type": "application/x-dfd-raw",
+               "X-Frame-Width": str(w), "X-Frame-Height": str(h)}
 acks, statuses, lock = [], {}, threading.Lock()
 period = chunk / fps
 
@@ -2114,11 +2310,13 @@ def _books_balanced(s) -> bool:
     return s.windows_emitted == sum(getattr(s, k) for k in STREAM_BOOKS)
 
 
-def _stream_load(srv, streams: int, smi: str) -> dict:
+def _stream_load(srv, streams: int, smi: str, body: bytes = None,
+                 ctype: str = "", prefix: str = "") -> dict:
     """``streams`` pushers for ``STREAM_LOAD_S`` (a child interpreter),
-    then the in-flight windows drained: frames/s, windows/s, ack
-    percentiles, the mean stage ms, ring overflow and elided copies, each
-    stream's books (exact), and the batches by bucket."""
+    posting raw chunks, or ``body`` as ``ctype`` where given, then the
+    in-flight windows drained: frames/s, windows/s, ack percentiles, the
+    mean stage ms, ring overflow and elided copies, each stream's books
+    (exact), and the batches by bucket."""
     port = srv.server_address[1]
     m, eng = srv.manager.metrics, srv.engine
     before = dict(frames=m.frames_ingested_total.value,
@@ -2126,11 +2324,17 @@ def _stream_load(srv, streams: int, smi: str) -> dict:
                   overflow=m.ring_overflow_total.value,
                   elided=m.canvas_copies_elided_total.value,
                   stages=_stage_sums(m), replays=_replays(eng))
-    prefix = f"s{streams}_"
+    prefix = f"{prefix}s{streams}_"
+    extra = []
+    if body is not None:
+        path = OUT / f"stream_body_{prefix}.bin"
+        path.write_bytes(body)
+        extra = [str(path), ctype]
     proc = subprocess.run(
         [sys.executable, "-c", _STREAM_CLIENTS, str(port), str(streams),
-         str(STREAM_LOAD_S), str(STREAM_FPS), str(STREAM_CHUNK), prefix],
-        capture_output=True, text=True, timeout=STREAM_LOAD_S + 300)
+         str(STREAM_LOAD_S), str(STREAM_FPS), str(STREAM_CHUNK), prefix,
+         *extra], capture_output=True, text=True,
+        timeout=STREAM_LOAD_S + 300)
     if proc.returncode != 0:
         raise AssertionError(f"stream pushers failed: {proc.stderr[-2000:]}")
     got = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -2298,6 +2502,83 @@ def _stream_restart(ckpt_path: Path, smi: str, size: int,
     return dict(ready_s=[one["ready_s"], two["ready_s"]])
 
 
+def _mjpeg_chunk(blobs) -> bytes:
+    return b"".join(b"--f\r\nContent-Type: image/jpeg\r\n\r\n" + b
+                    + b"\r\n" for b in blobs) + b"--f--\r\n"
+
+
+MJPEG_CTYPE = "multipart/x-mixed-replace; boundary=f"
+
+
+def _stream_mjpeg(srv, smi: str) -> dict:
+    """The MJPEG row of the uint8 stream server, built from the two
+    640×480 fixtures: one stream of MJPEG chunks and one of the raw chunks
+    of the same frames decoded, a window at a time (each scored alone, at
+    bucket 1), whose windows must be bitwise equal; then 4 streams of
+    MJPEG chunks of 8 frames at 30 frames/s for 3 s, every chunk 200 and
+    the books exact.  Returns the row and the depthwise launches of the
+    replays the MJPEG streams alone caused (the raw twin's stay with the
+    stream path)."""
+    eng = srv.engine
+    port = srv.server_address[1]
+    launches = 0
+    blobs = [jpeg_bytes(JPEG_STREAMS[i % 2]) for i in range(STREAM_CHUNK)]
+    frames = [jpeg_native.decode_jpeg_bytes(b) for b in blobs]
+    scores = {}
+    forward = srv.dispatcher._on_result
+
+    def record(job, sc, err):
+        if sc is not None:
+            scores[(job.stream_id, job.window_idx)] = float(sc[0])
+        forward(job, sc, err)
+
+    srv.dispatcher._on_result = record
+    try:
+        for sid in ("mjpeg_parity", "raw_parity"):
+            _http(port, "POST", "/streams",
+                  json.dumps({"stream_id": sid}).encode())
+        for w in range(2):
+            part = slice(4 * w, 4 * w + 4)
+            for sid, body, headers in (
+                    ("mjpeg_parity", _mjpeg_chunk(blobs[part]),
+                     {"Content-Type": MJPEG_CTYPE}),
+                    ("raw_parity", b"".join(f.tobytes()
+                                            for f in frames[part]),
+                     _raw_headers())):
+                before = eng.launch_counts().get("depthwise_fwd", 0)
+                st, ack = _http(port, "POST", f"/streams/{sid}/frames",
+                                body, headers=headers)
+                if st != 200 or ack["decode_errors"]:
+                    raise AssertionError(f"push {sid}: {st} {ack}")
+                deadline = time.monotonic() + 60
+                while srv.manager.get(sid).windows_scored < w + 1:
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"{sid} never scored")
+                    time.sleep(0.01)
+                if sid == "mjpeg_parity":
+                    launches += eng.launch_counts().get("depthwise_fwd", 0) \
+                        - before
+    finally:
+        srv.dispatcher._on_result = forward
+    got = [scores.get(("mjpeg_parity", w)) for w in range(2)]
+    want = [scores.get(("raw_parity", w)) for w in range(2)]
+    for sid in ("mjpeg_parity", "raw_parity"):
+        srv.manager.close(sid)
+    before = eng.launch_counts().get("depthwise_fwd", 0)
+    row = _stream_load(srv, 4, smi, body=_mjpeg_chunk(blobs),
+                       ctype=MJPEG_CTYPE, prefix="mjpeg_")
+    launches += eng.launch_counts().get("depthwise_fwd", 0) - before
+    row.update(fixtures=list(JPEG_STREAMS), windows_bitwise_raw=got == want,
+               p_fake_mjpeg=got, p_fake_raw=want,
+               decode_ms_per_chunk=row["stage_mean_ms"].get("decode"),
+               chunk_bytes=len(_mjpeg_chunk(blobs)))
+    emit(phase="stream_mjpeg", launches=launches, **row)
+    if got != want or None in got or not row["books_exact"] \
+            or row["statuses"] != {"200": row["statuses"].get("200", 0)}:
+        raise AssertionError(f"MJPEG streams: {row}")
+    return dict(row=row, launches=launches)
+
+
 def phase_stream(ckpt_path: Path, size: int = 600,
                  device: str = "cuda") -> dict:
     """The streaming runner on the card: the calibrated flagship behind
@@ -2306,9 +2587,9 @@ def phase_stream(ckpt_path: Path, size: int = 600,
     localizer), on localhost HTTP.  Float32 wire: one stream of 8 raw
     640×480 frames whose windows match the card CLI's ``--clip`` within
     1e-6, and a planted verdict vector's exact transitions.  Uint8 wire:
-    1, 4 and 16 streams pushing raw 640×480 chunks at 30 frames/s for 3 s
+    1 and 4 streams pushing raw 640×480 chunks at 30 frames/s for 3 s
     each (frames/s, windows/s, ack percentiles, stage ms, exact books, no
-    capture after ready; the device's busy share at 16).  Then the runner
+    capture after ready; the device's busy share at 4).  Then the runner
     as a child: SIGTERM with ``--state-dir`` and resume.  Returns the
     launches of the engines' replays and the numbers."""
     smi = nvidia_smi_line()
@@ -2403,7 +2684,7 @@ def phase_stream(ckpt_path: Path, size: int = 600,
     for sid in ("parity", "planted"):
         f32.manager.close(sid)
 
-    # 2. load, uint8 wire: 1, 4 and 16 streams
+    # 2. load, uint8 wire: 1 and 4 streams
     u8 = servers["uint8"][0]
     compiles = u8.engine.compile_count
     loads = []
@@ -2426,6 +2707,10 @@ def phase_stream(ckpt_path: Path, size: int = 600,
                 or u8.engine.compile_count != compiles \
                 or capture_count() != caps_ready:
             raise AssertionError(f"stream load at {streams}: {row}")
+
+    mjpeg = _stream_mjpeg(u8, smi)
+    if u8.engine.compile_count != compiles or capture_count() != caps_ready:
+        raise AssertionError("the MJPEG streams added programs or captures")
 
     # launches: captures × replays of both engines (profiling included)
     launches = Counter()
@@ -2452,18 +2737,20 @@ def phase_stream(ckpt_path: Path, size: int = 600,
     restart = _stream_restart(ckpt_path, smi, size, device)
     emit(phase="stream", nvidia_smi=smi, replay_launches=dict(launches),
          captures=capture_count() - caps0, peak_mem_gib_over_base=peak,
-         ready_s=restart["ready_s"])
-    return dict(launches=launches["depthwise_fwd"], loads=loads,
-                parity=diff, peak_gib=peak, ready_s=restart["ready_s"])
+         ready_s=restart["ready_s"], mjpeg_launches=mjpeg["launches"])
+    return dict(launches=launches["depthwise_fwd"] - mjpeg["launches"],
+                mjpeg_launches=mjpeg["launches"], loads=loads,
+                mjpeg=mjpeg["row"], parity=diff, peak_gib=peak,
+                ready_s=restart["ready_s"])
 
 
 # ---------------------------------------------------------------------------
 # the fleet router (runners/router.py): N port replicas on one card
 # ---------------------------------------------------------------------------
 
-ROUTER_FLEETS = (1, 2, 4)         # serve replicas spawned behind the router
+ROUTER_FLEETS = (1, 2)            # serve replicas spawned behind the router
+# (N = 4 and its 64-client row cut for time)
 ROUTER_CLIENTS = 32
-ROUTER_BIG_CLIENTS = 64           # at the largest fleet
 ROUTER_LOAD_S = 3.0
 ROUTER_KILL_AT_S = 1.5            # into the failover load
 ROUTER_SURVIVOR_S = 3.0
@@ -2607,7 +2894,14 @@ class _Fleet:
             if got:
                 return got
             if time.monotonic() > deadline:
-                raise AssertionError(f"router {self.name}: {what}")
+                try:
+                    doc = _http(self.port, "GET", "/readyz", timeout=5)
+                except OSError as e:
+                    doc = repr(e)
+                raise AssertionError(
+                    f"router {self.name}: {what}; /readyz {doc}; its log "
+                    f"(the replicas' too) ends: "
+                    f"{self.log_path.read_text()[-6000:]}")
             time.sleep(0.1)
 
     def ready(self, n: int) -> float:
@@ -3051,10 +3345,10 @@ def phase_router(ckpt_path: Path, files: list, cli: dict,
                  device: str = "cuda") -> dict:
     """The fleet router on the card, as a child process in front of N
     spawned replicas of the port (each its own process, CUDA context and
-    graphs): at N = 1, 2 and 4 serve replicas the seconds to ready with N
+    graphs): at N = 1 and 2 serve replicas the seconds to ready with N
     cold starts at once and each replica's warmup stages, scores through
-    the router bitwise the card CLI, 32 closed-loop clients for 3 s (64
-    more at N = 4) with clips/s, latency, the replicas' stage ms, each
+    the router bitwise the card CLI, 32 closed-loop clients for 3 s with
+    clips/s, latency, the replicas' stage ms, each
     replica's share, device memory by process, nvidia-smi's sampled
     utilization and the router's CPU a relay, exact books and no capture
     after ready; the edge cache at N = 1, a SIGKILLed replica at N = 2;
@@ -3084,14 +3378,11 @@ def phase_router(ckpt_path: Path, files: list, cli: dict,
             ready_s[n] = ready["ready_s"]
             row = dict(replicas=n, nvidia_smi=smi, ready=ready,
                        parity=_fleet_parity(fleet, files, cli), load=[])
-            levels = [ROUTER_CLIENTS] + ([ROUTER_BIG_CLIENTS]
-                                         if n == ROUTER_FLEETS[-1] else [])
-            for clients in levels:
-                row["load"].append(_fleet_load(fleet, body, ctype, clients,
-                                               ROUTER_LOAD_S,
-                                               ready["captures"]))
-                emit(phase="router_load", replicas=n, nvidia_smi=smi,
-                     **row["load"][-1])
+            row["load"].append(_fleet_load(fleet, body, ctype,
+                                           ROUTER_CLIENTS, ROUTER_LOAD_S,
+                                           ready["captures"]))
+            emit(phase="router_load", replicas=n, nvidia_smi=smi,
+                 **row["load"][-1])
             if n == ROUTER_FLEETS[0]:
                 row["edge_cache"] = _edge_cache_row(
                     fleet, reload_dir, ckpt_path, Path(files[0]).read_bytes(),
@@ -3997,6 +4288,106 @@ def _telemetry_off(root: Path, tr: dict, obs: dict) -> dict:
     return row
 
 
+def fixture_tree(root: Path, ext: str) -> Path:
+    """``make_clip_tree``'s clips and lists with frame ``i`` of every clip
+    the 640² fixture ``face{i % 4}``: as that JPEG (``ext`` "jpg", no
+    ``.npy`` beside it) or as its decode (``ext`` "npy")."""
+    shutil.rmtree(root, ignore_errors=True)
+    faces = [jpeg_bytes(n) for n in JPEG_FACES]
+    decoded = [jpeg_native.decode_jpeg_bytes(b) for b in faces]
+    for kind, n in (("real", TREE_REALS), ("fake", TREE_FAKES)):
+        lines = []
+        for c in range(n):
+            nf = (2, 3, 4, 5, 6, 4)[c % 6]
+            d = root / kind / f"clip{c:03d}"
+            d.mkdir(parents=True)
+            for i in range(nf):
+                if ext == "jpg":
+                    (d / f"{i}.jpg").write_bytes(faces[i % 4])
+                else:
+                    np.save(d / f"{i}.npy", decoded[i % 4])
+            lines.append(f"clip{c:03d}:{nf}\n")
+        (root / f"{kind}_list.txt").write_text("".join(lines))
+    return root
+
+
+def _train_steps(cfg, steps: int) -> dict:
+    """``runners.train``'s setup and ``steps`` train steps fed by its
+    loader, each synchronized: ms a step (from the loader's call to the
+    step's end) and the host's wait in the loader, the first step left
+    out of both means; the losses."""
+    run = train_runner.setup(cfg)
+    run.train_loader.set_epoch(0)
+    it = iter(run.train_loader)
+    step_ms, wait_ms, losses_ = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        x, y = next(it)
+        t1 = time.perf_counter()
+        m = run.train_step(run.state, x, y)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        wait_ms.append((t1 - t0) * 1e3)
+        losses_.append(float(m["loss"]))
+    it.close()
+    del run, it
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(ms_per_step=float(np.mean(step_ms[1:])),
+                host_wait_ms_per_step=float(np.mean(wait_ms[1:])),
+                step_ms=step_ms, wait_ms=wait_ms, loss=losses_)
+
+
+def _train_jpeg(main_numbers: dict) -> dict:
+    """The train tree as JPEG frames only (the four 640² fixtures) and as
+    the ``.npy`` of their decodes: the first batch of each loader bitwise
+    equal; ``JPEG_TRAIN_STEPS`` steps of each with ``scripts/train.sh``'s
+    data and augment flags (f32), ms a step and host wait side by side;
+    55/55/55 depthwise launches a step, counted for each tree's run alone
+    (the ``.npy`` twin's are returned apart, for the train_data path)."""
+    jroot = fixture_tree(OUT / "tree_jpeg", "jpg")
+    nroot = fixture_tree(OUT / "tree_jpeg_npy", "npy")
+    out = OUT / "train_jpeg"
+    cfgs = {k: train_runner.parse_args(DATA_FLAGS + [
+        "--data", str(r), "--output", str(out)])
+        for k, r in (("jpeg", jroot), ("npy", nroot))}
+    first = {}
+    for k, c in cfgs.items():
+        tl, _ = train_runner.build_loaders(c, torch.device(DATA_DEVICE),
+                                           *train_runner.build_datasets(c))
+        tl.set_epoch(0)
+        it = iter(tl)
+        first[k] = next(it)
+        it.close()
+    bitwise = torch.equal(first["jpeg"][0], first["npy"][0]) and \
+        torch.equal(first["jpeg"][1], first["npy"][1])
+    del first
+    rows, counts = {}, {}
+    for k, c in cfgs.items():
+        _reset_counts()
+        rows[k] = _train_steps(c, JPEG_TRAIN_STEPS)
+        counts[k] = _counts()
+    launches = counts["jpeg"]
+    want = (55 * JPEG_TRAIN_STEPS,) * 3
+    shutil.rmtree(out, ignore_errors=True)
+    emit(phase="train_jpeg", nvidia_smi=nvidia_smi_line(),
+         first_batch_bitwise=bitwise, steps=JPEG_TRAIN_STEPS,
+         jpeg=rows["jpeg"], npy=rows["npy"], train_data=dict(
+             ms_per_step=main_numbers["ms_per_step"],
+             host_wait_ms_per_step=main_numbers["host_wait_ms_per_step"]),
+         launches=launches, npy_launches=counts["npy"],
+         expected_launches=want, fixtures=list(JPEG_FACES))
+    if not bitwise or launches != want or counts["npy"] != want or not all(
+            np.isfinite(r["loss"]).all() for r in rows.values()):
+        raise AssertionError(f"the JPEG tree: first batch bitwise "
+                             f"{bitwise}, launches {counts} (expected "
+                             f"{want} each), losses "
+                             f"{[r['loss'] for r in rows.values()]}")
+    keys = ("forward_launches", "dx_launches", "dwgrad_launches")
+    return dict(zip(keys, launches), npy=dict(zip(keys, counts["npy"])),
+                rows=rows)
+
+
 def phase_train_data(frame: str, synthetic: dict) -> dict:
     """``runners.train`` from a clip tree with ``scripts/train.sh``'s data
     and augment flags on the flagship, f32; the prologue card against CPU;
@@ -4043,7 +4434,10 @@ def phase_train_data(frame: str, synthetic: dict) -> dict:
                "bytes": sum(int(s_["num_samples"]) for s_ in index["shards"])
                * TREE_HW * TREE_HW * 12, "first_two_batches_bitwise": True},
          synthetic=synthetic, **tr["numbers"])
-    return dict(root=root, numbers=tr["numbers"], **tr["launches"])
+    jpeg = _train_jpeg(tr["numbers"])
+    # the .npy twin of the JPEG tree is this path's tree again
+    return dict(root=root, numbers=tr["numbers"], jpeg=jpeg,
+                **{k: n + jpeg["npy"][k] for k, n in tr["launches"].items()})
 
 
 def train_sh_flags(root: Path) -> list:
@@ -5210,6 +5604,7 @@ def main() -> int:
                 for name, path in libs.items()},
          libraries=[path.name for path in libs.values()])
     PHASE_S["build"] = build_s
+    jpeg = timed("jpeg", phase_jpeg)
     timed("flash_kernels", phase_flash_kernels, libs)
     timed("depthwise_kernels", phase_depthwise_kernels, libs)
 
@@ -5293,6 +5688,7 @@ def main() -> int:
                              f"{_flash_counts()} in this process")
     emit(phase="cold_start", nvidia_smi=smi, kernel_build_s=build_s,
          kernels_built="all six sources, one nvcc each, in parallel",
+         jpeg_decoder_build_s=jpeg["build_s"],
          serve=quant["cold"], backfill=dict(
              load_s=bf["run1"]["load_s"], capture_s=bf["run1"]["capture_s"],
              dedup_s=bf["run1"]["dedup_s"], ready_s=bf["run1"]["ready_s"]),
@@ -5324,7 +5720,8 @@ def main() -> int:
     PHASE_S["card_vs_cpu"] = time.perf_counter() - t0
     emit(phase="seconds", of="card_vs_cpu", s=PHASE_S["card_vs_cpu"])
 
-    dw_paths = {"train": t, "train_data": td, "train_amp": ta, "resume": rs}
+    dw_paths = {"train": t, "train_data": td, "train_jpeg": td["jpeg"],
+                "train_amp": ta, "resume": rs}
 
     def by_path(key, **extra):
         out = dict(extra, **{p: r[key] for p, r in dw_paths.items()})
@@ -5333,10 +5730,12 @@ def main() -> int:
     fwd_launches, fwd_paths = by_path("forward_launches",
                                       inference=infer_launches,
                                       serve=serve["launches"],
+                                      serve_jpeg=serve["jpeg_launches"],
                                       serve_quant=quant["launches"],
                                       backfill=bf["launches"],
                                       warmstart=ws["launches"],
                                       stream=st["launches"],
+                                      stream_mjpeg=st["mjpeg_launches"],
                                       router=rt["launches"])
     dx_launches, dx_paths = by_path("dx_launches")
     dwg_launches, dwg_paths = by_path("dwgrad_launches")

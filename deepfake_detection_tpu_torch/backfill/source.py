@@ -12,17 +12,18 @@ batch bucket against:
   not as garbage pixels mid-corpus).  Host cost per clip is one slab
   memcpy.
 * :class:`TreeSource` — the raw-tree path: frames read through the
-  dataset's frame source (``data/dataset.py::read_frame``: the ``.npy``
-  beside a frame when it exists, else Pillow where it is installed) and
+  dataset's frame source (``data/dataset.py::load_frames``: the ``.npy``
+  beside a frame when it exists, else the JPEG through the port's own
+  decoder, one pool call a clip) and
   resampled to a canonical resolution (``canonical_clip_array``), for
   corpora that were never packed.  Mixed source resolutions without an
   explicit ``image_size`` are a loud error naming the clip, never a
   shape-mismatched batch.
 
-A copy of ``deepfake_detection_tpu/backfill/source.py``.  The JAX tree
-source decodes JPEG through its native pool, which the port has not; the
-card has neither that nor Pillow, so a corpus scored there is packed or
-has ``.npy`` frames.
+A copy of ``deepfake_detection_tpu/backfill/source.py``.  Both tree
+sources decode JPEG through a native pool: the JAX package's links
+libjpeg, the port's is its own decoder (bitwise the same pixels), so a
+JPEG corpus is scored on the card as it stands, with no Pillow.
 """
 
 from __future__ import annotations

@@ -14,11 +14,15 @@ the JAX package's (``deepfake_detection_tpu/data/dataset.py``):
 * ``noise_fake`` flips a fake's label with the per-sample generator.
 
 Frame source: frame ``i`` of a clip is ``<clip>/<i>.npy`` (uint8 HWC RGB,
-read by numpy) when that file exists, else ``<clip>/<i>.jpg`` decoded by
-Pillow, imported only then (the card's machine has no Pillow; a tree of
-``.npy`` frames or a pack, ``data/packed.py``, needs none).  The paths the
-lists resolve to keep the JAX package's ``.jpg`` names, so both packages
-name the same frames.
+read by numpy) when that file exists, else ``<clip>/<i>.jpg``, decoded by
+the port's own JPEG decoder (``data/native.py``: no libjpeg, no Pillow,
+bitwise libjpeg-turbo), a clip's JPEG frames in one pool call, as the JAX
+package's ``_load_images`` does.  A JPEG the decoder declines (CMYK,
+12-bit, arithmetic-coded, a truncated progressive stream) goes to Pillow
+where Pillow imports, counted in :data:`decode_fallbacks`; without Pillow
+it is a ``ValueError`` naming the file and the reason.  Any other format is
+Pillow's, imported only then.  The paths the lists resolve to keep the JAX
+package's ``.jpg`` names, so both packages name the same frames.
 
 A dataset returns ``(uint8 (H, W, C) array, int label)`` once its
 transform is set, and takes the per-sample ``numpy.random.Generator`` of
@@ -28,9 +32,12 @@ transform is set, and takes the per-sample ``numpy.random.Generator`` of
 from __future__ import annotations
 
 import os
+import threading
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from . import native
 
 __all__ = ["SyntheticDataset", "DeepFakeClipDataset", "read_clip_list",
            "clip_frame_paths", "split_clips", "read_rgb", "read_frame",
@@ -39,35 +46,88 @@ __all__ = ["SyntheticDataset", "DeepFakeClipDataset", "read_clip_list",
 Clip = Tuple[str, int, int]            # (name, num_frames, root_index)
 
 
+_JPEG_EXTENSIONS = (".jpg", ".jpeg")
+
+#: JPEG frames the port's decoder declined and Pillow decoded instead
+decode_fallbacks = 0
+_fallbacks_lock = threading.Lock()      # the loader's threads count too
+
+
+def _is_jpeg_path(path) -> bool:
+    return str(path).lower().endswith(_JPEG_EXTENSIONS)
+
+
+def _read_pillow(img_file) -> np.ndarray:
+    try:
+        from PIL import Image
+    except ImportError as e:
+        ext = os.path.splitext(str(img_file))[1] or "(no extension)"
+        raise ImportError(f"reading {ext} images needs Pillow, which is not "
+                          f"installed; .npy frames need only numpy, and "
+                          f"JPEG frames the port's own decoder") from e
+    with Image.open(img_file) as im:
+        return np.asarray(im.convert("RGB"), np.uint8)
+
+
+def _declined_jpeg(path, reason: Optional[str]) -> np.ndarray:
+    """A JPEG the port's decoder declined: Pillow's decode where Pillow
+    imports (counted), else a ValueError naming the file and why."""
+    global decode_fallbacks
+    if not os.path.isfile(path):
+        raise FileNotFoundError(path)
+    try:
+        img = _read_pillow(path)
+    except ImportError:
+        raise ValueError(f"{path}: the port's JPEG decoder declined it "
+                         f"({reason}) and Pillow, the fallback, is not "
+                         f"installed") from None
+    with _fallbacks_lock:
+        decode_fallbacks += 1
+    return img
+
+
 def read_rgb(img_file) -> np.ndarray:
-    """uint8 HWC RGB frame from a ``.npy`` file (numpy) or any format
-    Pillow reads (Pillow imported only then)."""
+    """uint8 HWC RGB frame from a ``.npy`` file (numpy), a JPEG (the port's
+    decoder) or any other format Pillow reads (Pillow imported only
+    then)."""
     if str(img_file).endswith(".npy"):
         img = np.load(img_file, allow_pickle=False)
         if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
             raise ValueError(f"{img_file}: expected uint8 (H, W, 3), got "
                              f"{img.dtype} {img.shape}")
         return img
-    try:
-        from PIL import Image
-    except ImportError as e:
-        ext = os.path.splitext(str(img_file))[1] or "(no extension)"
-        raise ImportError(f"reading {ext} images needs Pillow, which is not "
-                          f"installed; .npy frames need only numpy") from e
-    with Image.open(img_file) as im:
-        return np.asarray(im.convert("RGB"), np.uint8)
+    if _is_jpeg_path(img_file):
+        reasons: list = []
+        img = native.decode_jpeg_file(str(img_file), reasons=reasons)
+        return img if img is not None else _declined_jpeg(img_file,
+                                                          reasons[0])
+    return _read_pillow(img_file)
+
+
+def _frame_file(path: str) -> str:
+    npy = os.path.splitext(path)[0] + ".npy"
+    return npy if os.path.isfile(npy) else path
 
 
 def read_frame(path: str) -> np.ndarray:
     """One frame of a clip: the ``.npy`` beside ``path`` when it exists,
     else ``path`` itself."""
-    npy = os.path.splitext(path)[0] + ".npy"
-    return read_rgb(npy if os.path.isfile(npy) else path)
+    return read_rgb(_frame_file(path))
 
 
 def load_frames(paths: Sequence[str]) -> List[np.ndarray]:
-    """A clip's frames; a path repeated by front-padding is read once."""
-    seen = {p: read_frame(p) for p in dict.fromkeys(paths)}
+    """A clip's frames; a path repeated by front-padding is read once, and
+    the clip's JPEG frames decode together on the decoder's pool."""
+    files = {p: _frame_file(p) for p in dict.fromkeys(paths)}
+    jpegs = [f for f in dict.fromkeys(files.values()) if _is_jpeg_path(f)]
+    decoded = {}
+    if jpegs:
+        reasons: list = []
+        arrays = native.default_pool().decode_files(jpegs, reasons=reasons)
+        for f, a, why in zip(jpegs, arrays, reasons):
+            decoded[f] = a if a is not None else _declined_jpeg(f, why)
+    seen = {p: decoded[f] if f in decoded else read_rgb(f)
+            for p, f in files.items()}
     return [seen[p] for p in paths]
 
 

@@ -16,8 +16,9 @@ requested parameters changed since packing, :class:`PackedShardCorrupt`
 when a shard's size or checksum is off (naming the shard and its samples).
 
 :func:`write_pack` reads frames through the dataset's frame source
-(``.npy`` beside the frame, else Pillow) and resizes, when asked, with the
-port's numpy copy of Pillow's bilinear filter (``params.py``).
+(``.npy`` beside the frame, else the JPEG through the port's own decoder,
+so a JPEG tree packs on the card with no Pillow) and resizes, when asked,
+with the port's numpy copy of Pillow's bilinear filter (``params.py``).
 """
 
 from __future__ import annotations

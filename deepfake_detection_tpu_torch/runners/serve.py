@@ -22,7 +22,8 @@ the same programs eagerly (the tests), and nothing falls back to it.
 Checkpoints load as in ``runners/test.py`` (torch files with timm keys,
 strict; ``--use-ema`` picks the EMA stream ``train/checkpoint.py``
 writes); without one the server serves the seeded init.  Frames are
-``.npy`` (uint8 H×W×3) or, where Pillow is installed, any image format.
+``.npy`` (uint8 H×W×3), JPEG (the port's own decoder) or, where Pillow is
+installed, any image format.
 ``--warmstart-dir`` keeps the built kernel libraries and the capture
 manifests in a store (``serving/warmstart.py``) that a fresh checkout or
 process reuses: a hit skips nvcc, and every capture of a stored unit is

@@ -28,8 +28,9 @@ Usage::
 
 ``--device`` defaults to ``cuda`` and raises without a card; ``cpu`` runs
 the same programs eagerly (the tests), and nothing falls back to it.
-Encoded frames (JPEG chunks, MJPEG multipart, ``image/*``) need Pillow;
-without it such a chunk answers 501 and the raw wire above still works.
+Encoded frames (JPEG chunks, MJPEG multipart, ``image/jpeg``) decode with
+the port's own JPEG decoder; other ``image/*`` formats need Pillow, and
+without it such a chunk answers 501 (the raw wire above still works).
 Window scores on the default ``--wire float32`` are bitwise the port CLI's
 ``runners/test.py --clip`` on the same frames
 (``tests/test_torch_streaming.py`` pins it).

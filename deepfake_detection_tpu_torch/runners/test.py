@@ -12,7 +12,8 @@ Usage::
         [--model-path PATH] [--image-size 600] [--clip] \\
         [--dtype f32|bf16|int8] [--device cuda]
 
-``.npy`` files hold uint8 HWC RGB frames and are read with numpy; other
+``.npy`` files hold uint8 HWC RGB frames and are read with numpy; JPEG
+files decode with the port's own decoder (``data/native.py``); other
 formats need Pillow.  ``--model-path`` is a torch file with timm's keys.
 ``--dtype bf16|int8`` quantizes the loaded f32 weights
 (``serving/quant.py``) and realizes them inside every forward: the serving

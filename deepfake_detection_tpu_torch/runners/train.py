@@ -19,7 +19,8 @@ loop around it is ``scripts/train_torch.sh``)::
         --auto-resume --recovery-interval 500
 
 ``ROOT`` holds ``real_list.txt``/``fake_list.txt`` (``name:num`` lines) and
-``{real,fake}/<clip>/<i>.npy`` frames (``<i>.jpg`` needs Pillow);
+``{real,fake}/<clip>/<i>.jpg`` frames (the port's own JPEG decoder, no
+Pillow) or the ``<i>.npy`` beside each;
 ``--data-packed DIR`` reads a pack of it instead (``data/packed.py``).
 ``--dataset synthetic`` trains on seeded noise clips (no augmentation), and
 the TimeSformer runs with ``--model timesformer_base_patch25_600

@@ -6,10 +6,13 @@ re-hosted on the port's engine, with its routes, bodies, status codes and
 ``Retry-After`` rules; ``multipart_boundary`` and ``split_multipart`` are
 copies.  Only the frame decode differs, because the card's machine has no
 Pillow: a blob that starts with numpy's magic ``\x93NUMPY`` is read by
-``np.load(allow_pickle=False)`` and must be uint8 (H, W, 3); any other blob
-goes through Pillow where it is installed; otherwise the answer is 400,
-saying that the format needs Pillow and that ``.npy`` frames need only
-numpy.
+``np.load(allow_pickle=False)`` and must be uint8 (H, W, 3); a JPEG (a blob
+that starts ``FF D8 FF``) is decoded by the port's own decoder
+(``data/native.py``, bitwise the libjpeg-turbo decode Pillow gives the JAX
+server); a JPEG that decoder declines, and any other format, goes through
+Pillow where it is installed.  Without Pillow the answer is 400: for a
+declined JPEG naming the reason, for another format saying that it needs
+Pillow and that ``.npy`` and JPEG frames need neither.
 
 ``http.server.ThreadingHTTPServer`` — one thread per connection, HTTP/1.1
 keep-alive — is deliberately boring: the real concurrency is the
@@ -62,6 +65,7 @@ from urllib.parse import parse_qs
 import numpy as np
 
 from ..cache import clip_phash, content_hash
+from ..data import native
 from ..params import normalize_concat, normalize_replicate, prepare_canvas
 from .batcher import DeadlineExceeded, MicroBatcher, QueueFull
 from .engine import InferenceEngine
@@ -76,13 +80,20 @@ __all__ = ["ServingServer", "make_server", "serve_forever_in_thread",
 _MAX_BODY = 32 * 1024 * 1024            # 32 MiB: generous for one image
 _NPY_MAGIC = b"\x93NUMPY"
 NEEDS_PILLOW = ("undecodable image payload: this format needs Pillow, which "
-                "is not installed; .npy frames (uint8 H×W×3) need only numpy")
+                "is not installed; .npy frames (uint8 H×W×3) need only numpy "
+                "and JPEG frames neither (the port decodes JPEG itself)")
+
+
+class DeclinedJpeg(ValueError):
+    """A JPEG the port's decoder declined, with no Pillow to fall back to."""
 
 
 def decode_frame(blob: bytes) -> np.ndarray:
-    """One request blob → uint8 (H, W, 3) RGB: ``.npy`` bytes by numpy,
-    anything else by Pillow (imported only then).  Raises ImportError
-    without Pillow and ValueError for an undecodable blob."""
+    """One request blob → uint8 (H, W, 3) RGB: ``.npy`` bytes by numpy, a
+    JPEG by the port's decoder, anything else (or a declined JPEG) by
+    Pillow, imported only then.  Raises ImportError for a non-JPEG format
+    without Pillow, :class:`DeclinedJpeg` for a declined JPEG without
+    Pillow and ValueError for an undecodable blob."""
     if blob.startswith(_NPY_MAGIC):
         try:
             img = np.load(io.BytesIO(blob), allow_pickle=False)
@@ -92,7 +103,21 @@ def decode_frame(blob: bytes) -> np.ndarray:
             raise ValueError(f"expected a uint8 (H, W, 3) array, got "
                              f"{img.dtype} {img.shape}")
         return img
-    from PIL import Image
+    declined = None
+    if native.is_jpeg(blob):
+        reasons: list = []
+        img = native.decode_jpeg_bytes(blob, reasons=reasons)
+        if img is not None:
+            return img
+        declined = reasons[0]
+    try:
+        from PIL import Image
+    except ImportError:
+        if declined is None:
+            raise
+        raise DeclinedJpeg(f"undecodable image payload: the port's JPEG "
+                           f"decoder declined it ({declined}) and Pillow "
+                           f"is not installed") from None
     try:
         with Image.open(io.BytesIO(blob)) as img:
             return np.asarray(img.convert("RGB"), np.uint8)
@@ -285,6 +310,8 @@ class _Handler(BaseHTTPRequestHandler):
                 frames.append(decode_frame(blob))
             except ImportError:
                 return None, model, NEEDS_PILLOW
+            except DeclinedJpeg as e:
+                return None, model, str(e)
             except ValueError:
                 return None, model, bad
         return frames or None, model, bad

@@ -3,7 +3,7 @@
 Counterpart of ``deepfake_detection_tpu/streaming``, one process in front
 of the port's serving engine:
 
-``POST /streams/<id>/frames`` chunks → decode (raw wire, or Pillow) →
+``POST /streams/<id>/frames`` chunks → decode (raw wire, JPEG, or Pillow) →
 face localize + greedy-IoU track (``tracker``) → per-track temporal
 windows of ``img_num`` distinct frames (``windows``) → serving engine's
 captured buckets (one CUDA graph per model, bucket and channel width) →

@@ -3,10 +3,11 @@ window → engine.
 
 Counterpart of ``deepfake_detection_tpu/streaming/ingest.py``: the same
 routes, wires, books and snapshot schema (a snapshot or export of either
-package imports into the other).  It differs in one place: encoded
-frames decode through Pillow alone (the JAX package's native libjpeg
-pool is not ported), and where Pillow cannot be imported an encoded
-chunk answers 501 naming the raw wire.
+package imports into the other), and the same decode order: the port's own
+JPEG decoder first (``data/native.py``, bitwise the JAX package's native
+libjpeg pool), Pillow for what it declines and for other formats where
+Pillow imports.  Without Pillow, a chunk holding a frame that is not a
+JPEG answers 501 naming the raw wire.
 
 This is the front half of the streaming-video workload: long-lived
 *stream sessions* that accept frame sequences in chunks and run the
@@ -18,7 +19,8 @@ new dependency, keep-alive for cheap chunking):
 * ``POST /streams``                    → open a session (201, stream_id)
 * ``POST /streams/<id>/frames``        → one chunk of frames; the body is
   - ``multipart/x-mixed-replace`` — an MJPEG chunk (parts are JPEG),
-  - ``image/*`` — a single encoded frame (anything Pillow decodes),
+  - ``image/*`` — a single encoded frame (JPEG, or anything Pillow
+    decodes),
   - ``application/octet-stream`` — concatenated JPEGs (SOI/EOI scan),
   - ``application/x-dfd-raw`` — raw uint8 RGB frames, shape in the
     ``X-Frame-Width``/``X-Frame-Height`` headers (zero-decode path),
@@ -39,7 +41,8 @@ new dependency, keep-alive for cheap chunking):
 * ``GET /healthz /readyz /metrics``    → liveness / bucket-warmup
   readiness / Prometheus (serving + streaming catalogs concatenated).
 
-Decode fans a chunk's encoded frames out to a thread pool (Pillow),
+Decode fans a chunk's encoded frames out to a thread pool (the decoder's
+ctypes call releases the GIL),
 tracking/windowing run synchronously on the handler
 thread (they are µs-scale and overlap the engine thread's device calls,
 exactly like serving's preprocess), and scoring goes through
@@ -68,6 +71,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..data import native
 from ..serving.http import multipart_boundary, split_multipart
 from . import ring as ring_mod
 from .metrics import StreamingMetrics
@@ -128,15 +132,22 @@ def split_jpeg_stream(body: bytes) -> List[bytes]:
     return frames
 
 
-#: the 501 an encoded chunk gets where Pillow cannot be imported
-NO_DECODER = ("encoded frames need Pillow, which this interpreter cannot "
-              "import; send raw uint8 RGB frames as application/x-dfd-raw "
-              "with X-Frame-Width/X-Frame-Height headers (the port's native "
-              "JPEG decode is ROADMAP Queue 1, item 7)")
+#: the 501 a chunk with a non-JPEG frame gets where Pillow cannot be
+#: imported
+NO_DECODER = ("encoded frames other than JPEG need Pillow, which this "
+              "interpreter cannot import (JPEG frames decode with the port's "
+              "own decoder); send raw uint8 RGB frames as "
+              "application/x-dfd-raw with X-Frame-Width/X-Frame-Height "
+              "headers")
 
 
 def decoder_available() -> bool:
-    """Whether encoded frames can be decoded here (Pillow imports)."""
+    """Whether encoded frames can be decoded here: the port's JPEG decoder
+    builds and loads."""
+    return native.available()
+
+
+def _pillow_importable() -> bool:
     try:
         from PIL import Image  # noqa: F401
     except ImportError:
@@ -145,11 +156,12 @@ def decoder_available() -> bool:
 
 
 def decode_frame_bytes(data: bytes) -> Optional[np.ndarray]:
-    """Encoded frame bytes → (H, W, 3) uint8, or None if undecodable.
-    Pillow, imported at use (the JAX package tries its native libjpeg
-    pool first; the port has none).  Callers check
-    :func:`decoder_available` first: a missing Pillow is a 501 for the
-    chunk, never a decode error per frame."""
+    """Encoded frame bytes → (H, W, 3) uint8, or None if undecodable: the
+    port's JPEG decoder first, Pillow (imported at use) for what it
+    declines, as the JAX package's ``decode_frame_bytes`` orders them."""
+    arr = native.decode_jpeg_bytes(data)
+    if arr is not None:
+        return arr
     try:
         import io
 
@@ -165,10 +177,10 @@ _decode_pool_lock = threading.Lock()
 
 
 def _get_decode_pool():
-    """Lazy shared decode fan-out pool.  Pillow's decoders release the
-    GIL while they run, so a chunk's frames decode in parallel on a
-    thread pool.  Lazy so pure-host users (tests, raw-wire) never spawn
-    the threads."""
+    """Lazy shared decode fan-out pool.  ``decode_jpeg_bytes`` is a ctypes
+    call into the port's decoder, which releases the GIL, so a chunk's
+    frames decode in parallel on a thread pool.  Lazy so pure-host users
+    (tests, raw-wire) never spawn the threads."""
     global _decode_pool
     if _decode_pool is None:
         with _decode_pool_lock:
@@ -1460,6 +1472,9 @@ class _StreamHandler(BaseHTTPRequestHandler):
         else:                        # octet-stream: concatenated JPEGs
             encoded = split_jpeg_stream(body)
         if encoded and not decoder_available():
+            raise _ChunkError(501, native.unavailable_reason())
+        if any(not native.is_jpeg(d) for d in encoded) \
+                and not _pillow_importable():
             raise _ChunkError(501, NO_DECODER)
         arrays, dup_flags, errors = session.decode_chunk(encoded)
         with session._lock:
@@ -1505,7 +1520,7 @@ class _StreamHandler(BaseHTTPRequestHandler):
                               "binary on PATH (soft dependency, "
                               "not installed)")
         if not decoder_available():     # ffmpeg's MJPEG needs decoding
-            raise _ChunkError(501, NO_DECODER)
+            raise _ChunkError(501, native.unavailable_reason())
         with session._lock:
             if session.demuxer is None:
                 session.demuxer = FfmpegDemuxer()

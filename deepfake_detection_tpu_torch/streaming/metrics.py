@@ -12,7 +12,7 @@ window → micro-batcher → device.
 
 Stage histograms follow a frame/window's life:
 
-* ``decode`` — chunk bytes → uint8 frames (raw wire, or Pillow);
+* ``decode`` — chunk bytes → uint8 frames (raw wire, JPEG, or Pillow);
 * ``track`` — localize + tracker update + crop + canvas per frame;
 * ``assemble`` — window emission → job dispatched (key + payload);
 * ``score`` — window queued → softmax row back (queue + device);

@@ -332,5 +332,13 @@ def test_mixed_frame_sizes_and_missing_pillow_raise(tree, tmp_path,
         td.__getitem__(1, rng=np.random.default_rng(0))
     os.remove(os.path.join(clip, "0.npy"))
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ImportError, match="needs Pillow"):
+    # the JPEG frame decodes with the port's own decoder, no Pillow: the
+    # clip still mixes sizes
+    with pytest.raises(ValueError, match="one source frame shape"):
         td.__getitem__(1, rng=np.random.default_rng(0))
+    png = os.path.join(clip, "0.png")
+    monkeypatch.delitem(sys.modules, "PIL")
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(png)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ImportError, match="needs Pillow"):
+        t_ds.read_frame(png)

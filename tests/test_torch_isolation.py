@@ -50,7 +50,8 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "backfill.manifest", "backfill.lease", "backfill.writer",
                  "backfill.source", "runners.backfill", "streaming.ingest",
                  "streaming.ring", "streaming.tracker", "streaming.verdict",
-                 "streaming.windows", "streaming.metrics", "runners.stream"):
+                 "streaming.windows", "streaming.metrics", "runners.stream",
+                 "data.native", "data.dataset", "native"):
         assert f"deepfake_detection_tpu_torch.{name}" in out["imported"]
     assert out["loaded"] == [], out["loaded"]
 

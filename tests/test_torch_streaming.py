@@ -617,17 +617,22 @@ def _jpeg(frame):
 
 
 def test_encoded_chunks_501_without_pillow(http_stack, monkeypatch):
-    """With Pillow's import failing, an encoded chunk answers 501 naming
-    the raw wire, counts no decode error, and the raw wire still works;
-    with Pillow back, undecodable bytes count as decode errors."""
+    """With Pillow's import failing, a chunk of a format other than JPEG
+    (here PNG, as a single frame and as a multipart part) answers 501
+    naming the raw wire, counts no decode error, and the raw wire still
+    works; with Pillow back, undecodable bytes count as decode errors.
+    JPEG chunks decode without Pillow (``test_torch_jpeg.py``)."""
+    from PIL import Image
     port = http_stack.server_address[1]
     _req(port, "POST", "/streams", b'{"stream_id": "enc"}')
     good = _jpeg(_frames(1, seed=60)[0])
-    multipart = (b"--f\r\nContent-Type: image/jpeg\r\n\r\n" + good
+    buf = io.BytesIO()
+    Image.fromarray(_frames(1, seed=60)[0]).save(buf, format="PNG")
+    png = buf.getvalue()
+    multipart = (b"--f\r\nContent-Type: image/png\r\n\r\n" + png
                  + b"\r\n--f--\r\n")
     monkeypatch.setitem(sys.modules, "PIL", None)
-    for body, ctype in ((good, "image/jpeg"), (good,
-                                               "application/octet-stream"),
+    for body, ctype in ((png, "image/png"),
                         (multipart, "multipart/x-mixed-replace; "
                                     "boundary=f")):
         st, out = _req(port, "POST", "/streams/enc/frames", body,
