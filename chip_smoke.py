@@ -17,13 +17,24 @@ before the result line:
    registers and spills, and the card's registers, local bytes, largest
    dynamic shared memory and resident blocks per SM;
 2a. JPEG decode (``jpeg``): the port's own decoder
-   (``native/jpeg_decode.cc``) built by the host C++ compiler (timed);
+   (``native/jpeg_decode.cc``, one library with the image ops of 2b)
+   built by the host C++ compiler (timed);
    every fixture of ``tests/data/jpeg`` decoded to its committed
    libjpeg-turbo digest (the CMYK one declined), the committed truncation
    and bit-flip sweeps over one baseline and one progressive fixture each
    equal to the CPU's digest or None as committed; ms a frame on one
    thread (640² and 640×480, 4:2:0) and the pool's frames/s at 1, 4 and 8
    threads;
+2b. the host augment chain (``host_augment``): the port's image ops
+   (``native/imaging.cc``, in the library phase 2 built) and its
+   train chain on the card's host, which has no Pillow: every case of
+   ``tests/data/host_augment/digests.json`` (Pillow 12's convert, enhance,
+   hue, blur, rotate, flip and resize, the JAX native warp, the JAX
+   ``transforms_deepfake_train_v3``) and the first host batches of the
+   train loader under ``scripts/train.sh``'s flags, with and without
+   ``--host-geom``, equal to their committed digests; the host ms a 640²
+   clip by stage (warp to 600², blur, jitter, flicker, and the collate and
+   mixup blend of a batch of 3);
 3. forward kernel vs plain: the depthwise kernel at every depthwise shape
    of the flagship ``efficientnet_deepfake_v4`` at a 600² input (batch 1,
    the inference path's, and batch 2; f32, TF32 off), bf16 on a few of them,
@@ -231,7 +242,16 @@ before the result line:
    epoch): every depthwise launch of the bf16 instantiations (55/55/55 a
    step), loss finite, no guarded step, params and BN stats moved, recovery
    snapshots written, the checkpoint scores a frame; the numbers of
-   ``train_data`` beside the f32 phase's;
+   ``train_data`` beside the f32 phase's; ``train_data``, ``train_jpeg``,
+   ``train_amp`` and ``resume`` pass ``--augment-device on`` (the device
+   chain they measured before the host chain became the default);
+16a. ``train_host``: ``scripts/train_torch.sh``'s command line as it stands
+   (``--augment-device off``, the default: the host chain) on the same
+   tree, ``HOST_TRAIN_STEPS`` steps and 3 profiled, 55/55/55 bf16
+   depthwise launches a step, beside the same steps with
+   ``--augment-device on`` (launches counted apart, the
+   ``train_host_device`` path): ms a step, the host's wait a step and the
+   loader's fetch ms a batch of each;
 17. ``resume``: the same bf16 run in-process (``DFD_CHAOS`` set and cleared
    around each call, ``SystemExit`` caught): an uninterrupted epoch twice;
    ``sigterm@5`` → exit 75 with the snapshot ``recovery-0-4``; the snapshot
@@ -443,7 +463,7 @@ DATA_FLAGS = F32 + [
               "--rotate-range", "5", "--blur-prob", "0.05",
               "--bn-momentum", "0.001", "--mixup", "0.1", "--label-balance",
               "--eval-metric", "loss", "--workers", "8", "--experiment",
-              "flagship", "--log-interval", "1"]
+              "flagship", "--log-interval", "1", "--augment-device", "on"]
 # the prologue, card against CPU on one batch: the warp and the blur may
 # differ by one grey level where an FMA flips a rounding at .5, in at most
 # WARP_FRAC of the values (tests/test_torch_device_augment.py); jitter within
@@ -529,6 +549,98 @@ def _sweep_case(data: bytes, case: list) -> bytes:
     b = bytearray(data)
     b[case[1]] ^= 1 << case[2]
     return bytes(b)
+
+
+HOST_AUG_ITERS = 5                # timed calls a host stage (after one)
+HOST_TRAIN_STEPS = 4              # timed steps a train_host row (the first
+                                  # left out of the means), then 3 profiled
+                                  # in the host-chain row: of the tree's 8
+                                  # batches an epoch
+
+
+def _host_fixtures():
+    """``tests/torch_host_augment_fixtures.py``: the digest cases' inputs
+    and the port's side of them (it imports neither Pillow nor JAX)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    try:
+        import torch_host_augment_fixtures as fx
+    finally:
+        sys.path.pop(0)
+    return fx
+
+
+def _median_ms(fn, iters: int = HOST_AUG_ITERS) -> float:
+    fn()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def phase_host_augment() -> dict:
+    """The host augment chain on the card's host (no Pillow): every
+    committed digest case and the first
+    host batches of the train loader under ``scripts/train.sh``'s flags
+    (with and without ``--host-geom``) equal to their digests; the host ms
+    a 640² clip by stage, one thread."""
+    from deepfake_detection_tpu_torch.data import transforms as tf
+    from deepfake_detection_tpu_torch.data.mixup import FastCollateMixup
+    fx = _host_fixtures()
+    info = jpeg_native.build_info()
+    digests = fx.load_digests()
+    t0 = time.perf_counter()
+    bad = [n for n in fx.CASES
+           if fx.sha(fx.port_case(n)) != digests["cases"][n]]
+    cases_s = time.perf_counter() - t0
+    root = OUT / "host_tree"
+    shutil.rmtree(root, ignore_errors=True)
+    fx.make_tree(root)
+    loaders = {}
+    for name, extra in fx.LOADERS.items():
+        loaders[name] = fx.port_batches(str(root), extra) == \
+            digests["loaders"][name]
+        if not loaders[name]:
+            bad.append(name)
+    shutil.rmtree(root, ignore_errors=True)
+    # the stages of one clip at the flagship's shape: 4 frames of 640² into
+    # 600² (the chip tree's clips), the JAX runner's blur radius 1
+    clip = fx.clip(7)
+    rng = np.random.default_rng(0)
+    warp = tf.MultiFusedGeometric(600, rotate_range=5)
+    frames = list(warp(clip, rng))
+    blur = tf.MultiBlur(1.0, 1.0)
+    jitter = tf.MultiColorJitter(0.4, 0.4, 0.4)
+    flicker = tf.MultiFlicker(0.05)
+    concat = tf.MultiConcate()
+    samples = [np.ascontiguousarray(concat(frames))] * TRAIN_BATCH
+    mixup = FastCollateMixup(0.1, 0.1, 2)
+
+    def collate_blend():
+        mixup(np.stack(samples), np.array([0, 1, 0]),
+              np.random.default_rng(1))
+    ms = {"warp": _median_ms(lambda: warp(clip, rng)),
+          "blur_4_frames": _median_ms(lambda: blur(frames, rng)),
+          "jitter": _median_ms(lambda: jitter(frames, rng)),
+          "flicker": _median_ms(lambda: flicker(frames, rng)),
+          "concat": _median_ms(lambda: concat(frames)),
+          "collate_and_blend_batch": _median_ms(collate_blend)}
+    # a clip of train.sh's chain: the warp, 0.05 of 4 frames blurred, the
+    # jitter, the flicker, the concatenation, and its share of a batch's
+    # collate and blend
+    ms["per_clip_train_sh"] = (ms["warp"] + 0.05 * ms["blur_4_frames"]
+                               + ms["jitter"] + ms["flicker"] + ms["concat"]
+                               + ms["collate_and_blend_batch"] / TRAIN_BATCH)
+    emit(phase="host_augment", nvidia_smi=nvidia_smi_line(),
+         cpu_count=os.cpu_count(), library=Path(info["library"]).name,
+         pillow_of_digests=digests["pillow"], cases=len(fx.CASES),
+         cases_s=cases_s,
+         cases_bitwise=len(fx.CASES) - sum(b in fx.CASES for b in bad),
+         loaders_bitwise=loaders, host_ms_a_clip=ms, bad=bad[:5])
+    if bad:
+        raise AssertionError(f"the host augment chain on this host: {bad}")
+    return dict(ms=ms)
 
 
 def phase_jpeg() -> dict:
@@ -4311,12 +4423,15 @@ def fixture_tree(root: Path, ext: str) -> Path:
     return root
 
 
-def _train_steps(cfg, steps: int) -> dict:
-    """``runners.train``'s setup and ``steps`` train steps fed by its
+def _train_steps(run, cfg, steps: int, profile_as: str = "") -> dict:
+    """``steps`` train steps of ``run`` (``runners.train``'s setup, shared
+    by the rows of a phase: a model is built once) fed by ``cfg``'s train
     loader, each synchronized: ms a step (from the loader's call to the
     step's end) and the host's wait in the loader, the first step left
-    out of both means; the losses."""
-    run = train_runner.setup(cfg)
+    out of both means; the losses; with ``profile_as``, a profile of three
+    more steps fed by the loader (device time by kind, idle share)."""
+    run.train_loader, _ = train_runner.build_loaders(
+        cfg, run.device, *train_runner.build_datasets(cfg))
     run.train_loader.set_epoch(0)
     it = iter(run.train_loader)
     step_ms, wait_ms, losses_ = [], [], []
@@ -4329,13 +4444,25 @@ def _train_steps(cfg, steps: int) -> dict:
         step_ms.append((time.perf_counter() - t0) * 1e3)
         wait_ms.append((t1 - t0) * 1e3)
         losses_.append(float(m["loss"]))
+    kinds = {}
+    if profile_as:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                run.train_step(run.state, *next(it))
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kinds = _emit_kinds(profile_as, prof, 3, wall_us, batch=TRAIN_BATCH)
     it.close()
-    del run, it
-    gc.collect()
-    torch.cuda.empty_cache()
+    stats = run.train_loader.loader.stats
+    fetch = stats.fetch_s / max(1, stats.batches) * 1e3
     return dict(ms_per_step=float(np.mean(step_ms[1:])),
                 host_wait_ms_per_step=float(np.mean(wait_ms[1:])),
-                step_ms=step_ms, wait_ms=wait_ms, loss=losses_)
+                fetch_ms_per_batch=fetch, step_ms=step_ms, wait_ms=wait_ms,
+                loss=losses_, idle_share=kinds.get("idle_share"),
+                busy_ms_per_step=kinds.get("busy_ms_per_iteration"),
+                host_op_ms_per_step=kinds.get("host_op_ms_per_iteration"))
 
 
 def _train_jpeg(main_numbers: dict) -> dict:
@@ -4363,10 +4490,14 @@ def _train_jpeg(main_numbers: dict) -> dict:
         torch.equal(first["jpeg"][1], first["npy"][1])
     del first
     rows, counts = {}, {}
+    run = train_runner.setup(cfgs["jpeg"])
     for k, c in cfgs.items():
         _reset_counts()
-        rows[k] = _train_steps(c, JPEG_TRAIN_STEPS)
+        rows[k] = _train_steps(run, c, JPEG_TRAIN_STEPS)
         counts[k] = _counts()
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
     launches = counts["jpeg"]
     want = (55 * JPEG_TRAIN_STEPS,) * 3
     shutil.rmtree(out, ignore_errors=True)
@@ -4455,7 +4586,7 @@ def train_sh_flags(root: Path) -> list:
 # epoch (8 steps), a recovery snapshot every 3 batches and each step's
 # metrics read back
 AMP_OVERRIDES = ["--epochs", "1", "--recovery-interval", "3",
-                 "--log-interval", "1"]
+                 "--log-interval", "1", "--augment-device", "on"]
 
 
 def _amp_cfg(root: Path, out: Path):
@@ -4487,6 +4618,62 @@ def phase_train_amp(frame: str, root: Path, f32: dict) -> dict:
          **tr["numbers"])
     shutil.rmtree(out, ignore_errors=True)
     return dict(numbers=tr["numbers"], **tr["launches"])
+
+
+def phase_train_host(root: Path, host: dict) -> dict:
+    """``scripts/train_torch.sh``'s command line as it stands (the host
+    chain, ``--augment-device off`` by default) on the seeded tree:
+    ``HOST_TRAIN_STEPS`` steps through the bf16 depthwise kernels, beside
+    the same steps of the same model with ``--augment-device on``'s
+    loader, and a profile of three more steps of the host-chain row (the
+    device chain's profile is ``train_amp``'s): the host's wait a step, the
+    loader's fetch a batch and the device's idle share say which side
+    bounds the step.  Each row's launches are counted around its own
+    steps: the host chain's are the ``train_host`` path's, the device
+    chain's the ``train_host_device`` path's."""
+    out = OUT / "train_host"
+    shutil.rmtree(out, ignore_errors=True)
+    cfgs = {name: train_runner.parse_args(train_sh_flags(root) + [
+        "--epochs", "1", "--recovery-interval", "0", "--no-telemetry",
+        "--output", str(out)] + extra) for name, extra in (
+            ("augment_off", []), ("augment_on", ["--augment-device", "on"]))}
+    cfg = cfgs["augment_off"]
+    if not (cfg.augment_device == "off" and cfg.amp and cfg.mixup == 0.1
+            and cfg.workers == 8):
+        raise AssertionError(f"train_torch.sh's flags parsed to {cfg}")
+    rows, counts = {}, {}
+    run = train_runner.setup(cfg)
+    for name, c in cfgs.items():
+        _reset_counts()
+        rows[name] = _train_steps(
+            run, c, HOST_TRAIN_STEPS,
+            "train_host_profile" if name == "augment_off" else "")
+        counts[name] = (_counts(), _counts("bfloat16"))
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(out, ignore_errors=True)
+    want = {"augment_off": ((55 * (HOST_TRAIN_STEPS + 3),) * 3,) * 2,
+            "augment_on": ((55 * HOST_TRAIN_STEPS,) * 3,) * 2}
+    off = rows["augment_off"]
+    # the loader bounds the step when the consumer waits on it; else the
+    # host thread's dispatch when the device idles most of the step
+    bound = ("loader" if off["host_wait_ms_per_step"]
+             > 0.1 * off["ms_per_step"] else
+             "host dispatch" if (off["idle_share"] or 0) > 0.5
+             else "device")
+    emit(phase="train_host", nvidia_smi=nvidia_smi_line(),
+         steps=HOST_TRAIN_STEPS, rows=rows, launches=counts,
+         expected_launches=want, host_ms_a_clip=host["ms"],
+         step_bound_by=bound)
+    if counts != want or not all(
+            np.isfinite(r["loss"]).all() for r in rows.values()):
+        raise AssertionError(f"train_host: launches {counts} (expected "
+                             f"{want}, all bf16), losses "
+                             f"{[r['loss'] for r in rows.values()]}")
+    keys = ("forward_launches", "dx_launches", "dwgrad_launches")
+    return dict(zip(keys, counts["augment_off"][0]), rows=rows, bound=bound,
+                device=dict(zip(keys, counts["augment_on"][0])))
 
 
 def _final_state(run_dir: Path) -> dict:
@@ -5605,6 +5792,7 @@ def main() -> int:
          libraries=[path.name for path in libs.values()])
     PHASE_S["build"] = build_s
     jpeg = timed("jpeg", phase_jpeg)
+    host = timed("host_augment", phase_host_augment)
     timed("flash_kernels", phase_flash_kernels, libs)
     timed("depthwise_kernels", phase_depthwise_kernels, libs)
 
@@ -5688,7 +5876,7 @@ def main() -> int:
                              f"{_flash_counts()} in this process")
     emit(phase="cold_start", nvidia_smi=smi, kernel_build_s=build_s,
          kernels_built="all six sources, one nvcc each, in parallel",
-         jpeg_decoder_build_s=jpeg["build_s"],
+         native_library_build_s=jpeg["build_s"],
          serve=quant["cold"], backfill=dict(
              load_s=bf["run1"]["load_s"], capture_s=bf["run1"]["capture_s"],
              dedup_s=bf["run1"]["dedup_s"], ready_s=bf["run1"]["ready_s"]),
@@ -5705,6 +5893,7 @@ def main() -> int:
         "host_wait_ms_per_step", "idle_share")})
     ta = timed("train_amp", phase_train_amp, frame, td["root"],
                td["numbers"])
+    th = timed("train_host", phase_train_host, td["root"], host)
     rs = timed("resume", phase_resume, td["root"])
     tsf = timed("tsf_train", phase_tsf_train)
     tsfa = timed("tsf_train_amp", phase_tsf_train, amp=True, beside=tsf)
@@ -5721,7 +5910,8 @@ def main() -> int:
     emit(phase="seconds", of="card_vs_cpu", s=PHASE_S["card_vs_cpu"])
 
     dw_paths = {"train": t, "train_data": td, "train_jpeg": td["jpeg"],
-                "train_amp": ta, "resume": rs}
+                "train_amp": ta, "train_host": th,
+                "train_host_device": th["device"], "resume": rs}
 
     def by_path(key, **extra):
         out = dict(extra, **{p: r[key] for p, r in dw_paths.items()})
@@ -5739,7 +5929,7 @@ def main() -> int:
                                       router=rt["launches"])
     dx_launches, dx_paths = by_path("dx_launches")
     dwg_launches, dwg_paths = by_path("dwgrad_launches")
-    amp_paths = ("train_amp", "resume")
+    amp_paths = ("train_amp", "train_host", "train_host_device", "resume")
 
     def bf16(key, err, launch_key):
         return dict(

@@ -16,8 +16,8 @@ Counterpart of ``deepfake_detection_tpu/data/loader.py``:
 * :class:`Prologue`: on the device, on the current stream, in the host
   chain's order: warp → blur → jitter/flicker → mixup blend → cast to the
   compute dtype → normalize → erase (``data/device_augment.py``,
-  ``data/random_erasing.py``); the model gets NCHW in ``channels_last``
-  memory;
+  ``data/random_erasing.py``), each stage that the host chain did not run
+  already; the model gets NCHW in ``channels_last`` memory;
 * :class:`DeviceLoader`: copies each host batch over with ``non_blocking``
   and runs the prologue; :class:`LoaderStats` counts the consumer's wait
   for the host;
@@ -25,12 +25,16 @@ Counterpart of ``deepfake_detection_tpu/data/loader.py``:
   :func:`create_loader` (datasets without a transform, as the synthetic
   one) with the JAX factory's rules.
 
-Jitter/flicker and erasing draw from a ``torch.Generator`` seeded a batch
-from ``SeedSequence([seed, epoch, batch, tag])``: a batch's draws are a
+The train chain runs where the JAX factory puts it
+(:func:`create_deepfake_loader_v3`): on the host by default (the JAX
+package's ``--augment-device off``: ``data/transforms.py`` over
+``data/imaging.py``, Pillow's bytes without Pillow), jitter and flicker
+moving to the device when neither mixup nor hue asks for host order; or,
+with ``augment_device``, all on the device.  The device's jitter/flicker
+and erasing draw from a ``torch.Generator`` seeded a batch from
+``SeedSequence([seed, epoch, batch, tag])``: a batch's draws are a
 function of its position.  The JAX package draws them from ``jax.random``.
 
-The port runs the train chain in its device form only (the JAX package's
-``--augment-device on``); the host Pillow chain is ROADMAP Queue 1 item 7.
 The shm ring transport (``data/shm_ring.py``) is not ported; threads carry
 the host side.
 """
@@ -61,7 +65,8 @@ from .random_erasing import (EraseBox, apply_random_erasing,
 from .samplers import OrderedShardedSampler, ShardedTrainSampler, \
     epoch_batches
 from .transforms_factory import (transforms_deepfake_eval_v3,
-                                 transforms_deepfake_train_passthrough)
+                                 transforms_deepfake_train_passthrough,
+                                 transforms_deepfake_train_v3)
 
 __all__ = ["train_batches", "eval_batches", "HostBatch", "HostLoader",
            "LoaderStats", "Prologue", "DeviceLoader", "create_loader",
@@ -71,10 +76,6 @@ _logger = logging.getLogger(__name__)
 
 _JITTER_TAG = 0x6A17           # per-batch generator tags
 _ERASE_TAG = 0xE2A5
-
-#: --augment-device off: the host Pillow chain
-HOST_CHAIN_ITEM = ("the host Pillow augment chain (--augment-device off, hue "
-                   "jitter; ROADMAP Queue 1 item 7)")
 
 
 def train_batches(n: int, batch_size: int, seed: int,
@@ -491,47 +492,88 @@ def create_deepfake_loader_v3(
         flicker: float = 0.0, rotate_range: float = 0,
         blur_radius: Optional[float] = None, blur_prob: float = 0.0,
         seed: int = 42, prefetch_depth: int = 2, eval_crop: str = "random",
-        augment_device: bool = True,
+        device_color_jitter: bool = True, fused_geom: bool = True,
+        augment_device: bool = False,
         dtype: torch.dtype = torch.float32) -> DeviceLoader:
     """The clip dataset's loader, ``input_size`` ``(C, H, W)``, batches in
-    the compute ``dtype``.
+    the compute ``dtype``; where each train stage runs follows the JAX
+    factory's decisions one for one:
 
-    Train: the passthrough on the host and the whole chain on the device;
-    jitter (three values, or one for all three) and flicker go to the
-    device, and the collate mixup draws ``lam`` and the targets only
-    (``blend=False``).  Hue jitter and ``augment_device=False`` need the
-    host Pillow chain, which is not ported.  Eval: a random or centre crop
-    on the host, normalize on the device."""
+    * ``augment_device``: the passthrough on the host, the whole chain on
+      the device (jitter as three values, or one for all three; the collate
+      mixup draws ``lam`` and the targets only, ``blend=False``); it
+      conflicts with ``fused_geom=False`` and with host jitter/flicker
+      (``device_color_jitter=False``), and falls back to the host chain for
+      hue jitter;
+    * otherwise the host chain (``transforms_deepfake_train_v3``: the warp,
+      or the sequential geometry when ``fused_geom`` is False, and the
+      blur), with jitter and flicker on the device when
+      ``device_color_jitter`` and neither hue jitter nor mixup (which
+      jitters each source clip before the blend) keeps them on the host;
+      the mixup blend in the host collate.
+
+    Eval: a random or centre crop on the host, normalize on the device."""
     c, h, w = input_size
     img_num = max(1, c // 3)
     size = (h, w)
+    img_size = h if h == w else size
     if not is_training:
         return _build_loader(
-            dataset, transforms_deepfake_eval_v3(
-                h if h == w else size, crop=eval_crop),
+            dataset, transforms_deepfake_eval_v3(img_size, crop=eval_crop),
             batch_size, False, device, None, seed, num_workers,
             prefetch_depth, img_num, None, None, 0.0, None, dtype)
-    if not augment_device:
-        raise NotImplementedError(f"--augment-device off: {HOST_CHAIN_ITEM}")
-    cj = None
-    if color_jitter is not None:
-        cj = (tuple(color_jitter) if isinstance(color_jitter, (list, tuple))
-              else (float(color_jitter),) * 3)
-        assert len(cj) in (3, 4)
-        if len(cj) == 4 and float(cj[3]) > 0:
-            raise NotImplementedError(f"hue jitter: {HOST_CHAIN_ITEM}")
-        cj = tuple(float(v) for v in cj[:3])
-    spec = DeviceAugmentSpec(
-        size=size, rotate_range=int(rotate_range),
-        blur_prob=float(blur_prob), blur_radius=float(blur_radius or 0.0),
-        img_num=img_num, mixup=collate_mixup is not None,
-        mixup_alpha=getattr(collate_mixup, "mixup_alpha", 0.0))
-    if collate_mixup is not None:
-        collate_mixup.blend = False
-    transform = transforms_deepfake_train_passthrough(
-        h if h == w else size, rotate_range=rotate_range,
-        blur_prob=blur_prob)
+    aug_device = bool(augment_device)
+    if aug_device and not fused_geom:
+        raise ValueError("augment_device renders the fused geometric warp "
+                         "on device; it conflicts with the host_geom / "
+                         "fused_geom=False parity escape hatch — pick one")
+    device_cj = None
+    device_flicker = 0.0
+    if device_color_jitter:
+        cj = None
+        if color_jitter is not None:
+            cj = (tuple(color_jitter)
+                  if isinstance(color_jitter, (list, tuple))
+                  else (float(color_jitter),) * 3)
+            assert len(cj) in (3, 4)
+        if cj is not None and len(cj) == 4 and float(cj[3]) > 0:
+            # hue jitter runs on the host only (no HSV round trip on the
+            # device): the whole chain stays there
+            _logger.info("hue jitter requested: color jitter stays on host")
+            aug_device = False
+        elif aug_device or collate_mixup is None:
+            device_cj = tuple(float(v) for v in cj[:3]) if cj else None
+            device_flicker, flicker = flicker, 0.0
+            color_jitter = None
+        else:
+            # the host chain jitters each source clip before the mixup
+            # blends two of them; a jitter after the blend would correlate
+            # the two sources' photometrics
+            _logger.info("mixup active: color jitter stays on host")
+    if aug_device and (color_jitter is not None or flicker > 0.0):
+        raise ValueError(
+            "augment_device leaves no host transform stage for host-side "
+            "color jitter/flicker — drop host_color_jitter (hue jitter "
+            "already falls back to the host chain automatically)")
+    spec = None
+    if aug_device:
+        spec = DeviceAugmentSpec(
+            size=size, rotate_range=int(rotate_range),
+            blur_prob=float(blur_prob),
+            blur_radius=float(blur_radius or 0.0), img_num=img_num,
+            mixup=collate_mixup is not None,
+            mixup_alpha=getattr(collate_mixup, "mixup_alpha", 0.0))
+        if collate_mixup is not None:
+            collate_mixup.blend = False
+        transform = transforms_deepfake_train_passthrough(
+            img_size, rotate_range=rotate_range, blur_prob=blur_prob)
+    else:
+        transform = transforms_deepfake_train_v3(
+            img_size, color_jitter=color_jitter, flicker=flicker,
+            rotate_range=rotate_range, blur_radius=blur_radius,
+            blur_prob=blur_prob, fused_geom=fused_geom)
     return _build_loader(
         dataset, transform, batch_size, True, device, collate_mixup, seed,
-        num_workers, prefetch_depth, img_num, spec, cj, flicker,
+        num_workers, prefetch_depth, img_num, spec, device_cj,
+        device_flicker,
         _erasing(re_prob, re_mode, re_count, re_split, re_max), dtype)

@@ -1,33 +1,51 @@
 """Host transforms over a clip's frames, with an explicit generator.
 
-The part of ``deepfake_detection_tpu/data/transforms.py`` that the port's
-pipeline runs, on uint8 ``(H, W, 3)`` arrays (no Pillow):
+Counterpart of ``deepfake_detection_tpu/data/transforms.py`` on uint8
+``(H, W, 3)`` arrays, with no Pillow: where the JAX package calls Pillow,
+these call ``data/imaging.py``, which computes Pillow 12's bytes (and the
+JAX package's native warp's) in the port's own ``native/imaging.cc``.
+Every transform is called as ``t(frames, rng)``, draws from ``rng`` in the
+JAX transform's order, and gives its bytes:
 
-* train (``--augment-device on``): :class:`DeviceAugmentPassthrough`
-  consumes the rng draws of the fused geometric chain
-  (:func:`fused_geometric_params`, a copy with the same float64
-  arithmetic) and of the per-frame blur coins (:func:`blur_mask_draws`),
-  and hands the raw ``(H, W, 3F)`` clip on; the device prologue re-derives
-  the same draws from ``(seed, epoch, index)`` and renders them
-  (``data/device_augment.py``);
+* the host chain (``--augment-device off``, the default): the geometric
+  chain as one native warp (:class:`MultiFusedGeometric`) or as the
+  sequential :class:`MultiRotate` → :class:`MultiRandomHorizontalFlip` →
+  :class:`MultiRandomResize` → :class:`MultiRandomCrop` (``--host-geom``),
+  then :class:`MultiBlur`, :class:`MultiColorJitter`,
+  :class:`MultiFlicker`, :class:`MultiToNumpy` and :class:`MultiConcate`;
+* the device chain's host half (``--augment-device on``):
+  :class:`DeviceAugmentPassthrough` consumes the rng draws of the fused
+  geometric chain (:func:`fused_geometric_params`, a copy with the same
+  float64 arithmetic) and of the per-frame blur coins
+  (:func:`blur_mask_draws`), and hands the raw ``(H, W, 3F)`` clip on; the
+  device prologue re-derives the same draws from ``(seed, epoch, index)``
+  and renders them (``data/device_augment.py``);
 * eval: :class:`MultiRandomCrop` (the reference evaluates on a random
   crop) or :class:`MultiCenterCrop`, each padding to the crop first,
   centred, with zeros (:func:`_pad_to_np`), then :class:`MultiConcate`.
 
-Every transform is called as ``t(frames, rng)``; :class:`Compose`
-threads the generator through.
+A packed clip (:class:`PackedFrames`, frame views into one ``(H, W, 3F)``
+buffer: a packed-cache sample, or the warp's output) stays one buffer
+through the chain while no stage replaces a frame, so the concatenation
+costs no copy.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-__all__ = ["Compose", "PackedFrames", "RandomCrop", "MultiRandomCrop",
-           "MultiCenterCrop", "MultiConcate", "DeviceAugmentPassthrough",
-           "fused_geometric_params", "blur_mask_draws"]
+from . import imaging, native
+
+__all__ = ["Compose", "PackedFrames", "RandomCrop", "RandomResize",
+           "ColorJitter", "MultiToNumpy", "MultiConcate",
+           "MultiRandomHorizontalFlip", "MultiRotate", "MultiRandomResize",
+           "MultiRandomCrop", "MultiCenterCrop", "MultiColorJitter",
+           "MultiFusedGeometric", "MultiBlur", "MultiFlicker",
+           "DeviceAugmentPassthrough", "fused_geometric_params",
+           "blur_mask_draws"]
 
 
 class Compose:
@@ -47,11 +65,23 @@ class Compose:
 
 class PackedFrames(list):
     """Frame views into one ``(H, W, 3·F)`` uint8 buffer (a packed-cache
-    sample), so the passthrough can hand the buffer on without a copy."""
+    sample, or the warp's output), so a stage can hand the buffer on
+    without a copy while no earlier stage replaced a frame
+    (:meth:`untouched`)."""
 
     def __init__(self, views, base: np.ndarray):
         super().__init__(views)
         self.base = base
+        self._orig = tuple(views)
+
+    def untouched(self) -> bool:
+        return len(self) == len(self._orig) and all(
+            a is b for a, b in zip(self, self._orig))
+
+
+def _packed(base: np.ndarray) -> PackedFrames:
+    n = base.shape[-1] // 3
+    return PackedFrames([base[..., 3 * i:3 * i + 3] for i in range(n)], base)
 
 
 def _wh(img: np.ndarray) -> Tuple[int, int]:
@@ -90,15 +120,25 @@ class RandomCrop:
 
 
 class MultiRandomCrop(RandomCrop):
-    """One crop window shared by all frames of the clip."""
+    """One crop window shared by all frames of the clip, after padding each
+    frame to the crop (``pad_if_needed``); a packed clip is padded and
+    windowed as its one buffer (the same draws and bytes)."""
 
     def __call__(self, imgs, rng: np.random.Generator):
-        if self.pad_if_needed:
-            imgs = [_pad_to_np(a, self.size[1], self.size[0], self.fill)
-                    for a in imgs]
+        packed = isinstance(imgs, PackedFrames) and imgs.untouched()
+        if packed and self.pad_if_needed:
+            base = _pad_to_np(imgs.base, self.size[1], self.size[0],
+                              self.fill)
+            if base is not imgs.base:
+                imgs = _packed(base)
+        elif self.pad_if_needed:
+            imgs = [_pad_to_np(np.asarray(a), self.size[1], self.size[0],
+                               self.fill) for a in imgs]
         top, left = self.get_params(imgs[0], rng)
         th, tw = self.size
-        return [a[top:top + th, left:left + tw] for a in imgs]
+        if packed:
+            return _packed(imgs.base[top:top + th, left:left + tw])
+        return [np.asarray(a)[top:top + th, left:left + tw] for a in imgs]
 
 
 class MultiCenterCrop:
@@ -121,11 +161,123 @@ class MultiCenterCrop:
         return out
 
 
+class MultiToNumpy:
+    """Frames → uint8 ``(H, W, 3)`` arrays (a packed clip passes as it
+    is)."""
+
+    def __call__(self, imgs, rng=None):
+        if isinstance(imgs, PackedFrames) and imgs.untouched():
+            return imgs
+        return [np.asarray(a, dtype=np.uint8) for a in imgs]
+
+
 class MultiConcate:
-    """Frames → one ``(H, W, 3·F)`` array on the channel axis."""
+    """Frames → one ``(H, W, 3·F)`` array on the channel axis (a packed
+    clip's buffer itself)."""
 
     def __call__(self, imgs, rng=None) -> np.ndarray:
+        if isinstance(imgs, PackedFrames) and imgs.untouched():
+            return imgs.base
         return np.concatenate(imgs, axis=-1)
+
+
+class MultiRandomHorizontalFlip:
+    """One coin shared by all frames: ``FLIP_LEFT_RIGHT`` on heads."""
+
+    def __init__(self, p: float = 0.5):
+        self.p = p
+
+    def __call__(self, imgs, rng: np.random.Generator):
+        if rng.random() < self.p:
+            return [imaging.flip_left_right(a) for a in imgs]
+        return imgs
+
+
+class MultiRotate:
+    """One integer angle in ±``rotate_range`` shared by all frames,
+    ``rotate(deg, expand=True)`` (the canvas grows; the crop downstream
+    restores the size)."""
+
+    def __init__(self, rotate_range: float):
+        self.rotate_range = int(rotate_range)
+
+    def __call__(self, imgs, rng: np.random.Generator):
+        deg = int(rng.integers(-self.rotate_range, self.rotate_range + 1))
+        return [imaging.rotate(a, deg) for a in imgs]
+
+
+class RandomResize:
+    """A uniform random rescale, bilinear (the chain's interpolation)."""
+
+    def __init__(self, scale=(0.9, 1.1)):
+        self.scale = scale
+
+    def _target_size(self, img, rng: np.random.Generator) -> Tuple[int, int]:
+        s = rng.uniform(self.scale[0], self.scale[1])
+        w, h = _wh(np.asarray(img))
+        return int(w * s), int(h * s)
+
+
+class MultiRandomResize(RandomResize):
+    """One random scale shared by all frames."""
+
+    def __call__(self, imgs, rng: np.random.Generator):
+        tw, th = self._target_size(imgs[0], rng)
+        return [imaging.resize_bilinear(a, (tw, th)) for a in imgs]
+
+
+class ColorJitter:
+    """Brightness, contrast, saturation and hue jitter in a random order
+    with shared factors, each the Pillow op (``data/imaging.py``): the
+    draws and their application of :class:`MultiColorJitter`."""
+
+    def __init__(self, brightness=0.0, contrast=0.0, saturation=0.0,
+                 hue=0.0):
+        self.brightness = self._range(brightness)
+        self.contrast = self._range(contrast)
+        self.saturation = self._range(saturation)
+        self.hue = (-hue, hue) if not isinstance(hue, (tuple, list)) \
+            else tuple(hue)
+
+    @staticmethod
+    def _range(v):
+        if isinstance(v, (tuple, list)):
+            return tuple(v)
+        return (max(0.0, 1.0 - v), 1.0 + v)
+
+    def get_params(self, rng: np.random.Generator):
+        """``(order, b, c, s, h)``: a permutation of the four ops, then a
+        factor for each whose range is not the identity."""
+        order = rng.permutation(4)
+        b = rng.uniform(*self.brightness) \
+            if self.brightness != (1.0, 1.0) else None
+        c = rng.uniform(*self.contrast) \
+            if self.contrast != (1.0, 1.0) else None
+        s = rng.uniform(*self.saturation) \
+            if self.saturation != (1.0, 1.0) else None
+        h = rng.uniform(*self.hue) if self.hue != (0.0, 0.0) else None
+        return order, b, c, s, h
+
+    @staticmethod
+    def _apply(img, order, b, c, s, h):
+        for idx in order:
+            if idx == 0 and b is not None:
+                img = imaging.brightness(img, b)
+            elif idx == 1 and c is not None:
+                img = imaging.contrast(img, c)
+            elif idx == 2 and s is not None:
+                img = imaging.color(img, s)
+            elif idx == 3 and h is not None:
+                img = imaging.hue(img, h)
+        return img
+
+
+class MultiColorJitter(ColorJitter):
+    """One jitter draw shared by all frames of the clip."""
+
+    def __call__(self, imgs, rng: np.random.Generator):
+        params = self.get_params(rng)
+        return [self._apply(np.asarray(a), *params) for a in imgs]
 
 
 def _rot_canvas(w: int, h: int, deg: float) -> Tuple[int, int]:
@@ -199,6 +351,61 @@ def fused_geometric_params(w: int, h: int, size: Tuple[int, int],
 def blur_mask_draws(n: int, p: float, rng: np.random.Generator) -> List[bool]:
     """One blur coin per frame, frame-major."""
     return [rng.random() < p for _ in range(n)]
+
+
+class MultiFusedGeometric:
+    """rotate → hflip → random resize → pad-if-needed → random crop as one
+    bilinear warp a frame (:func:`fused_geometric_params`' draws and
+    affine), rendered by the native warp into one packed ``(H, W, 3F)``
+    clip, black outside the source (``data/native.py``
+    :func:`~.native.warp_affine_batch`, bitwise the JAX package's native
+    warp; there is no other renderer)."""
+
+    def __init__(self, size, rotate_range: float = 0,
+                 scale=(2.0 / 3, 3.0 / 2.0), p_flip: float = 0.5):
+        self.size = (size, size) if isinstance(size, int) else tuple(size)
+        self.rotate_range = int(rotate_range)
+        self.scale = scale
+        self.p_flip = p_flip
+
+    def __call__(self, imgs, rng: np.random.Generator) -> PackedFrames:
+        th, tw = self.size
+        w, h = _wh(np.asarray(imgs[0]))
+        coeffs = fused_geometric_params(
+            w, h, self.size, self.rotate_range, self.scale, self.p_flip, rng)
+        return _packed(native.warp_affine_batch(
+            [np.asarray(a) for a in imgs], coeffs, (tw, th), packed=True))
+
+
+class MultiBlur:
+    """Each frame on its own coin (:func:`blur_mask_draws`), Pillow's
+    ``GaussianBlur(blur_radius)``."""
+
+    def __init__(self, p: float, blur_radius: Optional[float] = None):
+        self.p = p
+        self.blur_radius = 1.0 if blur_radius is None else blur_radius
+
+    def __call__(self, imgs, rng: np.random.Generator):
+        mask = blur_mask_draws(len(imgs), self.p, rng)
+        if not any(mask):
+            return imgs
+        return [imaging.gaussian_blur(a, self.blur_radius) if fire else a
+                for a, fire in zip(imgs, mask)]
+
+
+class MultiFlicker:
+    """Each frame, on its own coin of ``probability``, replaced by a black
+    one (temporal inconsistency)."""
+
+    def __init__(self, probability: float):
+        self.probability = probability
+
+    def __call__(self, imgs, rng: np.random.Generator):
+        fires = [rng.random() < self.probability for _ in imgs]
+        if not any(fires):
+            return imgs
+        return [np.zeros_like(np.asarray(a)) if fire else a
+                for a, fire in zip(imgs, fires)]
 
 
 class DeviceAugmentPassthrough:

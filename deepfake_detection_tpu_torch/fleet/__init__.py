@@ -31,7 +31,6 @@ _LAZY = {
     "HealthScraper": "controller",
     "ReplicaProcess": "controller",
     "spawn_replicas": "controller",
-    "free_port": "controller",
     "http_request": "controller",
     "parse_exposition": "controller",
     "retire_replica": "controller",

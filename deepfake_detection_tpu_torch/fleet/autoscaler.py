@@ -68,7 +68,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ..backfill.lease import LeaseDir
 from ..obs.events import EventLog, iter_records
-from .controller import ReplicaProcess, free_port, http_request, \
+from .controller import ReplicaProcess, http_request, \
     retire_replica
 from .metrics import RouterMetrics
 from .registry import Registry
@@ -665,7 +665,7 @@ class Autoscaler:
                 used = len(self.registry.ids()) + len(self.standbys)
                 self.tenant.ensure_room(
                     self.knobs.max_replicas - (used + 1))
-            child = ReplicaProcess(self.spawn_runner, free_port(),
+            child = ReplicaProcess(self.spawn_runner, 0,
                                    self.replica_args, env=self.child_env)
             self.standbys.append(_Standby(child, time.monotonic()))
             self.metrics.replicas_spawned_total.inc()
@@ -706,8 +706,7 @@ class Autoscaler:
             # tenant FIRST (SIGTERM → exit-75 lease release)
             self.tenant.ensure_room(
                 self.knobs.max_replicas - (used + 1))
-        port = free_port()
-        child = ReplicaProcess(self.spawn_runner, port,
+        child = ReplicaProcess(self.spawn_runner, 0,
                                self.replica_args, env=self.child_env)
         r = self.registry.add(child.netloc, process=child)
         r.warming = True              # optimistic until the first scrape

@@ -23,6 +23,12 @@ children and attach by URL instead.  The controller itself must stay
 torch-free — children import the accelerator stack, the router tier
 never does.  The counterpart of ``deepfake_detection_tpu/fleet/controller.py``;
 :class:`ReplicaProcess` launches the port's runners.
+
+A spawned replica's port is reserved before the child starts: the
+parent binds a socket to a free port and hands it down (``pass_fds``, its
+number in ``DFD_LISTEN_FD``), and the child's server adopts it
+(``serving/listen.py`` says why the JAX controller's ``free_port`` could
+lose the port).
 """
 
 from __future__ import annotations
@@ -40,20 +46,14 @@ import threading
 import time
 from typing import Dict, List, Optional
 
+from ..serving.listen import LISTEN_FD_ENV
 from .metrics import RouterMetrics
 from .registry import Registry, Replica
 
 _logger = logging.getLogger(__name__)
 
-__all__ = ["HealthScraper", "ReplicaProcess", "free_port",
-           "http_request", "parse_exposition", "retire_replica"]
-
-
-def free_port(host: str = "127.0.0.1") -> int:
-    with socket.socket() as s:
-        s.bind((host, 0))
-        return s.getsockname()[1]
-
+__all__ = ["HealthScraper", "ReplicaProcess", "http_request",
+           "parse_exposition", "retire_replica"]
 
 def http_request(netloc: str, method: str, path: str, body: bytes = b"",
                  headers: Optional[dict] = None, timeout: float = 5.0
@@ -217,7 +217,9 @@ class HealthScraper:
 
 class ReplicaProcess:
     """One spawned replica child (serve or stream runner) on a local
-    free port, with the terminate→kill shutdown escalation.
+    port (``port`` 0: a free one, reserved for the child before it starts;
+    see the module docstring), with the terminate→kill shutdown
+    escalation.
 
     ``stop()`` is the LAST step of retirement, not the whole of it —
     scale-in goes through :func:`retire_replica` (drain → bounded wait
@@ -228,11 +230,16 @@ class ReplicaProcess:
 
     RUNNERS = ("serve", "stream")
 
-    def __init__(self, runner: str, port: int, extra_args: str = "",
+    def __init__(self, runner: str, port: int = 0, extra_args: str = "",
                  env: Optional[dict] = None):
         if runner not in self.RUNNERS:
             raise ValueError(f"runner must be one of {self.RUNNERS}, "
                              f"got {runner!r}")
+        reserved = None
+        if not port:
+            reserved = socket.socket()
+            reserved.bind(("127.0.0.1", 0))
+            port = reserved.getsockname()[1]
         self.runner = runner
         self.port = int(port)
         self.extra_args = extra_args
@@ -246,7 +253,17 @@ class ReplicaProcess:
         # monotonic clocks don't compare across processes
         child_env = dict(os.environ if env is None else env)
         child_env.setdefault("DFD_SPAWN_T", repr(time.time()))
-        self.proc = subprocess.Popen(self.cmd, env=child_env)
+        child_env.pop(LISTEN_FD_ENV, None)
+        fds = ()
+        if reserved is not None:
+            child_env[LISTEN_FD_ENV] = str(reserved.fileno())
+            fds = (reserved.fileno(),)
+        try:
+            self.proc = subprocess.Popen(self.cmd, env=child_env,
+                                         pass_fds=fds)
+        finally:
+            if reserved is not None:
+                reserved.close()       # the child holds its own copy
 
     @property
     def netloc(self) -> str:
@@ -270,8 +287,9 @@ class ReplicaProcess:
 
 def spawn_replicas(n: int, runner: str, extra_args: str = "",
                    env: Optional[dict] = None) -> List[ReplicaProcess]:
-    """``n`` replica children on free local ports (the --spawn path)."""
-    return [ReplicaProcess(runner, free_port(), extra_args, env=env)
+    """``n`` replica children on reserved local ports (the --spawn
+    path)."""
+    return [ReplicaProcess(runner, 0, extra_args, env=env)
             for _ in range(n)]
 
 

@@ -32,22 +32,20 @@
 // any write.
 //
 // Pure C ABI, loaded with ctypes by data/native.py, which builds this file
-// with the host C++ compiler at first use:
-//   c++ -O3 -std=c++17 -shared -fPIC jpeg_decode.cc -lpthread
+// and imaging.cc into one library with the host C++ compiler at first use:
+//   c++ -O3 -std=c++17 -ffp-contract=off -shared -fPIC
+//       jpeg_decode.cc imaging.cc -lpthread
 
-#include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
-#include <functional>
 #include <sys/stat.h>
-#include <mutex>
 #include <new>
-#include <queue>
 #include <stdexcept>
-#include <thread>
 #include <vector>
+
+#include "pool.h"
 
 namespace {
 
@@ -1337,67 +1335,6 @@ uint8_t* decode_file(const char* path, int* w, int* h, int* why) {
   return decode_buffer(buf.data(), buf.size(), w, h, why);
 }
 
-// ---------------------------------------------------------------------------
-// worker pool
-// ---------------------------------------------------------------------------
-
-class Pool {
- public:
-  explicit Pool(int n) {
-    for (int i = 0; i < n; ++i) workers_.emplace_back([this] { Run(); });
-  }
-  ~Pool() {
-    {
-      std::unique_lock<std::mutex> lk(mu_);
-      stop_ = true;
-    }
-    cv_.notify_all();
-    for (auto& t : workers_) t.join();
-  }
-  void Submit(std::function<void()> fn) {
-    {
-      std::unique_lock<std::mutex> lk(mu_);
-      q_.push(std::move(fn));
-    }
-    cv_.notify_one();
-  }
-
- private:
-  void Run() {
-    for (;;) {
-      std::function<void()> fn;
-      {
-        std::unique_lock<std::mutex> lk(mu_);
-        cv_.wait(lk, [this] { return stop_ || !q_.empty(); });
-        if (stop_ && q_.empty()) return;
-        fn = std::move(q_.front());
-        q_.pop();
-      }
-      fn();
-    }
-  }
-  std::vector<std::thread> workers_;
-  std::queue<std::function<void()>> q_;
-  std::mutex mu_;
-  std::condition_variable cv_;
-  bool stop_ = false;
-};
-
-struct Latch {
-  explicit Latch(int n) : count(n) {}
-  void Done() {
-    std::unique_lock<std::mutex> lk(mu);
-    if (--count == 0) cv.notify_all();
-  }
-  void Wait() {
-    std::unique_lock<std::mutex> lk(mu);
-    cv.wait(lk, [this] { return count == 0; });
-  }
-  int count;
-  std::mutex mu;
-  std::condition_variable cv;
-};
-
 }  // namespace
 
 extern "C" {
@@ -1427,17 +1364,19 @@ uint8_t* dfd_jpeg_decode_file(const char* path, int* w, int* h, int* why) {
 
 void* dfd_jpeg_pool_new(int n_threads) {
   if (n_threads < 1) n_threads = 1;
-  return new Pool(n_threads);
+  return new dfd_native::Pool(n_threads);
 }
 
-void dfd_jpeg_pool_free(void* pool) { delete static_cast<Pool*>(pool); }
+void dfd_jpeg_pool_free(void* pool) {
+  delete static_cast<dfd_native::Pool*>(pool);
+}
 
 // Decode n files (or buffers) on the pool; blocks until all are done.
 void dfd_jpeg_pool_decode_files(void* pool, int n, const char** paths,
                                 uint8_t** outs, int* ws, int* hs,
                                 int* whys) {
-  Pool* p = static_cast<Pool*>(pool);
-  Latch latch(n);
+  dfd_native::Pool* p = static_cast<dfd_native::Pool*>(pool);
+  dfd_native::Latch latch(n);
   for (int i = 0; i < n; ++i) {
     p->Submit([&, i] {
       outs[i] = decode_file(paths[i], &ws[i], &hs[i], &whys[i]);
@@ -1450,8 +1389,8 @@ void dfd_jpeg_pool_decode_files(void* pool, int n, const char** paths,
 void dfd_jpeg_pool_decode_buffers(void* pool, int n, const uint8_t** datas,
                                   const size_t* sizes, uint8_t** outs,
                                   int* ws, int* hs, int* whys) {
-  Pool* p = static_cast<Pool*>(pool);
-  Latch latch(n);
+  dfd_native::Pool* p = static_cast<dfd_native::Pool*>(pool);
+  dfd_native::Latch latch(n);
   for (int i = 0; i < n; ++i) {
     p->Submit([&, i] {
       outs[i] = decode_buffer(datas[i], sizes[i], &ws[i], &hs[i], &whys[i]);

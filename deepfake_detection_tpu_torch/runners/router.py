@@ -51,8 +51,7 @@ def build_router(cfg):
 
     The server is not yet started; spawned children are launched but not
     awaited (the health scraper's readiness view is the wait)."""
-    from ..fleet.controller import (HealthScraper, ReplicaProcess,
-                                    free_port)
+    from ..fleet.controller import HealthScraper, ReplicaProcess
     from ..fleet.metrics import RouterMetrics
     from ..fleet.registry import Registry
     from ..fleet.router import make_router_server
@@ -60,8 +59,7 @@ def build_router(cfg):
     registry = Registry(vnodes=cfg.virtual_nodes)
     spawned: List[ReplicaProcess] = []
     for _ in range(int(cfg.spawn)):
-        child = ReplicaProcess(cfg.spawn_runner, free_port(),
-                               cfg.replica_args)
+        child = ReplicaProcess(cfg.spawn_runner, 0, cfg.replica_args)
         spawned.append(child)
         r = registry.add(child.netloc, process=child)
         r.warming = True              # cold start, not down

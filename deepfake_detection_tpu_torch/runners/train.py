@@ -26,11 +26,16 @@ Pillow) or the ``<i>.npy`` beside each;
 the TimeSformer runs with ``--model timesformer_base_patch25_600
 --model-version "" --attn-impl flash``.
 
-The augment chain runs on the device only: the port's ``--augment-device``
-defaults to ``on``, where the JAX package's defaults to ``off`` (its host
-Pillow chain, which the card's machine cannot run); ``off`` raises, naming
-its ROADMAP item.  Jitter/flicker and erasing draw from torch generators,
-not ``jax.random`` (``data/loader.py``).
+The augment chain runs where the JAX runner runs it.  ``--augment-device
+off`` (the default, as the JAX package's) is the host chain: the native
+warp (or, with ``--host-geom``, the sequential rotate/flip/resize/crop),
+Pillow's blur, and under ``--mixup`` (as ``scripts/train.sh`` sets it) the
+colour jitter, the flicker and the blend, each computed as Pillow 12
+computes it without Pillow (``data/imaging.py`` over
+``native/imaging.cc``); without mixup, jitter and flicker run on the card
+unless ``--host-color-jitter``.  ``--augment-device on`` renders the whole
+chain on the card.  The card's jitter/flicker and erasing draw from torch
+generators, not ``jax.random`` (``data/loader.py``).
 
 Compute follows the JAX runner's policy: the model computes in
 ``--compute-dtype`` (default ``bfloat16``, as the JAX config's) when
@@ -64,8 +69,7 @@ tools/obs_report.py RUN_DIR`` summarizes a run.
 
 Training runs on ``--device cuda`` unless the caller asks for ``cpu`` (the
 plain PyTorch path the tests use).  Every flag of ``scripts/train.sh``
-parses; ``--augment-device off`` raises, naming its ROADMAP item; an
-unknown flag is an argparse error.
+parses; an unknown flag is an argparse error.
 """
 
 from __future__ import annotations
@@ -82,7 +86,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..data.dataset import DeepFakeClipDataset, SyntheticDataset
-from ..data.loader import (HOST_CHAIN_ITEM, DeviceLoader, create_loader,
+from ..data.loader import (DeviceLoader, create_loader,
                            create_deepfake_loader_v3)
 from ..data.mixup import FastCollateMixup
 from ..data.packed import PackedDataset
@@ -117,7 +121,7 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 @dataclass
 class TrainConfig:
     """The ported subset of the JAX package's ``TrainConfig``, with its
-    defaults, except ``augment_device`` (see the module docstring).
+    defaults.
     Fields without a flag in :func:`parse_args` (num_classes, drop,
     optimizer and schedule constants, the EMA decay) keep the reference's
     defaults; the optimizer and schedule factories read them."""
@@ -140,7 +144,11 @@ class TrainConfig:
     flicker: float = 0.0
     rotate_range: float = 0.0
     blur_prob: float = 0.0
-    augment_device: str = "on"
+    augment_device: str = "off"
+    # the host chain's parity escape hatches: jitter/flicker on the host
+    # under no mixup; the sequential geometry instead of the one warp
+    host_color_jitter: bool = False
+    host_geom: bool = False
     eval_crop: str = "random"
     model: str = "efficientnet_deepfake_v4"
     model_version: str = "v4"
@@ -225,8 +233,9 @@ def model_dtype(cfg: TrainConfig) -> Optional[torch.dtype]:
 
 
 def parse_args(argv=None) -> TrainConfig:
-    """``argv`` → :class:`TrainConfig`; raises ``NotImplementedError`` for
-    ``--augment-device off``."""
+    """``argv`` → :class:`TrainConfig`; ``--augment-device on`` with
+    ``--host-geom`` or ``--host-color-jitter`` raises ``ValueError``, as
+    the JAX config does."""
     d = TrainConfig()
     p = argparse.ArgumentParser(
         description="deepfake training (PyTorch port, one card)")
@@ -253,7 +262,14 @@ def parse_args(argv=None) -> TrainConfig:
     p.add_argument("--rotate-range", type=float, default=d.rotate_range)
     p.add_argument("--blur-prob", type=float, default=d.blur_prob)
     p.add_argument("--augment-device", choices=["on", "off"],
-                   default=d.augment_device)
+                   default=d.augment_device,
+                   help="off: the host chain; on: the whole chain on the "
+                        "device")
+    p.add_argument("--host-color-jitter", action="store_true",
+                   help="colour jitter and flicker on the host")
+    p.add_argument("--host-geom", action="store_true",
+                   help="the sequential rotate/flip/resize/crop on the host "
+                        "instead of the one native warp")
     p.add_argument("--eval-crop", choices=["random", "center"],
                    default=d.eval_crop)
     p.add_argument("--model", default=d.model)
@@ -316,8 +332,13 @@ def parse_args(argv=None) -> TrainConfig:
                    help="steps a SIGUSR2/PROFILE-file trace captures "
                         "(0: off)")
     ns = vars(p.parse_args(argv))
-    if ns["augment_device"] == "off":
-        raise NotImplementedError(f"--augment-device off: {HOST_CHAIN_ITEM}")
+    if ns["augment_device"] == "on" and ns["host_geom"]:
+        raise ValueError("--augment-device on renders the geometric warp on "
+                         "device; it conflicts with the --host-geom parity "
+                         "escape hatch — pick one")
+    if ns["augment_device"] == "on" and ns["host_color_jitter"]:
+        raise ValueError("--augment-device on leaves no host transform "
+                         "stage for --host-color-jitter to run in — pick one")
     if not 0 <= ns["metrics_port"] <= 65535:
         raise ValueError(f"--metrics-port must be in [0, 65535], got "
                          f"{ns['metrics_port']}")
@@ -437,8 +458,9 @@ def build_datasets(cfg: TrainConfig):
 
 def build_loaders(cfg: TrainConfig, device, train_ds, eval_ds
                   ) -> Tuple[DeviceLoader, DeviceLoader]:
-    """(train, eval) loaders: the clip dataset's with the device augment
-    chain (``blur_radius`` 1, as the JAX runner passes), or, for the
+    """(train, eval) loaders: the clip dataset's with the augment chain
+    where ``--augment-device`` puts it (``blur_radius`` 1, as the JAX
+    runner passes), or, for the
     synthetic set, collate, host mixup, normalize and erase; batches in
     the compute dtype (the JAX runner's loader dtype)."""
     c, h, w = cfg.input_size()
@@ -463,6 +485,8 @@ def build_loaders(cfg: TrainConfig, device, train_ds, eval_ds
                 collate_mixup=mixup, flicker=cfg.flicker,
                 rotate_range=cfg.rotate_range, blur_radius=1,
                 blur_prob=cfg.blur_prob,
+                device_color_jitter=not cfg.host_color_jitter,
+                fused_geom=not cfg.host_geom,
                 augment_device=cfg.augment_device == "on", **erase,
                 **common),
             create_deepfake_loader_v3(

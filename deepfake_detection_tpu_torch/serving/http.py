@@ -58,7 +58,7 @@ import json
 import logging
 import threading
 import time
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler
 from typing import Optional, Tuple
 from urllib.parse import parse_qs
 
@@ -69,6 +69,7 @@ from ..data import native
 from ..params import normalize_concat, normalize_replicate, prepare_canvas
 from .batcher import DeadlineExceeded, MicroBatcher, QueueFull
 from .engine import InferenceEngine
+from .listen import ReservedPortServer
 from .metrics import ServingMetrics
 from .resilience import BreakerOpen, EngineStalled, NonFiniteScores
 
@@ -176,8 +177,9 @@ def split_multipart(body: bytes, boundary: str) -> list:
     return parts
 
 
-class ServingServer(ThreadingHTTPServer):
-    """ThreadingHTTPServer carrying the serving wiring."""
+class ServingServer(ReservedPortServer):
+    """ThreadingHTTPServer carrying the serving wiring (on the socket its
+    router reserved for it, when it is a spawned replica)."""
 
     daemon_threads = True
     # keep-alive matters: the load generator and any sane client reuse

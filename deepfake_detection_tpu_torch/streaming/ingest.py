@@ -66,13 +66,14 @@ import subprocess
 import threading
 import time
 import uuid
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from ..data import native
 from ..serving.http import multipart_boundary, split_multipart
+from ..serving.listen import ReservedPortServer
 from . import ring as ring_mod
 from .metrics import StreamingMetrics
 from .ring import CanvasRing, FrameStack, RingLease
@@ -1244,7 +1245,7 @@ _STREAM_PATH = re.compile(
     r"^/streams/([A-Za-z0-9_.-]{1,64})(/frames|/migrate)?$")
 
 
-class StreamServer(ThreadingHTTPServer):
+class StreamServer(ReservedPortServer):
     daemon_threads = True
     protocol_version = "HTTP/1.1"
     request_queue_size = 256     # the serving front end's burst-connect

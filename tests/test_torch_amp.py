@@ -208,7 +208,8 @@ def test_loader_batches_in_bf16_match_jax(tmp_path):
         color_jitter=0.0, rotate_range=5, blur_radius=1, blur_prob=0.5,
         augment_device=True, dtype=jnp.bfloat16, num_workers=2, seed=4)
     jl.set_epoch(0)
-    cfg = runner.parse_args(argv + ["--device", "cpu"])
+    cfg = runner.parse_args(argv + ["--device", "cpu", "--augment-device",
+                                    "on"])
     tl, _ = runner.build_loaders(cfg, torch.device("cpu"),
                                  *runner.build_datasets(cfg))
     tl.set_epoch(0)

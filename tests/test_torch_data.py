@@ -289,7 +289,7 @@ def test_whole_train_prologue_matches_jax(tree, workers):
         is_training=True, device="cpu",
         collate_mixup=t_mixup.FastCollateMixup(0.1, 0.1, 2),
         rotate_range=5, blur_radius=1, blur_prob=0.5, color_jitter=None,
-        num_workers=workers, seed=3)
+        augment_device=True, num_workers=workers, seed=3)
     want, got = _batches(jl, 2), _batches(tl, 2)
     assert len(got) == len(want) == 2 * (8 // 2)
     std = np.tile(img_std, F)

@@ -19,6 +19,7 @@ window's bucket follows its arrival), with its verdict events and books
 equal.  The router process must import no torch.
 """
 
+import errno
 import hashlib
 import io
 import json
@@ -93,9 +94,9 @@ ROUTER_SIDE = (
         "registry", "metrics", "controller", "migrate", "router",
         "dataplane", "autoscaler")]
     + [f"deepfake_detection_tpu_torch.{m}" for m in (
-        "runners.router", "serving.config", "backfill.lease",
-        "backfill.manifest", "backfill.writer", "obs.events", "cache",
-        "serving.resilience", "utils.prometheus")])
+        "runners.router", "serving.config", "serving.listen",
+        "backfill.lease", "backfill.manifest", "backfill.writer",
+        "obs.events", "cache", "serving.resilience", "utils.prometheus")])
 
 
 def _http(port, method, path, body=None, headers=None, timeout=TIMEOUT):
@@ -788,8 +789,39 @@ def test_spawned_fleet_fails_over_and_stops_every_child(tmp_path):
         log.close()
 
 
-# ---------------------------------------------------------------------------
-# the backfill tenant runs the port's worker
+@pytest.mark.parametrize("runner", ["serve", "stream"])
+def test_spawned_replicas_port_cannot_be_taken_before_it_binds(tmp_path,
+                                                               runner):
+    """The card once saw a spawned replica die with ``EADDRINUSE``: the
+    JAX controller's ``free_port`` freed its port long before the child
+    bound it.  Here a third party tries to take the port at once, before
+    the child has built its model, and again while it starts; the port is
+    reserved for the child, which comes up and answers on it."""
+    from deepfake_detection_tpu_torch.fleet.controller import ReplicaProcess
+    args = ("--device cpu --image-size 32 --buckets 1 --max-queue 8 "
+            "--watchdog-timeout-s 0")
+    if runner == "stream":
+        args += " --img-num 2"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    child = ReplicaProcess(runner, 0, args, env=env)
+    try:
+        for _ in range(2):
+            with socket.socket() as taker:
+                with pytest.raises(OSError) as e:
+                    taker.bind(("127.0.0.1", child.port))
+                assert e.value.errno == errno.EADDRINUSE
+            time.sleep(0.5)
+
+        def up():
+            assert child.alive, f"the replica exited {child.proc.poll()}"
+            try:
+                st, _, _ = _http(child.port, "GET", "/healthz", timeout=2)
+            except (urllib.error.URLError, ConnectionError):
+                return False
+            return st == 200
+        _wait(up, "the replica never answered on its port", timeout=120)
+    finally:
+        child.stop()
 # ---------------------------------------------------------------------------
 
 def test_backfill_tenant_yields_and_completes_with_exact_books(tmp_path):

@@ -433,11 +433,17 @@ def test_library_is_built_from_the_source_into_build_native():
     info = native.build_info()
     lib = info["library"]
     assert os.path.dirname(lib).endswith(os.path.join("build", "native"))
-    digest = hashlib.sha256(open(native._SRC, "rb").read())
+    digest = hashlib.sha256()
+    for src in (*native._SRCS, *native._HEADERS):
+        digest.update(open(src, "rb").read())
     digest.update(" ".join(native._FLAGS).encode())
     assert os.path.basename(lib) == \
-        f"jpeg_decode-{digest.hexdigest()[:16]}.so"
+        f"dfd_native-{digest.hexdigest()[:16]}.so"
     assert "-ljpeg" not in native._FLAGS
+
+
+#: what every decode and image op raises when the library cannot build
+UNAVAILABLE = "native library .* is unavailable"
 
 
 def test_missing_compiler_raises_and_nothing_falls_back(tmp_path,
@@ -448,12 +454,12 @@ def test_missing_compiler_raises_and_nothing_falls_back(tmp_path,
     monkeypatch.setattr(native, "_BUILD_DIR", tmp_path / "build")
     monkeypatch.setenv("CXX", str(tmp_path / "no-such-c++"))
     assert native.available() is False
-    with pytest.raises(RuntimeError, match="JPEG decoder is unavailable"):
+    with pytest.raises(RuntimeError, match=UNAVAILABLE):
         native.decode_jpeg_bytes(_fixture("gray"))
     jpg = tmp_path / "0.jpg"
     jpg.write_bytes(_fixture("gray"))
     fallbacks = t_ds.decode_fallbacks
-    with pytest.raises(RuntimeError, match="JPEG decoder is unavailable"):
+    with pytest.raises(RuntimeError, match=UNAVAILABLE):
         t_ds.load_frames([str(jpg)])     # Pillow is here: still no fallback
     assert t_ds.decode_fallbacks == fallbacks
     assert not list((tmp_path / "build").glob("*.so"))

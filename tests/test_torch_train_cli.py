@@ -7,12 +7,13 @@
   through ``tools/convert_torch_checkpoint.convert_state_dict``, into the
   JAX model, whose eval logits then match the port's within 1e-4 of the
   logit scale (f32 through 16 blocks, summed in different orders).
-* ``--augment-device off`` raises, naming its ROADMAP item; the data,
+* ``--augment-device off`` parses (the default, as the JAX config's),
+  with ``--host-geom`` and ``--host-color-jitter``, which raise beside
+  ``on`` as they do in the JAX config; the data,
   augment, ``--amp`` and recovery flags of ``scripts/train.sh`` parse into
   ``TrainConfig`` with their values, and so does its whole argument list
   (as ``scripts/train_torch.sh`` passes it); the fields the JAX
-  ``TrainConfig`` shares default as its do (``augment_device`` aside), the
-  compute dtype to bf16; a flag of the JAX runner outside that subset is an
+  ``TrainConfig`` shares default as its do, the compute dtype to bf16; a flag of the JAX runner outside that subset is an
   argparse error.  The runs here pass ``--compute-dtype float32``: they
   are compared at f32 tolerances.
 * From a clip tree (``test_torch_data.make_clip_tree``): the port's runner
@@ -20,7 +21,8 @@
   (at 32² the last stage's train-mode BN over 3 values of a channel is too
   ill-conditioned to compare a fresh model at 1e-4), batch 3, with
   ``--label-balance --rotate-range 5 --blur-prob 0.5 --mixup 0.1 --workers
-  2 --color-jitter 0 --reprob 0`` and ``--lr 1e-2 --clip-grad 0.5`` (the
+  2 --color-jitter 0 --reprob 0 --augment-device on`` and ``--lr 1e-2
+  --clip-grad 0.5`` (the
   clipped norm bounds the leaves whose gradient is rounding noise, as in
   ``test_torch_train.py``), against the JAX runner's
   ``build_datasets``, ``create_deepfake_loader_v3(...,
@@ -127,8 +129,16 @@ def test_checkpoint_loads_into_port_and_jax_with_equal_logits(trained):
 
 @pytest.mark.parametrize("flag", [["--augment-device", "off"]])
 def test_unported_flags_raise_naming_their_roadmap_item(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        runner.parse_args(ARGS + flag)
+    """``--augment-device off`` (the host chain) parses now, with its two
+    escape hatches; ``on`` with either of them raises as the JAX config
+    does."""
+    cfg = runner.parse_args(ARGS + flag + ["--host-geom",
+                                           "--host-color-jitter"])
+    assert (cfg.augment_device, cfg.host_geom, cfg.host_color_jitter) == \
+        ("off", True, True)
+    for hatch in ("--host-geom", "--host-color-jitter"):
+        with pytest.raises(ValueError, match="pick one"):
+            runner.parse_args(ARGS + ["--augment-device", "on", hatch])
 
 
 @pytest.mark.parametrize("flag,field,value", [
@@ -197,12 +207,12 @@ def test_data_fields_default_as_the_jax_config():
     got = runner.TrainConfig()
     names = [f.name for f in dataclasses.fields(got)
              if hasattr(want, f.name) and f.name not in (
-                 "augment_device", "guard_nonfinite", "device",
-                 "input_size_v2")]
+                 "guard_nonfinite", "device", "input_size_v2")]
     assert len(names) > 40
     for name in names:
         assert getattr(got, name) == getattr(want, name), name
-    assert (got.augment_device, want.augment_device) == ("on", "off")
+    assert (got.augment_device, want.augment_device) == ("off", "off")
+    assert runner.parse_args([]).augment_device == "off"
     assert runner.parse_args([]).dataset == "deepfake_v3"
 
 
@@ -337,7 +347,7 @@ def tree_run(tmp_path_factory):
     js = j_state(jax.tree.map(jnp.asarray, variables), tx, donate=False)
     # port: its runner's setup with the same weights
     cfg = runner.parse_args(argv + ["--device", "cpu", "--compute-dtype",
-                                    "float32"])
+                                    "float32", "--augment-device", "on"])
     init = state_dict_from_flax(variables)
     build = runner.build_model
 
