@@ -35,6 +35,15 @@ before the result line:
    ``--host-geom``, equal to their committed digests; the host ms a 640²
    clip by stage (warp to 600², blur, jitter, flicker, and the collate and
    mixup blend of a batch of 3);
+2c. AugMix's ops and policies (``augmix``) on the card's host, no Pillow:
+   every case of ``tests/data/augmix/digests.json`` (Pillow 12's tables
+   over all 2²⁴ colours and every argument, histograms, Sharpness, blend,
+   the BILINEAR/BICUBIC affine and rotate sweeps, the JAX AugMix,
+   RandAugment and AutoAugment on seeded frames and generators) and the
+   first host batches of the ``--aug-splits 3 --resplit`` loader equal to
+   their committed digests; the host ms a 600² frame of each op and of
+   one ``AugMixAugment`` call, and of the AugMix stage of a 4-frame clip
+   (two views);
 3. forward kernel vs plain: the depthwise kernel at every depthwise shape
    of the flagship ``efficientnet_deepfake_v4`` at a 600² input (batch 1,
    the inference path's, and batch 2; f32, TF32 off), bf16 on a few of them,
@@ -252,6 +261,15 @@ before the result line:
    ``--augment-device on`` (launches counted apart, the
    ``train_host_device`` path): ms a step, the host's wait a step and the
    loader's fetch ms a batch of each;
+16b. ``train_augmix``: train_torch.sh's line with ``--mixup 0 --aug-splits
+   3 --jsd --split-bn`` on the same tree (bf16, full width and depth, split
+   BN everywhere), ``AUGMIX_TRAIN_STEPS`` steps and ``AUGMIX_PROFILED``
+   profiled: 9 rows a
+   step (3 clean, 3 + 3 AugMix views), 55/55/55 bf16 depthwise launches a
+   step counted for this row alone, the loss finite, every BN's main and
+   aux running stats moved and apart; one eval batch through the main BN
+   alone (its logits bitwise unchanged when every aux BN is set to NaN, 55
+   forward launches); ms a step, host wait, idle share, peak memory;
 17. ``resume``: the same bf16 run in-process (``DFD_CHAOS`` set and cleared
    around each call, ``SystemExit`` caught): an uninterrupted epoch twice;
    ``sigterm@5`` → exit 75 with the snapshot ``recovery-0-4``; the snapshot
@@ -353,6 +371,7 @@ from deepfake_detection_tpu_torch.models.helpers import (load_state_dict,
 from deepfake_detection_tpu_torch.ops import depthwise as dw
 from deepfake_detection_tpu_torch.ops import flash_attention as fa
 from deepfake_detection_tpu_torch.ops.conv import explicit_padding
+from deepfake_detection_tpu_torch.ops.norm import SplitBatchNorm2d
 from deepfake_detection_tpu_torch.optim import create_optimizer
 from deepfake_detection_tpu_torch.params import (normalize_replicate,
                                                  prepare_canvas)
@@ -552,6 +571,13 @@ def _sweep_case(data: bytes, case: list) -> bytes:
 
 
 HOST_AUG_ITERS = 5                # timed calls a host stage (after one)
+AUGMIX_TRAIN_STEPS = 6            # timed steps of train_augmix (the first
+AUGMIX_PROFILED = 2               # left out of the means), then profiled:
+                                  # the tree's 8 batches an epoch
+AUGMIX_STAGE_ITERS = 8            # timed AugMix stages of a clip (after one)
+AUGMIX_OVERRIDES = ["--mixup", "0", "--aug-splits", "3", "--jsd",
+                    "--split-bn", "--epochs", "1", "--recovery-interval",
+                    "0", "--no-telemetry"]
 HOST_TRAIN_STEPS = 4              # timed steps a train_host row (the first
                                   # left out of the means), then 3 profiled
                                   # in the host-chain row: of the tree's 8
@@ -569,14 +595,35 @@ def _host_fixtures():
     return fx
 
 
-def _median_ms(fn, iters: int = HOST_AUG_ITERS) -> float:
+def _augmix_fixtures():
+    """``tests/torch_augmix_fixtures.py``, as :func:`_host_fixtures`."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    try:
+        import torch_augmix_fixtures as fx
+    finally:
+        sys.path.pop(0)
+    return fx
+
+
+def _times_ms(fn, iters: int = HOST_AUG_ITERS) -> list:
+    """ms of each of ``iters`` calls of ``fn``, after one untimed call."""
     fn()
     times = []
     for _ in range(iters):
         t0 = time.perf_counter()
         fn()
-        times.append(time.perf_counter() - t0)
-    return float(np.median(times)) * 1e3
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _median_ms(fn, iters: int = HOST_AUG_ITERS) -> float:
+    return float(np.median(_times_ms(fn, iters)))
+
+
+def _spread(ms: list) -> dict:
+    """min, median, max and standard deviation of a list of ms."""
+    return dict(min=float(np.min(ms)), median=float(np.median(ms)),
+                max=float(np.max(ms)), std=float(np.std(ms)))
 
 
 def phase_host_augment() -> dict:
@@ -641,6 +688,74 @@ def phase_host_augment() -> dict:
     if bad:
         raise AssertionError(f"the host augment chain on this host: {bad}")
     return dict(ms=ms)
+
+
+def phase_augmix() -> dict:
+    """AugMix's ops and policies on the card's host (no Pillow): every
+    committed digest case and the first host batches of the ``--aug-splits
+    3 --resplit`` loader equal to their digests; the host ms a 600² frame
+    of each op and of one ``AugMixAugment`` call, one thread, and of the
+    AugMix stage of a 4-frame 600² clip (``AugMixDataset``, two views)."""
+    from deepfake_detection_tpu_torch.data import auto_augment as aa
+    from deepfake_detection_tpu_torch.data import imaging
+    from deepfake_detection_tpu_torch.data.dataset import AugMixDataset
+    fx = _augmix_fixtures()
+    hx = fx.hx
+    digests = fx.load_digests()
+    t0 = time.perf_counter()
+    bad = [n for n in fx.CASES
+           if fx.sha(fx.port_case(n)) != digests["cases"][n]]
+    cases_s = time.perf_counter() - t0
+    root = OUT / "augmix_tree"
+    shutil.rmtree(root, ignore_errors=True)
+    hx.make_tree(root)
+    loader = fx.port_batches(str(root)) == digests["loaders"]["augmix_resplit"]
+    shutil.rmtree(root, ignore_errors=True)
+    if not loader:
+        bad.append("augmix_resplit")
+    a, b = hx.photo(11, 600, 600), hx.photo(12, 600, 600)
+    fill, bl, bc = fx.FILL, imaging.BILINEAR, imaging.BICUBIC
+    ops = {"autocontrast": lambda: imaging.autocontrast(a),
+           "equalize": lambda: imaging.equalize(a),
+           "posterize": lambda: imaging.posterize(a, 3),
+           "solarize": lambda: imaging.solarize(a, 200),
+           "solarize_add": lambda: imaging.solarize_add(a, 50),
+           "invert": lambda: imaging.invert(a),
+           "color": lambda: imaging.color(a, 1.3),
+           "contrast": lambda: imaging.contrast(a, 1.3),
+           "brightness": lambda: imaging.brightness(a, 1.3),
+           "sharpness": lambda: imaging.sharpness(a, 1.3),
+           "blend": lambda: imaging.blend(a, b, 0.3),
+           "rotate_bilinear": lambda: imaging.rotate_fill(a, 7.5, bl, fill),
+           "rotate_bicubic": lambda: imaging.rotate_fill(a, 7.5, bc, fill),
+           "shear_bilinear": lambda: imaging.affine(
+               a, (1, 0.2, 0, 0, 1, 0), bl, fill),
+           "shear_bicubic": lambda: imaging.affine(
+               a, (1, 0.2, 0, 0, 1, 0), bc, fill),
+           "translate_bilinear": lambda: imaging.affine(
+               a, (1, 0, 90.5, 0, 1, 0), bl, fill),
+           "translate_bicubic": lambda: imaging.affine(
+               a, (1, 0, 90.5, 0, 1, 0), bc, fill)}
+    ms = {k: _median_ms(fn) for k, fn in ops.items()}
+    augmix = aa.augment_and_mix_transform("augmix-m3-w3")
+    rng = np.random.default_rng(0)
+    ms["augmix_call"] = _median_ms(lambda: augmix(a, rng))
+    clip = np.concatenate([hx.photo(20 + i, 600, 600) for i in range(4)], -1)
+    stage = AugMixDataset(None, num_splits=3)
+    stage_ms = _times_ms(
+        lambda: [stage._augment_clip(clip, rng) for _ in range(2)],
+        AUGMIX_STAGE_ITERS)
+    ms["augmix_stage_a_clip"] = float(np.median(stage_ms))
+    emit(phase="augmix", nvidia_smi=nvidia_smi_line(),
+         cpu_count=os.cpu_count(), pillow_of_digests=digests["pillow"],
+         cases=len(fx.CASES), cases_s=cases_s,
+         cases_bitwise=len(fx.CASES) - sum(n in fx.CASES for n in bad),
+         loader_bitwise=loader, host_ms_a_600_frame=ms,
+         augmix_stage_ms=stage_ms, augmix_stage_spread=_spread(stage_ms),
+         bad=bad[:5])
+    if bad:
+        raise AssertionError(f"AugMix's ops on this host: {bad}")
+    return dict(ms=ms, stage_spread=_spread(stage_ms))
 
 
 def phase_jpeg() -> dict:
@@ -3795,24 +3910,30 @@ def _kernel_kind(name: str) -> str:
     return "other"
 
 
-def _device_events(prof):
-    """The device's events of a torch.profiler run: kernels, copies and
+def _device_events(prof, averages=None):
+    """The device's events of a torch.profiler run (or of its
+    ``key_averages()``, read once by the caller): kernels, copies and
     memsets, without the device-side spans of user annotations (the
     optimizer's ``Optimizer.step#...`` range), which would count the time of
     the kernels they enclose a second time."""
-    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+    if averages is None:
+        averages = prof.key_averages()
+    return [e for e in averages if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)]
 
 
-def _emit_kinds(phase: str, prof, n: int, wall_us: float, **extra) -> None:
+def _emit_kinds(phase: str, prof, n: int, wall_us: float,
+                host_ops: bool = True, **extra) -> None:
     """Device time and launches per iteration by kernel kind, the device's
     idle share of the wall time, and the host's CPU time by op (the dtype
-    casts apart), from a torch.profiler run of ``n`` iterations; returns
-    what it printed."""
+    casts apart; "not measured" when the run traced no host ops,
+    ``host_ops`` False), from a torch.profiler run of ``n`` iterations;
+    returns what it printed."""
     kinds = Counter()
     launches = Counter()
     top = Counter()
-    for e in _device_events(prof):
+    averages = prof.key_averages()
+    for e in _device_events(prof, averages):
         kind = _kernel_kind(e.key)
         kinds[kind] += e.self_device_time_total
         launches[kind] += e.count
@@ -3825,7 +3946,7 @@ def _emit_kinds(phase: str, prof, n: int, wall_us: float, **extra) -> None:
     # calls an iteration, and the dtype casts with their children and their
     # backward nodes
     host, calls, total = Counter(), Counter(), {}
-    for e in prof.key_averages():
+    for e in averages if host_ops else ():
         if e.device_type == DeviceType.CPU:
             host[e.key] += e.self_cpu_time_total
             calls[e.key] += e.count
@@ -3839,9 +3960,11 @@ def _emit_kinds(phase: str, prof, n: int, wall_us: float, **extra) -> None:
                wall_ms_per_iteration=wall_us / n / 1e3,
                idle_share=max(0.0, 1.0 - busy_us / wall_us),
                top_kernels={k: v / n / 1e3 for k, v in top.most_common(8)},
-               host_op_ms_per_iteration=sum(host.values()) / n / 1e3,
+               host_op_ms_per_iteration=sum(host.values()) / n / 1e3
+               if host_ops else "not measured",
                top_host_ops={k: dict(ms=v / n / 1e3, calls=calls[k] / n)
-                             for k, v in host.most_common(10)},
+                             for k, v in host.most_common(10)}
+               if host_ops else "not measured",
                casts=casts, **extra)
     emit(**out)
     return out
@@ -4423,18 +4546,23 @@ def fixture_tree(root: Path, ext: str) -> Path:
     return root
 
 
-def _train_steps(run, cfg, steps: int, profile_as: str = "") -> dict:
+def _train_steps(run, cfg, steps: int, profile_as: str = "",
+                 profile_steps: int = 3, host_ops: bool = True) -> dict:
     """``steps`` train steps of ``run`` (``runners.train``'s setup, shared
     by the rows of a phase: a model is built once) fed by ``cfg``'s train
     loader, each synchronized: ms a step (from the loader's call to the
     step's end) and the host's wait in the loader, the first step left
-    out of both means; the losses; with ``profile_as``, a profile of three
-    more steps fed by the loader (device time by kind, idle share)."""
+    out of both means; the losses and each batch's rows; with
+    ``profile_as``, a profile of ``profile_steps`` more steps fed by the
+    loader (device time by kind, idle share; the host's ops by time unless
+    ``host_ops`` is False, which leaves them out of the trace and its
+    reading, a third of the events) and its seconds, the trace's reading
+    included."""
     run.train_loader, _ = train_runner.build_loaders(
         cfg, run.device, *train_runner.build_datasets(cfg))
     run.train_loader.set_epoch(0)
     it = iter(run.train_loader)
-    step_ms, wait_ms, losses_ = [], [], []
+    step_ms, wait_ms, losses_, rows = [], [], [], []
     for _ in range(steps):
         t0 = time.perf_counter()
         x, y = next(it)
@@ -4444,23 +4572,29 @@ def _train_steps(run, cfg, steps: int, profile_as: str = "") -> dict:
         step_ms.append((time.perf_counter() - t0) * 1e3)
         wait_ms.append((t1 - t0) * 1e3)
         losses_.append(float(m["loss"]))
+        rows.append(int(x.shape[0]))
     kinds = {}
+    t_prof = time.perf_counter()
     if profile_as:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        activities = [ProfilerActivity.CUDA]
+        if host_ops:
+            activities.append(ProfilerActivity.CPU)
+        with profile(activities=activities) as prof:
             t0 = time.perf_counter()
-            for _ in range(3):
+            for _ in range(profile_steps):
                 run.train_step(run.state, *next(it))
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        kinds = _emit_kinds(profile_as, prof, 3, wall_us, batch=TRAIN_BATCH)
+        kinds = _emit_kinds(profile_as, prof, profile_steps, wall_us,
+                            host_ops, batch=TRAIN_BATCH)
     it.close()
     stats = run.train_loader.loader.stats
     fetch = stats.fetch_s / max(1, stats.batches) * 1e3
     return dict(ms_per_step=float(np.mean(step_ms[1:])),
                 host_wait_ms_per_step=float(np.mean(wait_ms[1:])),
                 fetch_ms_per_batch=fetch, step_ms=step_ms, wait_ms=wait_ms,
-                loss=losses_, idle_share=kinds.get("idle_share"),
+                loss=losses_, rows=rows, profile_s=time.perf_counter()
+                - t_prof, idle_share=kinds.get("idle_share"),
                 busy_ms_per_step=kinds.get("busy_ms_per_iteration"),
                 host_op_ms_per_step=kinds.get("host_op_ms_per_iteration"))
 
@@ -4674,6 +4808,126 @@ def phase_train_host(root: Path, host: dict) -> dict:
     keys = ("forward_launches", "dx_launches", "dwgrad_launches")
     return dict(zip(keys, counts["augment_off"][0]), rows=rows, bound=bound,
                 device=dict(zip(keys, counts["augment_on"][0])))
+
+
+def _split_bn_stats(model) -> dict:
+    """``{name: [running_mean of the main BN, of aux 0, ...]}`` of every
+    split BN of ``model``, on the host."""
+    return {name: [m.running_mean.detach().float().cpu().clone()]
+            + [a.running_mean.detach().float().cpu().clone()
+               for a in m.aux_bn]
+            for name, m in model.named_modules()
+            if isinstance(m, SplitBatchNorm2d)}
+
+
+def phase_train_augmix(root: Path, aug: dict) -> dict:
+    """train_torch.sh's line with ``--mixup 0 --aug-splits 3 --jsd
+    --split-bn`` on the seeded tree: the flagship at full width and depth,
+    bf16, every BN split in three, the host chain then AugMix on the host.
+    ``AUGMIX_TRAIN_STEPS`` steps and ``AUGMIX_PROFILED`` profiled, counted
+    for this row
+    alone: 9 rows a step, 55/55/55 bf16 depthwise launches a step, the
+    loss finite; every split BN's main and aux running means moved and
+    apart; one eval batch through the main BN alone (its logits bitwise
+    the same with every aux BN's tensors set to NaN; 55 forward launches,
+    the second forward not counted); ms a step, host wait, idle share,
+    peak memory, beside the AugMix stage's host ms a clip (``aug``)."""
+    out = OUT / "train_augmix"
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = train_runner.parse_args(train_sh_flags(root) + AUGMIX_OVERRIDES
+                                  + ["--output", str(out)])
+    if not (cfg.aug_splits == 3 and cfg.jsd and cfg.split_bn and cfg.amp
+            and cfg.mixup == 0 and cfg.augment_device == "off"
+            and train_runner.model_dtype(cfg) == torch.bfloat16):
+        raise AssertionError(f"the AugMix line parsed to {cfg}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run = train_runner.setup(cfg)
+    model = run.state.model
+    seconds = dict(setup=time.perf_counter() - t0)
+    before = _split_bn_stats(model)
+    if not before or any(len(v) != 3 for v in before.values()):
+        raise AssertionError(f"split BN: {len(before)} modules")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    # no host ops in the trace: reading them for ~31,500 launches a step
+    # took 25 s a profiled step on the card
+    row = _train_steps(run, cfg, AUGMIX_TRAIN_STEPS, "train_augmix_profile",
+                       AUGMIX_PROFILED, host_ops=False)
+    torch.cuda.synchronize()
+    seconds.update(steps=time.perf_counter() - t0 - row["profile_s"],
+                   profile=row["profile_s"])
+    counts = (_counts(), _counts("bfloat16"))
+    peak = torch.cuda.max_memory_allocated()
+    steps = AUGMIX_TRAIN_STEPS + AUGMIX_PROFILED
+    after = _split_bn_stats(model)
+    still = [n for n in before if any(torch.equal(b, a) for b, a in
+                                      zip(before[n], after[n]))]
+    alike = [n for n in after if any(torch.equal(after[n][0], x)
+                                     for x in after[n][1:])]
+    # eval: the main BN alone
+    t0 = time.perf_counter()
+    model.eval()
+    it = iter(run.eval_loader)
+    x = next(it)[0]
+    it.close()
+    _reset_counts()
+    with torch.no_grad():
+        logits = model(x).float()
+    torch.cuda.synchronize()
+    eval_counts = _counts()
+    saved = {}
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, SplitBatchNorm2d):
+                for i, a in enumerate(m.aux_bn):
+                    for k in ("weight", "bias", "running_mean",
+                              "running_var"):
+                        t = getattr(a, k)
+                        saved[(name, i, k)] = t.detach().clone()
+                        t.fill_(float("nan"))
+        again = model(x).float()
+        for (name, i, k), v in saved.items():
+            getattr(model.get_submodule(name).aux_bn[i], k).copy_(v)
+    main_only = bool(torch.equal(logits, again))
+    finite = bool(torch.isfinite(logits).all())
+    seconds["eval"] = time.perf_counter() - t0
+    del run, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(out, ignore_errors=True)
+    want = ((55 * steps,) * 3,) * 2
+    emit(phase="train_augmix", nvidia_smi=nvidia_smi_line(),
+         steps=AUGMIX_TRAIN_STEPS, profiled_steps=AUGMIX_PROFILED,
+         rows=row["rows"], seconds=seconds,
+         launches=counts, expected_launches=want, eval_launches=eval_counts,
+         eval_rows=int(x.shape[0]), eval_main_bn_only=main_only,
+         eval_logits_finite=finite, split_bn_modules=len(before),
+         stats_not_moved=still[:5], aux_equal_main=alike[:5],
+         peak_mem_gib=peak / 2 ** 30,
+         step_ms_spread=_spread(row["step_ms"][1:]),
+         augmix_host_ms_a_clip=aug["ms"]["augmix_stage_a_clip"],
+         augmix_host_ms_a_clip_spread=aug["stage_spread"],
+         **{k: row[k] for k in ("ms_per_step", "host_wait_ms_per_step",
+                                "fetch_ms_per_batch", "step_ms", "wait_ms",
+                                "loss", "idle_share", "busy_ms_per_step",
+                                "host_op_ms_per_step")})
+    if counts != want or eval_counts != (55, 0, 0) or still or alike or \
+            not main_only or not finite or \
+            row["rows"] != [3 * TRAIN_BATCH] * AUGMIX_TRAIN_STEPS or \
+            not np.isfinite(row["loss"]).all():
+        raise AssertionError(
+            f"train_augmix: launches {counts} (expected {want}), eval "
+            f"{eval_counts}, rows {row['rows']}, stats not moved {still[:3]},"
+            f" aux equal to main {alike[:3]}, eval main BN only {main_only},"
+            f" finite {finite}, losses {row['loss']}")
+    keys = ("forward_launches", "dx_launches", "dwgrad_launches")
+    return dict(zip(keys, (counts[0][0] + eval_counts[0], counts[0][1],
+                           counts[0][2])),
+                ms_per_step=row["ms_per_step"], peak_mem_gib=peak / 2 ** 30,
+                idle_share=row["idle_share"])
 
 
 def _final_state(run_dir: Path) -> dict:
@@ -5793,6 +6047,7 @@ def main() -> int:
     PHASE_S["build"] = build_s
     jpeg = timed("jpeg", phase_jpeg)
     host = timed("host_augment", phase_host_augment)
+    aug = timed("augmix", phase_augmix)
     timed("flash_kernels", phase_flash_kernels, libs)
     timed("depthwise_kernels", phase_depthwise_kernels, libs)
 
@@ -5894,6 +6149,8 @@ def main() -> int:
     ta = timed("train_amp", phase_train_amp, frame, td["root"],
                td["numbers"])
     th = timed("train_host", phase_train_host, td["root"], host)
+    _reset_counts()
+    tam = timed("train_augmix", phase_train_augmix, td["root"], aug)
     rs = timed("resume", phase_resume, td["root"])
     tsf = timed("tsf_train", phase_tsf_train)
     tsfa = timed("tsf_train_amp", phase_tsf_train, amp=True, beside=tsf)
@@ -5911,7 +6168,8 @@ def main() -> int:
 
     dw_paths = {"train": t, "train_data": td, "train_jpeg": td["jpeg"],
                 "train_amp": ta, "train_host": th,
-                "train_host_device": th["device"], "resume": rs}
+                "train_host_device": th["device"], "train_augmix": tam,
+                "resume": rs}
 
     def by_path(key, **extra):
         out = dict(extra, **{p: r[key] for p, r in dw_paths.items()})
@@ -5929,7 +6187,8 @@ def main() -> int:
                                       router=rt["launches"])
     dx_launches, dx_paths = by_path("dx_launches")
     dwg_launches, dwg_paths = by_path("dwgrad_launches")
-    amp_paths = ("train_amp", "train_host", "train_host_device", "resume")
+    amp_paths = ("train_amp", "train_host", "train_host_device",
+                 "train_augmix", "resume")
 
     def bf16(key, err, launch_key):
         return dict(

@@ -18,7 +18,10 @@ EfficientNet:
   ``conv_stem.weight``, ``conv_stem.bn1.bn.*`` → ``bn1.*``,
   ``blocks_{s}_{b}.<conv>.conv.kernel`` → ``blocks.{s}.{b}.<conv>.weight``,
   ``blocks_{s}_{b}.se.conv_reduce.conv.bias`` →
-  ``blocks.{s}.{b}.se.conv_reduce.bias``, ``bn2.bn.*`` → ``bn2.*``.
+  ``blocks.{s}.{b}.se.conv_reduce.bias``, ``bn2.bn.*`` → ``bn2.*``;
+* a split BN (``--split-bn``) takes timm's ``SplitBatchNorm2d`` layout:
+  ``<bn>.main.bn.*`` → ``<bn>.*`` (the main BN under the module's own
+  name) and ``<bn>.aux{i}.bn.*`` → ``<bn>.aux_bn.{i}.*``.
 
 ViT and TimeSformer:
 
@@ -61,8 +64,26 @@ def _bn_name(base: str, leaf: str) -> str:
     return f"{base}.{_BN_LEAF[leaf]}"
 
 
+def _split_part(part: str) -> Optional[str]:
+    """A split BN's level of a flax path: ``""`` for ``main``, ``"aux_bn.i"``
+    for ``aux{i}``, None for any other part."""
+    if part == "main":
+        return ""
+    if part.startswith("aux") and part[3:].isdigit():
+        return f"aux_bn.{part[3:]}"
+    return None
+
+
 def _map_path(parts: Tuple[str, ...]) -> Tuple[str, bool]:
     """flax path (without its collection) → (timm name, is a BN leaf)."""
+    for i, part in enumerate(parts[:-1]):
+        sub = _split_part(part)
+        if sub is not None and parts[i + 1:i + 2] == ("bn",):
+            name, is_bn = _map_path(parts[:i] + parts[i + 1:])
+            if sub and is_bn:
+                base, leaf = name.rsplit(".", 1)
+                name = f"{base}.{sub}.{leaf}"
+            return name, is_bn
     head, leaf = parts[0], parts[-1]
     if head == "conv_stem" and parts[1] == "conv":
         return "conv_stem.weight", False
@@ -96,7 +117,9 @@ def flax_leaf(name: str) -> str:
     if len(parts) == 1:
         return leaf
     if leaf == "weight":
-        return "scale" if parts[-2].startswith(("bn", "norm")) else "kernel"
+        bn = parts[-2].startswith(("bn", "norm")) or parts[-3:-2] == [
+            "aux_bn"]
+        return "scale" if bn else "kernel"
     return {"running_mean": "mean", "running_var": "var"}.get(leaf, leaf)
 
 

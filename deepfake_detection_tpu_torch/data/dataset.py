@@ -26,7 +26,8 @@ package's ``.jpg`` names, so both packages name the same frames.
 
 A dataset returns ``(uint8 (H, W, C) array, int label)`` once its
 transform is set, and takes the per-sample ``numpy.random.Generator`` of
-``SeedSequence([seed, epoch, index])``.
+``SeedSequence([seed, epoch, index])``.  :class:`AugMixDataset` wraps one
+and returns ``(uint8 (S, H, W, C) views, int label)``.
 """
 
 from __future__ import annotations
@@ -39,9 +40,9 @@ import numpy as np
 
 from . import native
 
-__all__ = ["SyntheticDataset", "DeepFakeClipDataset", "read_clip_list",
-           "clip_frame_paths", "split_clips", "read_rgb", "read_frame",
-           "load_frames"]
+__all__ = ["SyntheticDataset", "DeepFakeClipDataset", "AugMixDataset",
+           "read_clip_list", "clip_frame_paths", "split_clips", "read_rgb",
+           "read_frame", "load_frames"]
 
 Clip = Tuple[str, int, int]            # (name, num_frames, root_index)
 
@@ -333,3 +334,53 @@ class SyntheticDataset:
         img = g.integers(0, 256, self.image_shape, dtype=np.uint8)
         target = int(g.integers(0, self.num_classes))
         return img, target
+
+
+class AugMixDataset:
+    """Clean and AugMix views of another dataset's samples, as the JAX
+    package's ``AugMixDataset``: ``num_splits`` stacked views, the base
+    dataset's transformed clip first, then ``num_splits - 1`` copies with
+    each frame (a 3-channel slice) augmented on its own by
+    ``aug_config``'s :class:`~.auto_augment.AugMixAugment`, frames in
+    order and views in order, all from the generator the base transform
+    drew from.  The loader's collate stacks the views split-major."""
+
+    def __init__(self, dataset, num_splits: int = 2,
+                 aug_config: str = "augmix-m3-w3"):
+        from .auto_augment import augment_and_mix_transform
+        if num_splits < 2:
+            raise ValueError(f"num_splits must be >= 2, got {num_splits}")
+        self.dataset = dataset
+        self.num_splits = num_splits
+        self.augment = augment_and_mix_transform(aug_config)
+
+    def set_transform(self, transform: Callable) -> None:
+        self.dataset.set_transform(transform)
+
+    def set_epoch(self, epoch: int) -> None:
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
+
+    def __len__(self) -> int:
+        return len(self.dataset)
+
+    def _augment_clip(self, clip: np.ndarray,
+                      rng: np.random.Generator) -> np.ndarray:
+        frames = clip.shape[-1] // 3
+        out = np.empty(clip.shape[:-1] + (3 * frames,), np.uint8)
+        for f in range(frames):
+            out[..., 3 * f:3 * f + 3] = self.augment(
+                clip[..., 3 * f:3 * f + 3], rng)
+        return out
+
+    def __getitem__(self, index: int,
+                    rng: Optional[np.random.Generator] = None):
+        epoch = getattr(self.dataset, "epoch", 0)
+        rng = rng if rng is not None else np.random.default_rng(
+            np.random.SeedSequence([epoch, index]))
+        clip, target = self.dataset.__getitem__(index, rng=rng)
+        clip = np.ascontiguousarray(clip, dtype=np.uint8)
+        views = [clip]
+        for _ in range(self.num_splits - 1):
+            views.append(self._augment_clip(clip, rng))
+        return np.stack(views), target

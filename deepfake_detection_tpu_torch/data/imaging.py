@@ -13,6 +13,14 @@ Pillow's bytes itself, on uint8 ``(H, W, 3)`` arrays:
 * the flip is an array view reversed along the width; the resize is
   ``data/resample.py``'s Pillow-exact resampler, width first.
 
+AugMix's ops (the JAX package's ``data/auto_augment.py``) are here too:
+``ImageOps.autocontrast``, ``equalize``, ``posterize``, ``solarize``,
+``invert`` and timm's ``solarize_add`` (each a table a band, applied by
+``Image.point``), ``ImageEnhance.Sharpness``, ``Image.blend``, and
+``Image.transform(AFFINE)`` / ``Image.rotate`` with ``BILINEAR`` or
+``BICUBIC`` and a fill colour (Pillow's generic float transform, not the
+16.16 walk of its NEAREST path).
+
 A frame may be a channel slice of a packed ``(H, W, 3F)`` clip: the native
 ops read it in place (pixel stride ``3F``, dense rows); every op returns a
 new tight array.
@@ -31,9 +39,13 @@ from .resample import resample_axis
 
 __all__ = ["luma", "rgb_to_hsv", "hsv_to_rgb", "brightness", "contrast",
            "color", "hue", "grey_mean", "gaussian_blur", "rotate",
-           "flip_left_right", "resize_bilinear"]
+           "flip_left_right", "resize_bilinear", "NEAREST", "BILINEAR",
+           "BICUBIC", "point", "autocontrast", "equalize",
+           "posterize", "solarize", "solarize_add", "invert", "sharpness",
+           "blend", "affine", "rotate_fill"]
 
 _FIXED_LIMIT = 32768.0            # Pillow's 16.16 affine walk's range
+NEAREST, BILINEAR, BICUBIC = 0, 2, 3     # Pillow's Resampling codes
 
 
 def _src(a: np.ndarray) -> Tuple[np.ndarray, int]:
@@ -173,3 +185,137 @@ def resize_bilinear(a: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     if th != out.shape[0]:
         out = resample_axis(out, th, 0)
     return np.ascontiguousarray(out)
+
+
+# ---------------------------------------------------------------------------
+# AugMix's ops
+# ---------------------------------------------------------------------------
+
+def point(a: np.ndarray, lut) -> np.ndarray:
+    """``img.point(lut)``: 256 entries for every band, or 768 (R, G, B);
+    each entry clipped to 0..255 as Pillow stores it."""
+    lut = np.asarray(lut, np.int64)
+    if lut.size == 256:
+        lut = np.tile(lut, 3)
+    if lut.shape != (768,):
+        raise ValueError(f"a table of 256 or 768 entries, got {lut.shape}")
+    table = np.ascontiguousarray(np.clip(lut, 0, 255).astype(np.uint8))
+    return _pixel_op("dfd_img_lut", a, table.ctypes.data)
+
+
+def autocontrast(a: np.ndarray) -> np.ndarray:
+    """``ImageOps.autocontrast(img)`` (no cutoff): each band's lowest and
+    highest values stretched to 0 and 255."""
+    return _pixel_op("dfd_img_autocontrast", a)
+
+
+def equalize(a: np.ndarray) -> np.ndarray:
+    """``ImageOps.equalize(img)``: each band's table from its histogram
+    (the identity for one occupied value or a step of 0)."""
+    return _pixel_op("dfd_img_equalize", a)
+
+
+def posterize(a: np.ndarray, bits: int) -> np.ndarray:
+    """``ImageOps.posterize(img, bits)``: the low ``8 - bits`` bits
+    cleared."""
+    mask = ~(2 ** (8 - int(bits)) - 1)
+    return point(a, [i & mask for i in range(256)])
+
+
+def solarize(a: np.ndarray, threshold: int = 128) -> np.ndarray:
+    """``ImageOps.solarize(img, threshold)``: values at or above it
+    inverted."""
+    return point(a, [i if i < threshold else 255 - i for i in range(256)])
+
+
+def solarize_add(a: np.ndarray, add: int, threshold: int = 128
+                 ) -> np.ndarray:
+    """timm's ``solarize_add``: ``min(255, i + add)`` below the
+    threshold."""
+    return point(a, [min(255, i + add) if i < threshold else i
+                     for i in range(256)])
+
+
+def invert(a: np.ndarray) -> np.ndarray:
+    """``ImageOps.invert(img)``."""
+    return point(a, list(range(255, -1, -1)))
+
+
+def sharpness(a: np.ndarray, factor: float) -> np.ndarray:
+    """``ImageEnhance.Sharpness(img).enhance(factor)``: the blend of the
+    ``SMOOTH``-filtered frame (its border pixels copied) with the frame."""
+    src, ss = _src(a)
+    h, w = src.shape[:2]
+    out = np.empty((h, w, 3), np.uint8)
+    native.library().dfd_img_sharpness(src.ctypes.data, w, h, ss,
+                                       out.ctypes.data, float(factor))
+    return out
+
+
+def blend(a: np.ndarray, b: np.ndarray, alpha: float) -> np.ndarray:
+    """``Image.blend(a, b, alpha)`` of two frames of one size (an f32
+    alpha, the result truncated, clipped outside [0, 1])."""
+    sa, ssa = _src(a)
+    sb, ssb = _src(b)
+    if sa.shape != sb.shape:
+        raise ValueError(f"blend of {sa.shape} and {sb.shape}")
+    h, w = sa.shape[:2]
+    out = np.empty((h, w, 3), np.uint8)
+    native.library().dfd_img_blend(sa.ctypes.data, ssa, sb.ctypes.data, ssb,
+                                   out.ctypes.data, h * w, float(alpha))
+    return out
+
+
+def _fill(fillcolor) -> np.ndarray:
+    if fillcolor is None:                  # Pillow zeroes the pixel
+        return np.zeros(3, np.uint8)
+    fill = np.asarray(fillcolor, np.int64)
+    if fill.shape != (3,) or fill.min() < 0 or fill.max() > 255:
+        raise ValueError(f"an RGB fill colour, got {fillcolor!r}")
+    return fill.astype(np.uint8)
+
+
+def affine(a: np.ndarray, matrix, resample: int = BILINEAR,
+           fillcolor=None) -> np.ndarray:
+    """``img.transform(img.size, Image.AFFINE, matrix, resample,
+    fillcolor=fillcolor)`` with ``BILINEAR`` or ``BICUBIC``."""
+    if resample not in (BILINEAR, BICUBIC):
+        raise ValueError(f"resample {resample}: BILINEAR ({BILINEAR}) or "
+                         f"BICUBIC ({BICUBIC}); Pillow's NEAREST transform "
+                         f"takes other paths, not ported here")
+    m = [float(v) for v in matrix][:6]
+    if len(m) != 6:
+        raise ValueError(f"an affine matrix of 6 values, got {matrix!r}")
+    src, ss = _src(a)
+    h, w = src.shape[:2]
+    out = np.empty((h, w, 3), np.uint8)
+    fill = _fill(fillcolor)
+    native.library().dfd_img_affine_filter(
+        src.ctypes.data, w, h, ss, out.ctypes.data, w, h,
+        (ctypes.c_double * 6)(*m), int(resample), fill.ctypes.data)
+    return out
+
+
+def rotate_fill(a: np.ndarray, degrees: float, resample: int = BILINEAR,
+                fillcolor=None) -> np.ndarray:
+    """``img.rotate(degrees, resample, fillcolor=fillcolor)`` (no expand,
+    the frame's centre): Pillow's exact copies at 0° and 180°, and at 90°
+    and 270° for a square frame; else its matrix (each entry rounded to 15
+    places) through :func:`affine`."""
+    a = np.asarray(a)
+    angle = degrees % 360.0
+    h, w = a.shape[:2]
+    if angle == 0:
+        return np.array(a, np.uint8, copy=True, order="C")
+    if angle == 180:
+        return np.ascontiguousarray(a[::-1, ::-1])
+    if angle in (90, 270) and w == h:
+        return np.ascontiguousarray(np.rot90(a, 1 if angle == 90 else -1))
+    cx, cy = w / 2, h / 2
+    rad = -math.radians(angle)
+    m = [round(math.cos(rad), 15), round(math.sin(rad), 15), 0.0,
+         round(-math.sin(rad), 15), round(math.cos(rad), 15), 0.0]
+    m[2], m[5] = _affine(m, -cx - 0, -cy - 0)
+    m[2] += cx
+    m[5] += cy
+    return affine(a, m, resample, fillcolor)

@@ -9,6 +9,9 @@ Counterpart of ``deepfake_detection_tpu/data/loader.py``:
   collate mixup runs with ``[seed, epoch, batch, 0x77]``, and the
   prologue's parameters are derived in the same thread, beside the batch;
   a bounded queue (``--prefetch-depth``) holds the batches ahead;
+  AugMix's multi-view samples (``AugMixDataset``, ``--aug-splits``)
+  collate split-major, ``[view 0 of every sample, view 1 of every sample,
+  ...]`` with the targets tiled, as the JAX ``fast_collate`` stacks them;
   :meth:`DeviceLoader.fast_forward` resumes an epoch mid-way: every draw
   is keyed by the batch's absolute index, so the tail is bitwise the tail
   of a whole epoch; the ``stall_loader`` chaos point (``chaos.py``) probes
@@ -17,13 +20,16 @@ Counterpart of ``deepfake_detection_tpu/data/loader.py``:
   chain's order: warp → blur → jitter/flicker → mixup blend → cast to the
   compute dtype → normalize → erase (``data/device_augment.py``,
   ``data/random_erasing.py``), each stage that the host chain did not run
-  already; the model gets NCHW in ``channels_last`` memory;
+  already (under ``--resplit`` erasing leaves the first split, the clean
+  views, alone); the model gets NCHW in ``channels_last`` memory;
 * :class:`DeviceLoader`: copies each host batch over with ``non_blocking``
   and runs the prologue; :class:`LoaderStats` counts the consumer's wait
   for the host;
 * :func:`create_deepfake_loader_v3` (the clip dataset) and
   :func:`create_loader` (datasets without a transform, as the synthetic
-  one) with the JAX factory's rules.
+  one) with the JAX factory's rules, both wrapping the train set in
+  ``AugMixDataset`` under ``num_aug_splits > 1`` (which excludes the
+  mixup collate).
 
 The train chain runs where the JAX factory puts it
 (:func:`create_deepfake_loader_v3`): on the host by default (the JAX
@@ -55,6 +61,7 @@ import torch
 
 from ..chaos import CHAOS_ENV_VAR, chaos_from_env
 from ..params import img_mean, img_std
+from .dataset import AugMixDataset
 from .device_augment import (DeviceAugmentSpec, apply_color_jitter,
                              derive_geometric_batch, derive_mixup_lam,
                              device_blur, device_geometric,
@@ -185,11 +192,24 @@ class HostLoader:
             raise ValueError(
                 f"batch {bi}: samples of shapes {sorted(shapes)} cannot be "
                 f"stacked; the source frames must share one size")
-        shape = (len(samples),) + samples[0][0].shape
-        images = torch.empty(shape, dtype=torch.uint8,
-                             pin_memory=self.pin_memory)
-        np.stack([s[0] for s in samples], out=images.numpy())
+        first = samples[0][0]
         targets = np.asarray([s[1] for s in samples], np.int64)
+        if first.ndim == 4:
+            # (S, H, W, C) views a sample: split-major rows, targets tiled
+            views = first.shape[0]
+            images = torch.empty((views * len(samples),) + first.shape[1:],
+                                 dtype=torch.uint8,
+                                 pin_memory=self.pin_memory)
+            arr = images.numpy().reshape((views, len(samples))
+                                         + first.shape[1:])
+            for b, smp in enumerate(samples):
+                arr[:, b] = smp[0]
+            targets = np.tile(targets, views)
+        else:
+            images = torch.empty((len(samples),) + first.shape,
+                                 dtype=torch.uint8,
+                                 pin_memory=self.pin_memory)
+            np.stack([s[0] for s in samples], out=images.numpy())
         if self.collate_mixup is not None:
             mrng = np.random.default_rng(np.random.SeedSequence(
                 [self.seed, self.epoch, bi, 0x77]))
@@ -437,9 +457,17 @@ def _build_loader(dataset, transform, batch_size: int, is_training: bool,
                   device, collate_mixup, seed: int, num_workers: int,
                   prefetch_depth: int, img_num: int,
                   spec: Optional[DeviceAugmentSpec], color_jitter, flicker,
-                  erasing, dtype: torch.dtype) -> DeviceLoader:
-    """Shared tail of the factories: transform, sampler, host threads,
-    prologue."""
+                  erasing, dtype: torch.dtype,
+                  num_aug_splits: int = 0) -> DeviceLoader:
+    """Shared tail of the factories: the AugMix wrap, transform, sampler,
+    host threads, prologue."""
+    if is_training and num_aug_splits > 1:
+        # clean + (num_aug_splits - 1) AugMix views a sample, for the JSD
+        # loss; the views are rows of one batch, which a mixup would blend
+        if collate_mixup is not None:
+            raise ValueError("aug_splits and the mixup collate are mutually "
+                             "exclusive")
+        dataset = AugMixDataset(dataset, num_splits=num_aug_splits)
     if transform is not None:
         dataset.set_transform(transform)
     if is_training:
@@ -460,11 +488,15 @@ def _build_loader(dataset, transform, batch_size: int, is_training: bool,
                         erasing if is_training else None)
 
 
-def _erasing(re_prob, re_mode, re_count, re_split, re_max):
+def _erasing(re_prob, re_mode, re_count, re_split, re_max,
+             num_aug_splits: int = 0):
+    """RandomErasing's arguments; under ``re_split`` the first of
+    ``num_aug_splits or 2`` splits (the clean one) is not erased."""
     if re_prob <= 0.0:
         return None
     return dict(probability=re_prob, max_area=re_max, mode=re_mode,
-                max_count=re_count, num_splits=2 if re_split else 0)
+                max_count=re_count,
+                num_splits=(num_aug_splits or 2) if re_split else 0)
 
 
 def create_loader(dataset, batch_size: int, is_training: bool, device,
@@ -474,13 +506,16 @@ def create_loader(dataset, batch_size: int, is_training: bool, device,
                   num_workers: int = 1,
                   collate_mixup: Optional[FastCollateMixup] = None,
                   seed: int = 42, prefetch_depth: int = 2,
-                  dtype: torch.dtype = torch.float32) -> DeviceLoader:
+                  dtype: torch.dtype = torch.float32,
+                  num_aug_splits: int = 0) -> DeviceLoader:
     """A loader for a dataset that takes no transform (the synthetic one):
-    collate, the host mixup blend, normalize and erase, in ``dtype``."""
+    the AugMix views, collate, the host mixup blend, normalize and erase,
+    in ``dtype``."""
     return _build_loader(
         dataset, None, batch_size, is_training, device, collate_mixup, seed,
         num_workers, prefetch_depth, img_num, None, None, 0.0,
-        _erasing(re_prob, re_mode, re_count, re_split, re_max), dtype)
+        _erasing(re_prob, re_mode, re_count, re_split, re_max,
+                 num_aug_splits), dtype, num_aug_splits)
 
 
 def create_deepfake_loader_v3(
@@ -494,7 +529,8 @@ def create_deepfake_loader_v3(
         seed: int = 42, prefetch_depth: int = 2, eval_crop: str = "random",
         device_color_jitter: bool = True, fused_geom: bool = True,
         augment_device: bool = False,
-        dtype: torch.dtype = torch.float32) -> DeviceLoader:
+        dtype: torch.dtype = torch.float32,
+        num_aug_splits: int = 0) -> DeviceLoader:
     """The clip dataset's loader, ``input_size`` ``(C, H, W)``, batches in
     the compute ``dtype``; where each train stage runs follows the JAX
     factory's decisions one for one:
@@ -510,7 +546,13 @@ def create_deepfake_loader_v3(
       blur), with jitter and flicker on the device when
       ``device_color_jitter`` and neither hue jitter nor mixup (which
       jitters each source clip before the blend) keeps them on the host;
-      the mixup blend in the host collate.
+      the mixup blend in the host collate;
+    * ``num_aug_splits > 1``: ``num_aug_splits`` views a sample
+      (``AugMixDataset`` over the host chain's output; no mixup), the
+      whole chain on the host (``augment_device`` falls back to it, with a
+      log line: AugMix augments the warped clip) and the jitter and flicker
+      too (the views of a sample share one draw), erasing off the clean
+      split under ``re_split``.
 
     Eval: a random or centre crop on the host, normalize on the device."""
     c, h, w = input_size
@@ -523,6 +565,12 @@ def create_deepfake_loader_v3(
             batch_size, False, device, None, seed, num_workers,
             prefetch_depth, img_num, None, None, 0.0, None, dtype)
     aug_device = bool(augment_device)
+    if aug_device and num_aug_splits > 1:
+        # AugMix augments the clip after the host chain's warp; a device
+        # warp would come after it instead
+        _logger.info("aug-splits active: device augmentation falls back "
+                     "to the host chain")
+        aug_device = False
     if aug_device and not fused_geom:
         raise ValueError("augment_device renders the fused geometric warp "
                          "on device; it conflicts with the host_geom / "
@@ -541,15 +589,20 @@ def create_deepfake_loader_v3(
             # device): the whole chain stays there
             _logger.info("hue jitter requested: color jitter stays on host")
             aug_device = False
-        elif aug_device or collate_mixup is None:
+        elif aug_device or (collate_mixup is None and num_aug_splits <= 1):
             device_cj = tuple(float(v) for v in cj[:3]) if cj else None
             device_flicker, flicker = flicker, 0.0
             color_jitter = None
-        else:
+        elif collate_mixup is not None:
             # the host chain jitters each source clip before the mixup
             # blends two of them; a jitter after the blend would correlate
             # the two sources' photometrics
             _logger.info("mixup active: color jitter stays on host")
+        else:
+            # a sample's views share the base chain's one jitter draw; as
+            # rows of the batch they would each draw their own on the
+            # device
+            _logger.info("aug-splits active: color jitter stays on host")
     if aug_device and (color_jitter is not None or flicker > 0.0):
         raise ValueError(
             "augment_device leaves no host transform stage for host-side "
@@ -576,4 +629,5 @@ def create_deepfake_loader_v3(
         dataset, transform, batch_size, True, device, collate_mixup, seed,
         num_workers, prefetch_depth, img_num, spec, device_cj,
         device_flicker,
-        _erasing(re_prob, re_mode, re_count, re_split, re_max), dtype)
+        _erasing(re_prob, re_mode, re_count, re_split, re_max,
+                 num_aug_splits), dtype, num_aug_splits)

@@ -59,7 +59,7 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 # the image ops
 _FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC")
 _ABI_VERSION = 1           # dfd_jpeg_abi_version() in jpeg_decode.cc
-_IMG_ABI_VERSION = 2       # dfd_img_abi_version() in imaging.cc
+_IMG_ABI_VERSION = 3       # dfd_img_abi_version() in imaging.cc
 
 _lib: Optional[ctypes.CDLL] = None
 _error: Optional[str] = None
@@ -163,6 +163,17 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dfd_img_affine_nearest.argtypes = [vp, ctypes.c_int, ctypes.c_int,
                                            ctypes.c_int, vp, ctypes.c_int,
                                            ctypes.c_int, dp]
+    lib.dfd_img_lut.argtypes = [vp, ctypes.c_int, vp, i64, vp]
+    for name in ("dfd_img_autocontrast", "dfd_img_equalize"):
+        getattr(lib, name).argtypes = [vp, ctypes.c_int, vp, i64]
+    lib.dfd_img_sharpness.argtypes = [vp, ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_int, vp, ctypes.c_float]
+    lib.dfd_img_blend.argtypes = [vp, ctypes.c_int, vp, ctypes.c_int, vp,
+                                  i64, ctypes.c_float]
+    lib.dfd_img_affine_filter.restype = ctypes.c_int
+    lib.dfd_img_affine_filter.argtypes = [vp, ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_int, vp, ctypes.c_int,
+                                          ctypes.c_int, dp, ctypes.c_int, vp]
 
 
 def library() -> ctypes.CDLL:

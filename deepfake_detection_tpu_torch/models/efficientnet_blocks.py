@@ -9,9 +9,13 @@ timm's keys.
 Every depthwise stage goes through :func:`ops.depthwise.fused_depthwise`
 (dw conv → BN → act in one kernel on the card); the port has no switch for
 it.  Eval folds the BN running stats into the kernel's affine epilogue.
-Train mode, whose only use so far is BN calibration, runs the kernel with
-an identity epilogue and normalizes with the batch statistics afterwards,
-as the JAX package's ``_fused_dw_bn_act`` training branch does.
+Train mode runs the kernel with an identity epilogue (its pre-norm ``z``)
+and normalizes with the batch statistics afterwards, as the JAX package's
+``_fused_dw_bn_act`` training branch does.  ``norm_layer="split<k>"``
+(``--split-bn``) builds every BN as a :class:`~ops.norm.SplitBatchNorm2d`
+of ``k`` splits; its dw stages keep the kernel (the JAX package sends them
+to the XLA composition instead, the same convolution): ``z`` then the
+split BN then the activation in training, the main BN folded in eval.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from ..ops.activations import get_act_fn
 from ..ops.conv import create_conv2d
 from ..ops.depthwise import FUSED_DW_ACTS, fused_depthwise
 from ..ops.drop import DropPath
-from ..ops.norm import BatchNorm2d
+from ..ops.norm import BatchNorm2d, SplitBatchNorm2d
 
 __all__ = ["make_divisible", "round_channels", "fused_dw_eligible",
            "SqueezeExcite", "ConvBnAct", "DepthwiseSeparableConv",
@@ -49,22 +53,28 @@ def round_channels(channels, multiplier: float = 1.0, divisor: int = 8,
 
 
 def _norm(norm_layer: str, chs: int, momentum: float, eps: float) -> nn.Module:
+    if norm_layer.startswith("split"):
+        # AdvProp split BN, 'split<k>' (k defaults to 2)
+        return SplitBatchNorm2d(chs, momentum=momentum, eps=eps,
+                                num_splits=int(norm_layer[5:] or 2))
     if norm_layer == "bn":
         return BatchNorm2d(chs, momentum=momentum, eps=eps)
     if norm_layer == "none":
         return nn.Identity()
     raise NotImplementedError(
-        f"norm_layer {norm_layer!r} is not ported (bn, none)")
+        f"norm_layer {norm_layer!r} is not ported (bn, split<k>, none)")
 
 
 def fused_dw_eligible(dw_kernel_size, dilation: int, stride,
                       norm_layer: str) -> bool:
     """Whether a dw stage fits the fused op: one square k3 or k5 kernel, no
-    dilation, stride 1 or 2, plain BN or no norm.  The port routes every dw
-    stage through the op, so a block that is not eligible is not built."""
+    dilation, stride 1 or 2, plain BN, split BN or no norm.  The port
+    routes every dw stage through the op, so a block that is not eligible
+    is not built."""
     return (isinstance(dw_kernel_size, int) and dw_kernel_size in (3, 5)
             and int(dilation) == 1 and int(stride) in (1, 2)
-            and norm_layer in ("bn", "none"))
+            and (norm_layer in ("bn", "none")
+                 or norm_layer.startswith("split")))
 
 
 def _check_eligible(dw_kernel_size, dilation, stride, norm_layer) -> None:
@@ -89,6 +99,8 @@ def _fused_dw_bn_act(x: torch.Tensor, conv_dw: nn.Module, bn: nn.Module,
     kern_act = act_name if act_name in FUSED_DW_ACTS else "none"
     act_fn = get_act_fn(act)
     x_nhwc = x.permute(0, 2, 3, 1)
+    # a SplitBatchNorm2d is a BatchNorm2d: in training it splits z's rows
+    # among its BNs, in eval its main BN folds into the epilogue
     if isinstance(bn, BatchNorm2d) and bn.training:
         z = fused_depthwise(x_nhwc, w, None, None, stride=conv_dw.stride,
                             padding=pad_type, act="none")

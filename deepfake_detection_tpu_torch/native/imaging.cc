@@ -12,7 +12,16 @@
 //     Pillow's Convert.c computes them, and the hue step over them;
 //   * GaussianBlur: Pillow's extended box blur (three passes a direction,
 //     horizontal first, edge pixels repeated, 24-bit fixed point weights);
-//   * the NEAREST affine of Image.rotate: Pillow's 16.16 fixed-point walk.
+//   * the NEAREST affine of Image.rotate: Pillow's 16.16 fixed-point walk;
+//   * AugMix's ops (ImageOps and ImageEnhance as Pillow's Python computes
+//     them over its C core): Image.point with a per-band table (posterize,
+//     solarize, solarize_add, invert), autocontrast and equalize (their
+//     tables from the per-band histograms), Sharpness (the SMOOTH 3x3
+//     filter, border pixels copied, then the enhance blend), Image.blend
+//     with a float alpha, and Image.transform(AFFINE) with BILINEAR or
+//     BICUBIC and a fill colour: Pillow's generic transform, the matrix
+//     applied in double to each output pixel's centre, a pixel whose
+//     source centre falls outside the frame keeping the fill.
 //
 // Every op reads a source whose pixels may be strided (a channel slice of
 // a packed (H, W, 3F) clip: pixel stride 3F, rows dense) and writes its own
@@ -263,13 +272,194 @@ void box_line(const uint8_t* in, uint8_t* out, int n, size_t step,
   }
 }
 
+// ---------------------------------------------------------------------------
+// AugMix's ops: tables, histograms, the SMOOTH filter, the generic affine
+// ---------------------------------------------------------------------------
+
+// per-band histograms of n pixels: hist[256·c + v]
+void histogram3(const uint8_t* src, int64_t ss, int64_t n, int64_t* hist) {
+  std::memset(hist, 0, sizeof(int64_t) * 768);
+  for (int64_t i = 0; i < n; ++i) {
+    const uint8_t* p = src + i * ss;
+    ++hist[p[0]];
+    ++hist[256 + p[1]];
+    ++hist[512 + p[2]];
+  }
+}
+
+void apply_lut3(const uint8_t* src, int64_t ss, uint8_t* dst, int64_t n,
+                const uint8_t* lut) {
+  for (int64_t i = 0; i < n; ++i) {
+    const uint8_t* p = src + i * ss;
+    dst[3 * i] = lut[p[0]];
+    dst[3 * i + 1] = lut[256 + p[1]];
+    dst[3 * i + 2] = lut[512 + p[2]];
+  }
+}
+
+// Image.point stores each table entry clipped to 0..255
+inline uint8_t clip_lut(int64_t v) {
+  return v <= 0 ? 0 : v >= 255 ? 255 : static_cast<uint8_t>(v);
+}
+
+// ImageOps.autocontrast(img)'s table of one band (cutoff 0, no ignore):
+// lowest and highest occupied values, then int(ix · scale + offset)
+// clamped, in double as Python computes it; identity when hi <= lo
+void autocontrast_lut(const int64_t* h, uint8_t* lut) {
+  int lo = 0, hi = 255;
+  while (lo < 255 && h[lo] == 0) ++lo;
+  while (hi > 0 && h[hi] == 0) --hi;
+  if (hi <= lo) {
+    for (int i = 0; i < 256; ++i) lut[i] = static_cast<uint8_t>(i);
+    return;
+  }
+  const double scale = 255.0 / (hi - lo);
+  const double offset = -lo * scale;
+  for (int i = 0; i < 256; ++i) {
+    const double v = i * scale + offset;
+    const int64_t ix = static_cast<int64_t>(v);   // int(): toward zero
+    lut[i] = clip_lut(ix);
+  }
+}
+
+// ImageOps.equalize(img)'s table of one band: identity when at most one
+// value is occupied or the step is 0; else n // step with n starting at
+// step // 2 and growing by each bin's count
+void equalize_lut(const int64_t* h, uint8_t* lut) {
+  int64_t total = 0, last = 0, occupied = 0;
+  for (int i = 0; i < 256; ++i) {
+    if (h[i]) {
+      total += h[i];
+      last = h[i];
+      ++occupied;
+    }
+  }
+  const int64_t step = occupied <= 1 ? 0 : (total - last) / 255;
+  if (step == 0) {
+    for (int i = 0; i < 256; ++i) lut[i] = static_cast<uint8_t>(i);
+    return;
+  }
+  int64_t n = step / 2;
+  for (int i = 0; i < 256; ++i) {
+    lut[i] = clip_lut(n / step);
+    n += h[i];
+  }
+}
+
+inline uint8_t clip8f(float v) {
+  if (v <= 0.0) return 0;
+  if (v >= 255.0) return 255;
+  return static_cast<uint8_t>(v);
+}
+
+// ImageFilter.SMOOTH (Filter.c ImagingFilter3x3): the kernel 1 1 1 / 1 5 1 /
+// 1 1 1 over 13 in f32, 0.5 added for rounding, the row below first; the
+// first and last rows and columns copied; a frame under 3 × 3 copied whole
+void smooth3x3(const uint8_t* src, int w, int h, int64_t ss, uint8_t* dst) {
+  const size_t n = static_cast<size_t>(w) * h;
+  for (size_t i = 0; i < n; ++i) std::memcpy(dst + 3 * i, src + i * ss, 3);
+  if (w < 3 || h < 3) return;
+  const float k1 = 1.0f / 13.0f, k5 = 5.0f / 13.0f;
+  const float kernel[9] = {k1, k1, k1, k1, k5, k1, k1, k1, k1};
+  const int64_t row = static_cast<int64_t>(w) * ss;
+  auto k1x3 = [&](const uint8_t* line, int x, int c, const float* k) {
+    return static_cast<float>(line[(x - 1) * ss + c]) * k[0] +
+           static_cast<float>(line[x * ss + c]) * k[1] +
+           static_cast<float>(line[(x + 1) * ss + c]) * k[2];
+  };
+  for (int y = 1; y < h - 1; ++y) {
+    const uint8_t* in_1 = src + (y - 1) * row;
+    const uint8_t* in0 = src + y * row;
+    const uint8_t* in1 = src + (y + 1) * row;
+    uint8_t* out = dst + static_cast<size_t>(y) * w * 3;
+    for (int x = 1; x < w - 1; ++x) {
+      for (int c = 0; c < 3; ++c) {
+        float acc = 0.5f;
+        acc += k1x3(in1, x, c, &kernel[0]);
+        acc += k1x3(in0, x, c, &kernel[3]);
+        acc += k1x3(in_1, x, c, &kernel[6]);
+        out[3 * x + c] = clip8f(acc);
+      }
+    }
+  }
+}
+
+// Geometry.c's filters for an RGB source: each returns false (the output
+// pixel keeps the fill) when the source point lies outside the frame
+inline int floor_int(double v) {
+  return v < 0.0 ? static_cast<int>(std::floor(v)) : static_cast<int>(v);
+}
+
+inline int clip_index(int v, int size) {
+  return v < 0 ? 0 : v < size ? v : size - 1;
+}
+
+bool bilinear_rgb(const uint8_t* src, int sw, int sh, int64_t ss, double xin,
+                  double yin, uint8_t* out) {
+  if (xin < 0.0 || xin >= sw || yin < 0.0 || yin >= sh) return false;
+  xin -= 0.5;
+  yin -= 0.5;
+  const int x = floor_int(xin), y = floor_int(yin);
+  const double dx = xin - x, dy = yin - y;
+  const int64_t row = static_cast<int64_t>(sw) * ss;
+  const int64_t x0 = clip_index(x, sw) * ss, x1 = clip_index(x + 1, sw) * ss;
+  const uint8_t* r0 = src + clip_index(y, sh) * row;
+  const bool has1 = y + 1 >= 0 && y + 1 < sh;
+  const uint8_t* r1 = src + (y + 1) * row;
+  for (int c = 0; c < 3; ++c) {
+    double v1 = r0[x0 + c] + (r0[x1 + c] - r0[x0 + c]) * dx;
+    double v2 = has1 ? r1[x0 + c] + (r1[x1 + c] - r1[x0 + c]) * dx : v1;
+    v1 = v1 + (v2 - v1) * dy;
+    out[c] = static_cast<uint8_t>(v1);
+  }
+  return true;
+}
+
+inline double cubic(double v1, double v2, double v3, double v4, double d) {
+  const double p1 = v2;
+  const double p2 = -v1 + v3;
+  const double p3 = 2 * (v1 - v2) + v3 - v4;
+  const double p4 = -v1 + v2 - v3 + v4;
+  return p1 + d * (p2 + d * (p3 + d * p4));
+}
+
+bool bicubic_rgb(const uint8_t* src, int sw, int sh, int64_t ss, double xin,
+                 double yin, uint8_t* out) {
+  if (xin < 0.0 || xin >= sw || yin < 0.0 || yin >= sh) return false;
+  xin -= 0.5;
+  yin -= 0.5;
+  int x = floor_int(xin), y = floor_int(yin);
+  const double dx = xin - x, dy = yin - y;
+  --x;
+  --y;
+  const int64_t row = static_cast<int64_t>(sw) * ss;
+  const int64_t xs[4] = {clip_index(x, sw) * ss, clip_index(x + 1, sw) * ss,
+                         clip_index(x + 2, sw) * ss,
+                         clip_index(x + 3, sw) * ss};
+  auto line = [&](const uint8_t* r, int c) {
+    return cubic(r[xs[0] + c], r[xs[1] + c], r[xs[2] + c], r[xs[3] + c], dx);
+  };
+  for (int c = 0; c < 3; ++c) {
+    // the first row clamped into the frame, each later one outside it
+    // repeating the row before
+    double v[4];
+    v[0] = line(src + clip_index(y, sh) * row, c);
+    for (int j = 1; j < 4; ++j)
+      v[j] = y + j >= 0 && y + j < sh ? line(src + (y + j) * row, c)
+                                      : v[j - 1];
+    const double r = cubic(v[0], v[1], v[2], v[3], dy);
+    out[c] = r <= 0.0 ? 0 : r >= 255.0 ? 255 : static_cast<uint8_t>(r);
+  }
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Bumped on any signature change: the bridge refuses a library whose
 // symbols resolve but whose argument layout moved.
-int dfd_img_abi_version(void) { return 2; }
+int dfd_img_abi_version(void) { return 3; }
 
 void dfd_img_warp_affine(const uint8_t* src, int sw, int sh, int src_stride,
                          uint8_t* dst, int dw, int dh, int dst_stride,
@@ -429,6 +619,78 @@ void dfd_img_affine_nearest(const uint8_t* src, int sw, int sh, int ss,
     a2 += a1;
     a5 += a4;
   }
+}
+
+// Image.point(lut) of an RGB frame: lut holds 768 entries, R then G then B
+void dfd_img_lut(const uint8_t* src, int ss, uint8_t* dst, int64_t n,
+                 const uint8_t* lut) {
+  apply_lut3(src, ss, dst, n, lut);
+}
+
+// ImageOps.autocontrast(img) and ImageOps.equalize(img): a table a band
+// from the frame's histograms, then Image.point
+void dfd_img_autocontrast(const uint8_t* src, int ss, uint8_t* dst,
+                          int64_t n) {
+  int64_t hist[768];
+  uint8_t lut[768];
+  histogram3(src, ss, n, hist);
+  for (int c = 0; c < 3; ++c) autocontrast_lut(hist + 256 * c, lut + 256 * c);
+  apply_lut3(src, ss, dst, n, lut);
+}
+
+void dfd_img_equalize(const uint8_t* src, int ss, uint8_t* dst, int64_t n) {
+  int64_t hist[768];
+  uint8_t lut[768];
+  histogram3(src, ss, n, hist);
+  for (int c = 0; c < 3; ++c) equalize_lut(hist + 256 * c, lut + 256 * c);
+  apply_lut3(src, ss, dst, n, lut);
+}
+
+// ImageEnhance.Sharpness(img).enhance(f): blend(SMOOTH(img), img, f)
+void dfd_img_sharpness(const uint8_t* src, int w, int h, int ss,
+                       uint8_t* dst, float f) {
+  const int64_t n = static_cast<int64_t>(w) * h;
+  std::vector<uint8_t> smooth(static_cast<size_t>(n) * 3);
+  smooth3x3(src, w, h, ss, smooth.data());
+  const bool ex = extrapolates(f);
+  for (int64_t i = 0; i < n; ++i)
+    for (int c = 0; c < 3; ++c)
+      dst[3 * i + c] = blend8(smooth[3 * i + c], src[i * ss + c], f, ex);
+}
+
+// Image.blend(a, b, alpha) of two RGB frames of n pixels
+void dfd_img_blend(const uint8_t* a, int sa, const uint8_t* b, int sb,
+                   uint8_t* dst, int64_t n, float alpha) {
+  const bool ex = extrapolates(alpha);
+  for (int64_t i = 0; i < n; ++i)
+    for (int c = 0; c < 3; ++c)
+      dst[3 * i + c] = blend8(a[i * sa + c], b[i * sb + c], alpha, ex);
+}
+
+// Image.transform((dw, dh), AFFINE, a, resample, fillcolor=fill) with
+// resample BILINEAR (2) or BICUBIC (3): output pixel (x, y) samples the
+// source at (a0·(x+½) + a1·(y+½) + a2, a3·(x+½) + a4·(y+½) + a5); a point
+// outside the source keeps `fill` (3 bytes)
+int dfd_img_affine_filter(const uint8_t* src, int sw, int sh, int ss,
+                          uint8_t* dst, int dw, int dh, const double* a,
+                          int resample, const uint8_t* fill) {
+  if (resample != 2 && resample != 3) return -1;
+  const double a0 = a[0], a1 = a[1], a2 = a[2], a3 = a[3], a4 = a[4],
+               a5 = a[5];
+  for (int y = 0; y < dh; ++y) {
+    uint8_t* out = dst + static_cast<size_t>(y) * dw * 3;
+    const double yin = y + 0.5;
+    for (int x = 0; x < dw; ++x, out += 3) {
+      const double xin = x + 0.5;
+      const double xx = a0 * xin + a1 * yin + a2;
+      const double yy = a3 * xin + a4 * yin + a5;
+      const bool hit = resample == 2
+                           ? bilinear_rgb(src, sw, sh, ss, xx, yy, out)
+                           : bicubic_rgb(src, sw, sh, ss, xx, yy, out);
+      if (!hit) std::memcpy(out, fill, 3);
+    }
+  }
+  return 0;
 }
 
 }  // extern "C"

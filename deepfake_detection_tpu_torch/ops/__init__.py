@@ -9,5 +9,6 @@ from .drop import DropPath, drop_path, dropout
 from .linear import Linear
 from .norm import (BN_EPS_PT_DEFAULT, BN_EPS_TF_DEFAULT,
                    BN_MOMENTUM_PT_DEFAULT, BN_MOMENTUM_TF_DEFAULT,
-                   BatchNorm2d, LayerNorm, resolve_bn_args)
+                   BatchNorm2d, LayerNorm, SplitBatchNorm2d,
+                   resolve_bn_args)
 from .pool import SelectAdaptivePool2d, adaptive_pool_feat_mult, global_pool_nchw

@@ -1,7 +1,7 @@
 """Batch normalization with flax's statistics and timm's names.
 
-Counterpart of ``BatchNorm2d`` / ``resolve_bn_args`` in
-``deepfake_detection_tpu/ops/norm.py``.  The module carries timm's state
+Counterpart of ``BatchNorm2d``, ``SplitBatchNorm2d`` and
+``resolve_bn_args`` in ``deepfake_detection_tpu/ops/norm.py``.  The module carries timm's state
 (``weight``, ``bias``, ``running_mean``, ``running_var``,
 ``num_batches_tracked``) but computes what the JAX package computes:
 
@@ -13,6 +13,13 @@ Counterpart of ``BatchNorm2d`` / ``resolve_bn_args`` in
   so it is not used here.
 
 ``momentum`` is torch convention (default 0.1), as in the JAX package.
+
+:class:`SplitBatchNorm2d` (AdvProp's auxiliary BN, ``--split-bn``) is a
+:class:`BatchNorm2d` (the main BN, its tensors under the module's own name)
+with ``num_splits - 1`` more in ``aux_bn`` (``<name>.aux_bn.<i>.*``), timm's
+layout: in training the batch's equal chunks go through the main BN and
+then each aux BN in turn, each with the arithmetic above; in eval the main
+BN alone.
 
 Both norms follow flax's ``dtype=`` policy under a bf16 compute dtype:
 statistics and normalization in f32, the output in the compute dtype.
@@ -31,7 +38,7 @@ import torch.nn.functional as F
 
 __all__ = ["BN_MOMENTUM_TF_DEFAULT", "BN_EPS_TF_DEFAULT",
            "BN_MOMENTUM_PT_DEFAULT", "BN_EPS_PT_DEFAULT", "resolve_bn_args",
-           "BatchNorm2d", "LayerNorm"]
+           "BatchNorm2d", "SplitBatchNorm2d", "LayerNorm"]
 
 BN_MOMENTUM_TF_DEFAULT = 0.01
 BN_EPS_TF_DEFAULT = 1e-3
@@ -106,6 +113,36 @@ class BatchNorm2d(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((xf - _channel(mean)) * _channel(mul)
                 + _channel(self.bias)).to(x.dtype)
+
+
+class SplitBatchNorm2d(BatchNorm2d):
+    """AdvProp split BN: in training, chunk ``i`` of ``num_splits`` equal
+    chunks of the batch goes through BN ``i`` (0 the main BN, this module's
+    own tensors; ``i`` ≥ 1 ``aux_bn[i - 1]``); in eval, the main BN for
+    every row.  :meth:`folded` is the main BN's."""
+
+    def __init__(self, num_features: int,
+                 momentum: float = BN_MOMENTUM_PT_DEFAULT,
+                 eps: float = BN_EPS_PT_DEFAULT, num_splits: int = 2):
+        super().__init__(num_features, momentum=momentum, eps=eps)
+        if num_splits < 2:
+            raise ValueError(f"num_splits must be >= 2, got {num_splits}")
+        self.num_splits = num_splits
+        self.aux_bn = nn.ModuleList(
+            BatchNorm2d(num_features, momentum=momentum, eps=eps)
+            for _ in range(num_splits - 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        split = x.shape[0] // self.num_splits
+        if split * self.num_splits != x.shape[0]:
+            raise ValueError(f"batch {x.shape[0]} is not {self.num_splits} "
+                             f"equal splits")
+        parts = [super().forward(x[:split])]
+        for i, bn in enumerate(self.aux_bn):
+            parts.append(bn(x[(i + 1) * split:(i + 2) * split]))
+        return torch.cat(parts, dim=0)
 
 
 class LayerNorm(nn.LayerNorm):

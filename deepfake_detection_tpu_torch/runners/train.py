@@ -37,6 +37,19 @@ unless ``--host-color-jitter``.  ``--augment-device on`` renders the whole
 chain on the card.  The card's jitter/flicker and erasing draw from torch
 generators, not ``jax.random`` (``data/loader.py``).
 
+AugMix (``--aug-splits N --jsd --split-bn``, timm's recipe; ``--mixup 0``,
+which it excludes): each sample becomes its clean view and ``N - 1``
+AugMix views (``data/auto_augment.py``, Pillow's ops without Pillow), all
+on the host chain, stacked split-major, so a step sees ``N × -b`` rows;
+``--jsd`` trains on the JSD consistency loss; ``--split-bn`` gives every BN
+``N - 1`` auxiliary BNs (``ops/norm.py`` ``SplitBatchNorm2d``, saved,
+averaged by the EMA and resumed with the rest of the state) that
+normalize the augmented splits, the depthwise stages still going through
+their kernels; eval reads the main BN alone.  The flagship's line::
+
+    ... scripts/train.sh's flags ... --mixup 0 --aug-splits 3 --jsd \
+        --split-bn
+
 Compute follows the JAX runner's policy: the model computes in
 ``--compute-dtype`` (default ``bfloat16``, as the JAX config's) when
 ``--amp`` is set or that dtype is not ``float32``, so only
@@ -144,6 +157,11 @@ class TrainConfig:
     flicker: float = 0.0
     rotate_range: float = 0.0
     blur_prob: float = 0.0
+    # AugMix views a sample (0: none), the JSD loss over them, and AdvProp
+    # split BN (an aux BN for each augmented split)
+    aug_splits: int = 0
+    jsd: bool = False
+    split_bn: bool = False
     augment_device: str = "off"
     # the host chain's parity escape hatches: jitter/flicker on the host
     # under no mixup; the sequential geometry instead of the one warp
@@ -261,6 +279,15 @@ def parse_args(argv=None) -> TrainConfig:
     p.add_argument("--flicker", type=float, default=d.flicker)
     p.add_argument("--rotate-range", type=float, default=d.rotate_range)
     p.add_argument("--blur-prob", type=float, default=d.blur_prob)
+    p.add_argument("--aug-splits", type=int, default=d.aug_splits,
+                   help="AugMix views a sample, the clean one included "
+                        "(0: no AugMix; >1 excludes --mixup)")
+    p.add_argument("--jsd", action="store_true",
+                   help="the AugMix JSD consistency loss (needs "
+                        "--aug-splits > 1)")
+    p.add_argument("--split-bn", action="store_true",
+                   help="an auxiliary BN for each augmented split (needs "
+                        "--aug-splits > 1 or --resplit)")
     p.add_argument("--augment-device", choices=["on", "off"],
                    default=d.augment_device,
                    help="off: the host chain; on: the whole chain on the "
@@ -366,13 +393,20 @@ class Run:
 def build_model(cfg: TrainConfig, device) -> torch.nn.Module:
     """The model through the factory's family rules: BN arguments reach
     only EfficientNets, ``attn_impl`` and the input size only the
-    transformers; the compute dtype (:func:`model_dtype`) every family."""
+    transformers; the compute dtype (:func:`model_dtype`) every family;
+    ``--split-bn`` makes every BN ``split<max(aug_splits, 2)>``."""
     factory = _MODEL_FACTORIES.get(cfg.model_version)
     if factory is None:
         raise ValueError(f"--model-version {cfg.model_version!r}: one of "
                          f"{sorted(_MODEL_FACTORIES)}")
     c, h, w = cfg.input_size()
     kwargs = {}
+    if cfg.split_bn:
+        # AdvProp split BN: a BN for each augmentation split
+        if not (cfg.aug_splits > 1 or cfg.resplit):
+            raise ValueError("--split-bn needs --aug-splits > 1 or "
+                             "--resplit")
+        kwargs["norm_layer"] = f"split{max(cfg.aug_splits, 2)}"
     if cfg.attn_impl:
         if cfg.attn_impl in ("ring", "ring_flash", "ulysses"):
             raise ValueError(
@@ -461,8 +495,9 @@ def build_loaders(cfg: TrainConfig, device, train_ds, eval_ds
     """(train, eval) loaders: the clip dataset's with the augment chain
     where ``--augment-device`` puts it (``blur_radius`` 1, as the JAX
     runner passes), or, for the
-    synthetic set, collate, host mixup, normalize and erase; batches in
-    the compute dtype (the JAX runner's loader dtype)."""
+    synthetic set, collate, host mixup, normalize and erase; the train
+    set's AugMix views under ``--aug-splits``; batches in the compute
+    dtype (the JAX runner's loader dtype)."""
     c, h, w = cfg.input_size()
     mixup = FastCollateMixup(cfg.mixup, cfg.smoothing, cfg.num_classes) \
         if cfg.mixup > 0 else None
@@ -476,7 +511,7 @@ def build_loaders(cfg: TrainConfig, device, train_ds, eval_ds
         img_num = max(1, c // 3)
         return (create_loader(train_ds, cfg.batch_size, True, device,
                               img_num=img_num, collate_mixup=mixup, **erase,
-                              **common),
+                              num_aug_splits=cfg.aug_splits, **common),
                 create_loader(eval_ds, cfg.batch_size * 2, False, device,
                               img_num=img_num, **common))
     return (create_deepfake_loader_v3(
@@ -487,8 +522,8 @@ def build_loaders(cfg: TrainConfig, device, train_ds, eval_ds
                 blur_prob=cfg.blur_prob,
                 device_color_jitter=not cfg.host_color_jitter,
                 fused_geom=not cfg.host_geom,
-                augment_device=cfg.augment_device == "on", **erase,
-                **common),
+                augment_device=cfg.augment_device == "on",
+                num_aug_splits=cfg.aug_splits, **erase, **common),
             create_deepfake_loader_v3(
                 eval_ds, (c, h, w), cfg.batch_size * 2, is_training=False,
                 device=device, eval_crop=cfg.eval_crop, **common))

@@ -120,14 +120,15 @@ class ServingMetrics:
         self.cache_expired_total = _Counter()
         self.cache_evicted_total = _Counter()
         self.cache_invalidated_total = _Counter()
-        # warm-start store books (the store is not ported: they stay 0 and
-        # keep the catalog whole for scrapers): every store
-        # interaction at warmup lands in exactly one of hit (entry
-        # deserialized), miss (absent — fresh compile), fallback
-        # (present but corrupt/foreign/version-skewed — fresh compile,
-        # loudly); canary_rejects count deserialized executables the
-        # golden-batch gate refused to let serve (also recompiled);
-        # serialized counts entries (re)written to the store
+        # warm-start store books (--warmstart-dir; counted at warmup by
+        # serving/engine.py _warm_store, _warm_canary and _store_save):
+        # every store interaction lands in exactly one of hit (a kernel
+        # library or capture manifest loaded from the store), miss
+        # (absent: nvcc or a fresh capture), fallback (present but
+        # corrupt, foreign or version-skewed: rebuilt, loudly);
+        # canary_rejects count stored entries the golden-batch canary
+        # refused to let serve (also rebuilt); serialized counts entries
+        # (re)written to the store
         self.warmstart_hits_total = _Counter()
         self.warmstart_misses_total = _Counter()
         self.warmstart_fallbacks_total = _Counter()

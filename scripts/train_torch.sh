@@ -4,6 +4,10 @@
 # and restart loop with the port's runner, deepfake_detection_tpu_torch.
 # Usage: bash scripts/train_torch.sh ROOT [more runner flags]
 # (ROOT: the clip tree; --data-packed DIR reads a pack of it).
+# AugMix (timm's split-view recipe: a clean and two AugMix views a clip,
+# the JSD loss, an auxiliary BN for each augmented split; it excludes
+# mixup, so the later --mixup 0 overrides the line's):
+#   bash scripts/train_torch.sh ROOT --mixup 0 --aug-splits 3 --jsd --split-bn
 #
 # Restart-on-preemption wrapper: the runner's exit-code contract
 # (deepfake_detection_tpu_torch/train/resilience.py) is 75 = preempted
