@@ -9,7 +9,8 @@ before the result line:
 
 1. device: the card's ``nvidia-smi`` name and power limit, torch and CUDA,
    and whether a ten-line C file that includes ``jpeglib.h`` compiles and
-   links with ``-ljpeg`` (reported; it fails nothing);
+   links with ``-ljpeg`` (reported; it fails nothing); the host's cores
+   and ``/dev/shm``'s free bytes;
 2. build: ``nvcc`` compiles every kernel source of the port (the three
    depthwise and the three flash-attention kernels), one process per
    source, all started together (timed, with ptxas' register report); for
@@ -113,10 +114,10 @@ before the result line:
    tolerance of an eager forward on the plain depthwise version; batch-1
    wall and device ms, graph replay against the eager forward; clips/s,
    p50 and p99 at 1, 8 and 32 clients posting 4-frame ``.npy`` clips at
-   600² for 3 s each (a child interpreter's threads; the batch histogram
+   600² for 2 s each (a child interpreter's threads; the batch histogram
    from ``/metrics``); the JPEG row: the four 640² fixtures as a multipart
    clip, its scores bitwise those of the same frames decoded and sent as
-   ``.npy``, then 32 clients for 3 s with each body (clips/s, p50/p99,
+   ``.npy``, then 32 clients for 2 s with each body (clips/s, p50/p99,
    ``preprocess`` ms side by side), the host's ms a frame on one idle
    thread of the decode and of the 640² → 600² canvas, and the launches
    of the JPEG requests alone (``serve_jpeg``; the ``.npy`` twins' stay
@@ -178,7 +179,7 @@ before the result line:
    verdict vector (``0.05*4,0.95*8``, EMA 0.3) that must give exactly
    real→suspect at window 6 and suspect→fake at window 10; on the uint8
    wire 1 and 4 streams pushing ``application/x-dfd-raw`` 640×480
-   chunks of 8 frames at 30 frames/s for 3 s each (a child interpreter):
+   chunks of 8 frames at 30 frames/s for 2 s each (a child interpreter):
    frames/s, windows scored/s, ack p50 and p99, the mean stage ms of the
    streaming histograms, ring overflow, elided copies, each stream's books
    exact (emitted = scored + dropped + shed + failed + cache hits +
@@ -187,7 +188,7 @@ before the result line:
    over the level's wall); the MJPEG row: a stream of MJPEG chunks of the
    two 640×480 fixtures and one of the raw chunks of their decodes, a
    window at a time, windows bitwise equal, then 4 MJPEG streams at 30
-   frames/s for 3 s, every chunk 200, books exact (frames/s and the
+   frames/s for 2 s, every chunk 200, books exact (frames/s and the
    ``decode`` stage ms), the MJPEG chunks' launches counted alone
    (``stream_mjpeg``; the raw twin's stay with ``stream``); the depthwise
    launches 55 × replays; then
@@ -200,7 +201,7 @@ before the result line:
    own process, uint8 wire, buckets 1, 4, 16, ``--device cuda``): seconds
    to ready with N cold starts at once and each replica's warmup stages,
    6 captures a replica and none after ready, P(fake) through the router
-   bitwise the card CLI, 32 closed-loop clients for 3 s with clips/s, p50/p99, statuses, the replicas' stage ms, each replica's
+   bitwise the card CLI, 32 closed-loop clients for 2 s with clips/s, p50/p99, statuses, the replicas' stage ms, each replica's
    share of the forwards, device memory by process (``nvidia-smi
    --query-compute-apps``), nvidia-smi's sampled ``utilization.gpu`` and
    the router's CPU ms a relay, router books exact (routed = cache hits +
@@ -270,6 +271,19 @@ before the result line:
    aux running stats moved and apart; one eval batch through the main BN
    alone (its logits bitwise unchanged when every aux BN is set to NaN, 55
    forward launches); ms a step, host wait, idle share, peak memory;
+16c. ``train_shm``: ``--loader-backend shm`` (spawned workers into a
+   shared-memory ring) on train_torch.sh's line (``host``) and on 16b's
+   AugMix line (``augmix``): the first 4 batches of each bitwise the thread
+   backend's, as host batches and as the uint8 images on the card after
+   the copy; 1 + 5 timed + 2 profiled steps, 55/55/55 bf16 depthwise
+   launches a step counted for each row alone; ms a step, idle share, busy
+   ms, host wait, the ring's collect wait, fetch and copy ms a batch, the
+   dispatching thread's CPU ms a step, ring occupancy, each beside 16a's
+   host-chain row or 16b; then ``robust`` on the host, small: a worker
+   killed by ``DFD_CHAOS=kill_shm_worker@2`` is respawned and the epoch's
+   digests equal the thread loader's, the segment is gone and every
+   worker exited after ``close()``, a ring larger than ``/dev/shm``'s free
+   space raises before any worker spawns, and no worker holds torch;
 17. ``resume``: the same bf16 run in-process (``DFD_CHAOS`` set and cleared
    around each call, ``SystemExit`` caught): an uninterrupted epoch twice;
    ``sigterm@5`` → exit 75 with the snapshot ``recovery-0-4``; the snapshot
@@ -361,6 +375,7 @@ from deepfake_detection_tpu_torch.data.random_erasing import \
 from deepfake_detection_tpu_torch.data import native as jpeg_native
 from deepfake_detection_tpu_torch.data.dataset import read_rgb
 from deepfake_detection_tpu_torch.data.packed import write_pack
+from deepfake_detection_tpu_torch.data.shm_ring import shm_free_bytes
 from deepfake_detection_tpu_torch.fleet.autoscaler import replay_trace
 from deepfake_detection_tpu_torch.models import (create_deepfake_model_v4,
                                                  create_model)
@@ -1461,7 +1476,7 @@ SERVE_BUCKETS = (1, 4, 16)        # the JAX default's first three
 SERVE_BIG_BUCKET = 64             # the JAX default's largest, captured alone
 SERVE_TOL = 1e-6                  # P(fake), server against the card CLI
 SERVE_CLIENTS = (1, 8, 32)
-SERVE_LOAD_S = 3.0
+SERVE_LOAD_S = 2.0                # short: the script runs within 1,200 s
 SERVE_WATCHDOG_S = 5.0
 STUDENT = "student=efficientnet_deepfake_v4"    # at half the canvas
 # the CLI's eager numbers these stand beside (PERF.md §5, NVIDIA H100 80GB
@@ -1704,7 +1719,7 @@ def _host_stage_ms(fn, iters: int = 10) -> dict:
 def _serve_jpeg(srv, size: int) -> dict:
     """The JPEG row of the uint8 server: the four 640² fixtures as one
     multipart clip, its scores bitwise those of the same frames decoded
-    and sent as ``.npy``; then 32 clients for 3 s posting each body (the
+    and sent as ``.npy``; then 32 clients for 2 s posting each body (the
     ``.npy`` one of the decoded frames beside it), and the host's ms a
     frame, on one idle thread, of the decode and of the 640² → ``size``
     canvas.  Returns the rows and the depthwise launches of the replays
@@ -2442,7 +2457,7 @@ STREAM_TRANSITIONS = [("real", "suspect", 6), ("suspect", "fake", 10)]
 STREAM_LEVELS = (1, 4)            # concurrent streams (16 cut for time)
 STREAM_FPS = 30.0                 # frames/s a stream
 STREAM_CHUNK = 8                  # frames a POST
-STREAM_LOAD_S = 3.0
+STREAM_LOAD_S = 2.0               # short: the script runs within 1,200 s
 STREAM_BOOKS = ("windows_scored", "windows_dropped", "windows_shed",
                 "windows_failed", "windows_cache_hit", "windows_dup_elided")
 
@@ -2742,7 +2757,7 @@ def _stream_mjpeg(srv, smi: str) -> dict:
     640×480 fixtures: one stream of MJPEG chunks and one of the raw chunks
     of the same frames decoded, a window at a time (each scored alone, at
     bucket 1), whose windows must be bitwise equal; then 4 streams of
-    MJPEG chunks of 8 frames at 30 frames/s for 3 s, every chunk 200 and
+    MJPEG chunks of 8 frames at 30 frames/s for 2 s, every chunk 200 and
     the books exact.  Returns the row and the depthwise launches of the
     replays the MJPEG streams alone caused (the raw twin's stay with the
     stream path)."""
@@ -2814,7 +2829,7 @@ def phase_stream(ckpt_path: Path, size: int = 600,
     localizer), on localhost HTTP.  Float32 wire: one stream of 8 raw
     640×480 frames whose windows match the card CLI's ``--clip`` within
     1e-6, and a planted verdict vector's exact transitions.  Uint8 wire:
-    1 and 4 streams pushing raw 640×480 chunks at 30 frames/s for 3 s
+    1 and 4 streams pushing raw 640×480 chunks at 30 frames/s for 2 s
     each (frames/s, windows/s, ack percentiles, stage ms, exact books, no
     capture after ready; the device's busy share at 4).  Then the runner
     as a child: SIGTERM with ``--state-dir`` and resume.  Returns the
@@ -2978,9 +2993,9 @@ def phase_stream(ckpt_path: Path, size: int = 600,
 ROUTER_FLEETS = (1, 2)            # serve replicas spawned behind the router
 # (N = 4 and its 64-client row cut for time)
 ROUTER_CLIENTS = 32
-ROUTER_LOAD_S = 3.0
+ROUTER_LOAD_S = 2.0               # short: the script runs within 1,200 s
 ROUTER_KILL_AT_S = 1.5            # into the failover load
-ROUTER_SURVIVOR_S = 3.0
+ROUTER_SURVIVOR_S = 2.0           # short: the script runs within 1,200 s
 ROUTER_SPIKE_S = 25.0             # the autoscaler's spike
 ROUTER_UTIL_PERIOD_S = 0.2        # nvidia-smi utilization.gpu samples
 ROUTER_STREAMS = 4
@@ -3574,7 +3589,7 @@ def phase_router(ckpt_path: Path, files: list, cli: dict,
     spawned replicas of the port (each its own process, CUDA context and
     graphs): at N = 1 and 2 serve replicas the seconds to ready with N
     cold starts at once and each replica's warmup stages, scores through
-    the router bitwise the card CLI, 32 closed-loop clients for 3 s with
+    the router bitwise the card CLI, 32 closed-loop clients for 2 s with
     clips/s, latency, the replicas' stage ms, each
     replica's share, device memory by process, nvidia-smi's sampled
     utilization and the router's CPU a relay, exact books and no capture
@@ -3922,22 +3937,122 @@ def _device_events(prof, averages=None):
             and not getattr(e, "is_user_annotation", False)]
 
 
+def _kineto_device(prof):
+    """``(µs, launches, top)`` by kernel kind of the same device events as
+    :func:`_device_events` (kernels, copies and memsets, no user
+    annotations), summed from the profiler's raw kineto events without
+    building ``key_averages()`` (which took ~14 s for two AugMix steps of
+    ~31,500 launches each)."""
+    kinds, launches, top = Counter(), Counter(), Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        kind = _kernel_kind(e.name())
+        us = e.duration_ns() / 1e3
+        kinds[kind] += us
+        launches[kind] += 1
+        top[f"{kind}: {e.name()[:70]}"] += us
+    return kinds, launches, top
+
+
+# the profiler's utility ops that its event table leaves out
+_HIDDEN_OPS = frozenset({
+    "[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+    "profiler::_record_function_enter_new", "profiler::_record_function_exit",
+    "aten::is_leaf", "aten::output_nr", "aten::_version"})
+
+
+def _kineto_host(prof):
+    """``(self µs, calls, total µs)`` by op name of the host's ops, from the
+    profiler's raw kineto events, as ``key_averages()`` counts them without
+    its cost (~20 s a trace of three train steps with host ops): a child is
+    an op nested in another's span on its thread; an op that is its
+    parent's only child and has its parent's name is folded into the
+    parent (the profiler's duplicate nodes); an op's self time is its span
+    less its children's (asynchronous events count calls only)."""
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CPU
+              and e.name() not in _HIDDEN_OPS and not e.is_hidden_event()]
+    # a runtime call (cudaLaunchKernel, ...) belongs to the thread of the
+    # op that made it, as the profiler's table files it
+    op_thread = {e.correlation_id(): e.start_thread_id() for e in events
+                 if e.linked_correlation_id() == 0}
+    calls, async_calls, by_thread = Counter(), Counter(), {}
+    for e in events:
+        if e.is_async() or e.start_thread_id() != e.end_thread_id():
+            async_calls[e.name()] += 1
+            continue
+        thread = op_thread.get(e.linked_correlation_id(),
+                               e.start_thread_id()) \
+            if e.linked_correlation_id() > 0 else e.start_thread_id()
+        # [start ns, end ns, name, children, parent]
+        by_thread.setdefault(thread, []).append(
+            [e.start_ns(), e.end_ns(), e.name(), [], None])
+    self_us, total = Counter(), Counter()
+    for evs in by_thread.values():
+        evs.sort(key=lambda v: (v[0], -v[1]))
+        stack = []
+        for ev in evs:
+            while stack and (ev[0] >= stack[-1][1] or ev[1] > stack[-1][1]):
+                stack.pop()
+            if stack:
+                stack[-1][3].append(ev)
+                ev[4] = stack[-1]
+            stack.append(ev)
+        kept = evs
+        while True:
+            dup = [ev for ev in kept if ev[4] is not None
+                   and ev[4][2] == ev[2] and len(ev[4][3]) == 1]
+            if not dup:
+                break
+            for ev in dup:
+                parent = ev[4]
+                parent[3] = ev[3]
+                for child in ev[3]:
+                    child[4] = parent
+            gone = {id(ev) for ev in dup}
+            kept = [ev for ev in kept if id(ev) not in gone]
+        for start, end, name, children, _ in kept:
+            calls[name] += 1
+            total[name] += (end - start) / 1e3
+            self_us[name] += (end - start
+                              - sum(c[1] - c[0] for c in children)) / 1e3
+    return self_us, calls + async_calls, total
+
+
+def _kineto_check(prof, kinds: Counter, host: Counter) -> dict:
+    """The profiler's own ``key_averages()`` table against the kineto
+    readings of the same trace: device busy µs and the host ops' self µs
+    by each, and the largest difference of one op's self µs."""
+    averages = prof.key_averages()
+    busy = sum(e.self_device_time_total
+               for e in _device_events(prof, averages))
+    table = Counter()
+    for e in averages:
+        if e.device_type == DeviceType.CPU:
+            table[e.key] += e.self_cpu_time_total
+    return dict(busy_us=[busy, sum(kinds.values())],
+                host_self_us=[sum(table.values()), sum(host.values())],
+                max_op_self_diff_us=max((abs(table[k] - host[k])
+                                         for k in set(table) | set(host)),
+                                        default=0.0))
+
+
 def _emit_kinds(phase: str, prof, n: int, wall_us: float,
-                host_ops: bool = True, **extra) -> None:
+                host_ops: bool = True, check: bool = False,
+                **extra) -> None:
     """Device time and launches per iteration by kernel kind, the device's
     idle share of the wall time, and the host's CPU time by op (the dtype
     casts apart; "not measured" when the run traced no host ops,
-    ``host_ops`` False), from a torch.profiler run of ``n`` iterations;
-    returns what it printed."""
-    kinds = Counter()
-    launches = Counter()
-    top = Counter()
-    averages = prof.key_averages()
-    for e in _device_events(prof, averages):
-        kind = _kernel_kind(e.key)
-        kinds[kind] += e.self_device_time_total
-        launches[kind] += e.count
-        top[f"{kind}: {e.key[:70]}"] += e.self_device_time_total
+    ``host_ops`` False), from a torch.profiler run of ``n`` iterations,
+    read from its raw kineto events (:func:`_kineto_device`,
+    :func:`_kineto_host`); with ``check``, the profiler's own table beside
+    (``kineto_check``); returns what it printed."""
+    kinds, launches, top = _kineto_device(prof)
+    host, calls, total = _kineto_host(prof) if host_ops else \
+        (Counter(), Counter(), Counter())
+    if check:
+        extra["kineto_check"] = _kineto_check(prof, kinds, host)
     busy_us = sum(kinds.values())
     if busy_us == 0:
         emit(phase=phase, device_time="not measured", **extra)
@@ -3945,12 +4060,6 @@ def _emit_kinds(phase: str, prof, n: int, wall_us: float,
     # the host side: each op's own CPU time (its children's apart) and
     # calls an iteration, and the dtype casts with their children and their
     # backward nodes
-    host, calls, total = Counter(), Counter(), {}
-    for e in averages if host_ops else ():
-        if e.device_type == DeviceType.CPU:
-            host[e.key] += e.self_cpu_time_total
-            calls[e.key] += e.count
-            total[e.key] = e.cpu_time_total
     casts = {k: dict(calls=calls[k] / n, ms=total[k] / n / 1e3)
              for k in ("aten::to", "ToCopyBackward0") if k in total}
     out = dict(phase=phase, iterations=n,
@@ -3980,7 +4089,8 @@ def phase_profile(model, x, iters: int = 3) -> None:
             model(x)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    _emit_kinds("profile", prof, iters, wall_us, batch=x.shape[0])
+    _emit_kinds("profile", prof, iters, wall_us, check=True,
+                batch=x.shape[0])
 
 
 _COUNTED = (dw.fused_depthwise, dw.depthwise_dx, dw.depthwise_dwgrad,
@@ -4557,17 +4667,28 @@ def _train_steps(run, cfg, steps: int, profile_as: str = "",
     loader (device time by kind, idle share; the host's ops by time unless
     ``host_ops`` is False, which leaves them out of the trace and its
     reading, a third of the events) and its seconds, the trace's reading
-    included."""
+    included; this thread's CPU ms a step up to the step's return (the
+    dispatching thread's); on the shm transport the ring's occupancy
+    before each step, the collect wait and the copy out of the slab a
+    batch.  The loader is closed at the end."""
     run.train_loader, _ = train_runner.build_loaders(
         cfg, run.device, *train_runner.build_datasets(cfg))
     run.train_loader.set_epoch(0)
+    host = run.train_loader.loader
     it = iter(run.train_loader)
-    step_ms, wait_ms, losses_, rows = [], [], [], []
+    step_ms, wait_ms, losses_, rows, cpu_ms, occupancy = [], [], [], [], \
+        [], []
     for _ in range(steps):
+        if hasattr(host, "ring_depth"):
+            occupancy.append(host.inflight_batches / host.ring_depth)
         t0 = time.perf_counter()
+        c0 = time.thread_time()
         x, y = next(it)
         t1 = time.perf_counter()
         m = run.train_step(run.state, x, y)
+        # this thread's CPU from the loader's call to the step's return
+        # (the synchronize, which may spin, left out)
+        cpu_ms.append((time.thread_time() - c0) * 1e3)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         wait_ms.append((t1 - t0) * 1e3)
@@ -4588,15 +4709,26 @@ def _train_steps(run, cfg, steps: int, profile_as: str = "",
         kinds = _emit_kinds(profile_as, prof, profile_steps, wall_us,
                             host_ops, batch=TRAIN_BATCH)
     it.close()
-    stats = run.train_loader.loader.stats
-    fetch = stats.fetch_s / max(1, stats.batches) * 1e3
+    stats = host.stats
+    nb = max(1, stats.batches)
+    fetch = stats.fetch_s / nb * 1e3
+    shm = dict(ring_occupancy=occupancy,
+               collect_wait_ms_per_batch=host.collect_wait_s / nb * 1e3,
+               copy_ms_per_batch=host.copy_s / nb * 1e3,
+               respawns=host.respawn_count, ring_depth=host.ring_depth,
+               workers=host.num_workers) \
+        if hasattr(host, "ring_depth") else {}
+    run.train_loader.close()
     return dict(ms_per_step=float(np.mean(step_ms[1:])),
                 host_wait_ms_per_step=float(np.mean(wait_ms[1:])),
+                dispatch_cpu_ms_per_step=float(np.mean(cpu_ms[1:])),
                 fetch_ms_per_batch=fetch, step_ms=step_ms, wait_ms=wait_ms,
-                loss=losses_, rows=rows, profile_s=time.perf_counter()
-                - t_prof, idle_share=kinds.get("idle_share"),
+                dispatch_cpu_ms=cpu_ms, loss=losses_, rows=rows,
+                profile_s=time.perf_counter() - t_prof,
+                idle_share=kinds.get("idle_share"),
                 busy_ms_per_step=kinds.get("busy_ms_per_iteration"),
-                host_op_ms_per_step=kinds.get("host_op_ms_per_iteration"))
+                host_op_ms_per_step=kinds.get("host_op_ms_per_iteration"),
+                **shm)
 
 
 def _train_jpeg(main_numbers: dict) -> dict:
@@ -4927,7 +5059,240 @@ def phase_train_augmix(root: Path, aug: dict) -> dict:
     return dict(zip(keys, (counts[0][0] + eval_counts[0], counts[0][1],
                            counts[0][2])),
                 ms_per_step=row["ms_per_step"], peak_mem_gib=peak / 2 ** 30,
-                idle_share=row["idle_share"])
+                idle_share=row["idle_share"], row=row)
+
+
+# train_shm: the first batches of each row held against the thread
+# backend's; then 1 warm-up step, 5 timed and 2 profiled (the tree's 8
+# batches an epoch)
+SHM_DIGEST_BATCHES = 4
+SHM_TRAIN_STEPS = 6
+SHM_PROFILED = 2
+SHM_FLAGS = ["--loader-backend", "shm"]
+SHM_ROBUST_CHAOS = "kill_shm_worker@2"    # the one worker, mid-epoch
+SHM_ROBUST_HEARTBEAT_S = 8.0              # the lost-ack sweep after 5 s
+_ROW_KEYS = ("ms_per_step", "step_ms", "idle_share", "busy_ms_per_step",
+             "host_wait_ms_per_step", "fetch_ms_per_batch",
+             "dispatch_cpu_ms_per_step", "dispatch_cpu_ms",
+             "collect_wait_ms_per_batch", "copy_ms_per_batch",
+             "ring_occupancy", "respawns", "workers", "ring_depth")
+
+
+def _batch_digests(cfg, n: int) -> dict:
+    """The first ``n`` batches of ``cfg``'s train loader on the card:
+    digests of each host batch (images, targets) and of its uint8 images on
+    the card, copied over with ``non_blocking`` as the DeviceLoader copies
+    them, the host batch dropped at once, and read back after all ``n``."""
+    tl, el = train_runner.build_loaders(cfg, torch.device(DATA_DEVICE),
+                                        *train_runner.build_datasets(cfg))
+    try:
+        tl.set_epoch(0)
+        it = iter(tl.loader)
+        host, on_card = [], []
+        for _ in range(n):
+            b = next(it)
+            host.append([_sha(b.images.numpy()), _sha(b.targets.numpy())])
+            on_card.append(tl.to_device(b).images)
+            del b
+        it.close()
+        torch.cuda.synchronize()
+        card = [_sha(t.cpu().numpy()) for t in on_card]
+    finally:
+        tl.close()
+        el.close()
+    return dict(host=host, card=card)
+
+
+def _shm_row(name: str, cfg_thread, cfg_shm, profile_host_ops: bool
+             ) -> dict:
+    """One train_shm row: the first ``SHM_DIGEST_BATCHES`` batches of the
+    shm loader bitwise the thread loader's, on the host and on the card;
+    then ``SHM_TRAIN_STEPS`` + ``SHM_PROFILED`` steps on the shm loader,
+    this row's depthwise launches reset and read around them."""
+    thread = _batch_digests(cfg_thread, SHM_DIGEST_BATCHES)
+    shm = _batch_digests(cfg_shm, SHM_DIGEST_BATCHES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run = train_runner.setup(cfg_shm)
+    setup_s = time.perf_counter() - t0
+    _reset_counts()
+    t0 = time.perf_counter()
+    row = _train_steps(run, cfg_shm, SHM_TRAIN_STEPS, f"{name}_profile",
+                       SHM_PROFILED, host_ops=profile_host_ops)
+    steps_s = time.perf_counter() - t0
+    counts = (_counts(), _counts("bfloat16"))
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(row=row, launches=counts, thread_digests=thread,
+                shm_digests=shm, host_bitwise=thread["host"] == shm["host"],
+                card_bitwise=thread["card"] == shm["card"],
+                seconds=dict(setup=setup_s, steps=steps_s))
+
+
+def _shm_robust() -> dict:
+    """The shm transport's robustness on the card's host, small (seeded
+    64² clips of 12 channels, batch 4, 8 batches): ``DFD_CHAOS=
+    kill_shm_worker@2`` kills the one worker mid-epoch, and the epoch's
+    digests equal the thread loader's with a respawn; after ``close()``
+    the segment is gone and every worker has exited; a ring larger than
+    ``/dev/shm``'s free space raises before any worker spawns; no spawned
+    worker holds torch (this script, the main module, imports it)."""
+    import errno
+    from multiprocessing import shared_memory
+    from deepfake_detection_tpu_torch.data.dataset import SyntheticDataset
+    from deepfake_detection_tpu_torch.data.loader import HostLoader
+    from deepfake_detection_tpu_torch.data.samplers import \
+        ShardedTrainSampler
+    from deepfake_detection_tpu_torch.data.shm_ring import (ShmRingLoader,
+                                                            shm_free_bytes)
+    shape, n, batch = (64, 64, 12), 32, 4
+
+    def make(cls, dataset=None, **kw):
+        return cls(dataset or SyntheticDataset(n, shape),
+                   ShardedTrainSampler(n, batch_size=batch, seed=3), batch,
+                   seed=3, **kw)
+
+    def digests(loader):
+        loader.set_epoch(0)
+        return [[_sha(b.images.numpy()), _sha(b.targets.numpy())]
+                for b in loader]
+
+    out = {}
+    want = digests(make(HostLoader, num_workers=2))
+    os.environ["DFD_CHAOS"] = SHM_ROBUST_CHAOS
+    hurt = make(ShmRingLoader, num_workers=1,
+                heartbeat_timeout=SHM_ROBUST_HEARTBEAT_S)
+    t0 = time.perf_counter()
+    try:
+        got = digests(hurt)
+        name, workers = hurt._ring.name, list(hurt._workers)
+    finally:
+        os.environ.pop("DFD_CHAOS", None)
+        hurt.close()
+    out["kill"] = dict(chaos=SHM_ROBUST_CHAOS, batches=len(got),
+                       bitwise=got == want, respawns=hurt.respawn_count,
+                       stall_sweeps=hurt.stall_sweeps,
+                       s=time.perf_counter() - t0)
+    try:
+        shared_memory.SharedMemory(name=name).close()
+        gone = False
+    except FileNotFoundError:
+        gone = True
+    out["close"] = dict(segment_gone=gone, workers=len(workers),
+                        exited=[p.exitcode for p in workers])
+    free = shm_free_bytes()
+    big = make(ShmRingLoader, num_workers=2,
+               ring_depth=free // (batch * int(np.prod(shape))) + 1)
+    try:
+        next(iter(big))
+        raised = None
+    except OSError as e:
+        raised = dict(enospc=e.errno == errno.ENOSPC, message=str(e))
+    finally:
+        big.close()
+    out["too_big"] = dict(free_bytes=free, ring_depth=big.ring_depth,
+                          raised=raised, workers_spawned=len(big._workers))
+    probe_dir = OUT / "shm_modules"
+    shutil.rmtree(probe_dir, ignore_errors=True)
+    probe_dir.mkdir(parents=True)
+    sys.path.insert(0, str(ROOT / "tests"))   # the workers unpickle from it
+    try:
+        import torch_shm_datasets as probe
+        ld = make(ShmRingLoader, probe.ModulesProbe(
+            SyntheticDataset(n, shape), str(probe_dir), os.getpid()),
+            num_workers=2)
+        try:
+            ld.set_epoch(0)
+            batches = sum(1 for _ in ld)
+        finally:
+            ld.close()
+    finally:
+        sys.path.remove(str(ROOT / "tests"))
+    mods = probe.worker_modules(str(probe_dir))
+    out["worker_modules"] = dict(
+        batches=batches, workers=len(mods),
+        torch={pid: sorted(m for m in names if m.split(".")[0] == "torch"
+                           )[:3] for pid, names in mods.items()},
+        shm_ring=all("deepfake_detection_tpu_torch.data.shm_ring" in names
+                     for names in mods.values()))
+    return out
+
+
+def phase_train_shm(root: Path, host: dict, aug: dict) -> dict:
+    """``--loader-backend shm``: train_torch.sh's line (``host``, beside
+    ``train_host``'s host-chain row of this run) and the AugMix line
+    (``augmix``, beside ``train_augmix``) on the seeded tree, each with
+    its first batches bitwise the thread backend's on the host and on the
+    card, 1 + 5 timed + 2 profiled steps (ms a step, idle share, busy ms,
+    host wait, collect wait, fetch and copy ms a batch, the dispatching
+    thread's CPU ms a step, ring occupancy) and its own 55/55/55 bf16
+    depthwise launches a step; then the transport's robustness on the
+    host, small (``robust``)."""
+    out = OUT / "train_shm"
+    shutil.rmtree(out, ignore_errors=True)
+    base = train_sh_flags(root) + ["--output", str(out)]
+    host_flags = base + ["--epochs", "1", "--recovery-interval", "0",
+                         "--no-telemetry"]
+    aug_flags = base + AUGMIX_OVERRIDES
+    cfgs = {k: (train_runner.parse_args(f), train_runner.parse_args(
+        f + SHM_FLAGS)) for k, f in (("host", host_flags),
+                                     ("augmix", aug_flags))}
+    for k, (ct, cs) in cfgs.items():
+        if not (ct.loader_backend == "thread" and cs.loader_backend == "shm"
+                and cs.workers == 8 and cs.ring_depth == 4 and cs.amp
+                and cs.augment_device == "off"
+                and (cs.aug_splits == 3) == (k == "augmix")):
+            raise AssertionError(f"the {k} shm line parsed to {cs}")
+    smi = nvidia_smi_line()
+    rows = {k: _shm_row(f"train_shm_{k}", *cfgs[k], False) for k in cfgs}
+    shutil.rmtree(out, ignore_errors=True)
+    robust = _shm_robust()
+    steps = SHM_TRAIN_STEPS + SHM_PROFILED
+    want = ((55 * steps,) * 3,) * 2
+    beside = dict(host=("train_host", host["rows"]["augment_off"]),
+                  augmix=("train_augmix", aug["row"]))
+    for k, r in rows.items():
+        other, ref = beside[k]
+        emit(phase="train_shm", row=k, nvidia_smi=smi,
+             cpu_count=os.cpu_count(), dev_shm_free_bytes=shm_free_bytes(),
+             steps=SHM_TRAIN_STEPS, profiled_steps=SHM_PROFILED,
+             launches=r["launches"], expected_launches=want,
+             first_batches=SHM_DIGEST_BATCHES,
+             host_bitwise=r["host_bitwise"], card_bitwise=r["card_bitwise"],
+             digests=r["shm_digests"], seconds=r["seconds"],
+             loss=r["row"]["loss"], rows=r["row"]["rows"],
+             step_ms_spread=_spread(r["row"]["step_ms"][1:]),
+             **{k2: r["row"].get(k2) for k2 in _ROW_KEYS},
+             **{other: {k2: ref.get(k2) for k2 in _ROW_KEYS}})
+    emit(phase="train_shm", row="robust", nvidia_smi=smi, **robust)
+    bad = [k for k, r in rows.items()
+           if not (r["host_bitwise"] and r["card_bitwise"])
+           or r["launches"] != want
+           or not np.isfinite(r["row"]["loss"]).all()
+           or r["row"]["rows"] != [(3 if k == "augmix" else 1)
+                                   * TRAIN_BATCH] * SHM_TRAIN_STEPS]
+    rb = robust
+    if bad or not (rb["kill"]["bitwise"] and rb["kill"]["respawns"] >= 1
+                   and rb["kill"]["batches"] == 8
+                   and rb["close"]["segment_gone"]
+                   and all(c is not None for c in rb["close"]["exited"])
+                   and rb["too_big"]["raised"]
+                   and rb["too_big"]["raised"]["enospc"]
+                   and rb["too_big"]["workers_spawned"] == 0
+                   and rb["worker_modules"]["workers"] >= 1
+                   and rb["worker_modules"]["shm_ring"]
+                   and not any(rb["worker_modules"]["torch"].values())):
+        raise AssertionError(
+            f"train_shm: rows failing {bad} "
+            f"({ {k: (r['host_bitwise'], r['card_bitwise'], r['launches'])
+                  for k, r in rows.items()} }), robust {robust}")
+    keys = ("forward_launches", "dx_launches", "dwgrad_launches")
+    return dict(zip(keys, rows["host"]["launches"][0]),
+                augmix=dict(zip(keys, rows["augmix"]["launches"][0])),
+                ms_per_step={k: r["row"]["ms_per_step"]
+                             for k, r in rows.items()})
 
 
 def _final_state(run_dir: Path) -> dict:
@@ -6034,7 +6399,8 @@ def main() -> int:
     smi = nvidia_smi_line()
     emit(phase="device", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
-         count=torch.cuda.device_count(), jpeglib=jpeg_probe())
+         count=torch.cuda.device_count(), jpeglib=jpeg_probe(),
+         cpu_count=os.cpu_count(), dev_shm_free_bytes=shm_free_bytes())
 
     t0 = time.perf_counter()
     libs = build()
@@ -6151,6 +6517,7 @@ def main() -> int:
     th = timed("train_host", phase_train_host, td["root"], host)
     _reset_counts()
     tam = timed("train_augmix", phase_train_augmix, td["root"], aug)
+    tsh = timed("train_shm", phase_train_shm, td["root"], th, tam)
     rs = timed("resume", phase_resume, td["root"])
     tsf = timed("tsf_train", phase_tsf_train)
     tsfa = timed("tsf_train_amp", phase_tsf_train, amp=True, beside=tsf)
@@ -6169,6 +6536,7 @@ def main() -> int:
     dw_paths = {"train": t, "train_data": td, "train_jpeg": td["jpeg"],
                 "train_amp": ta, "train_host": th,
                 "train_host_device": th["device"], "train_augmix": tam,
+                "train_shm": tsh, "train_shm_augmix": tsh["augmix"],
                 "resume": rs}
 
     def by_path(key, **extra):
@@ -6188,7 +6556,7 @@ def main() -> int:
     dx_launches, dx_paths = by_path("dx_launches")
     dwg_launches, dwg_paths = by_path("dwgrad_launches")
     amp_paths = ("train_amp", "train_host", "train_host_device",
-                 "train_augmix", "resume")
+                 "train_augmix", "train_shm", "train_shm_augmix", "resume")
 
     def bf16(key, err, launch_key):
         return dict(

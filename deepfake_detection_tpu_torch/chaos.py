@@ -3,8 +3,10 @@
 A copy of ``deepfake_detection_tpu/chaos.py`` (the same grammar, the same
 registry of point names, fire-once semantics): the port imports nothing of
 the JAX package.  The port probes the trainer's ``sigterm``, ``nanbatch``
-and ``truncate_ckpt`` and the host loader's ``stall_loader``; the other
-names stay registered so that the two registries remain equal.
+and ``truncate_ckpt``, the host loaders' ``stall_loader`` (both
+transports) and the shm workers' ``kill_shm_worker`` (worker 0, stepped
+by its completed tasks, ``data/shm_ring.py``); the other names stay
+registered so that the two registries remain equal.
 
 The resilience layer (train/resilience.py) is only trustworthy if every
 recovery path is exercised by an *injected* fault, not just unit-tested.

@@ -41,8 +41,13 @@ and erasing draw from a ``torch.Generator`` seeded a batch from
 ``SeedSequence([seed, epoch, batch, tag])``: a batch's draws are a
 function of its position.  The JAX package draws them from ``jax.random``.
 
-The shm ring transport (``data/shm_ring.py``) is not ported; threads carry
-the host side.
+Two host transports (``loader_backend``, :data:`LOADER_BACKENDS`), as the
+JAX factory's: ``thread`` (the default, :class:`HostLoader`) and ``shm``
+(``data/shm_ring.py`` :class:`~.shm_ring.ShmRingLoader`: spawned worker
+processes write each sample into a shared-memory ring of batch slabs; a
+collector thread copies a batch out of its slab and runs the collate's
+tail, :func:`finish_batch`, as the thread backend does).  Both yield the
+same :class:`HostBatch` es, bitwise, and both have ``close()``.
 """
 
 from __future__ import annotations
@@ -71,18 +76,22 @@ from .random_erasing import (EraseBox, apply_random_erasing,
                              draw_random_erasing)
 from .samplers import OrderedShardedSampler, ShardedTrainSampler, \
     epoch_batches
+from .shm_ring import ShmRingLoader
 from .transforms_factory import (transforms_deepfake_eval_v3,
                                  transforms_deepfake_train_passthrough,
                                  transforms_deepfake_train_v3)
 
 __all__ = ["train_batches", "eval_batches", "HostBatch", "HostLoader",
            "LoaderStats", "Prologue", "DeviceLoader", "create_loader",
-           "create_deepfake_loader_v3", "batch_generator"]
+           "create_deepfake_loader_v3", "batch_generator", "finish_batch",
+           "LOADER_BACKENDS"]
 
 _logger = logging.getLogger(__name__)
 
 _JITTER_TAG = 0x6A17           # per-batch generator tags
 _ERASE_TAG = 0xE2A5
+
+LOADER_BACKENDS = ("thread", "shm")
 
 
 def train_batches(n: int, batch_size: int, seed: int,
@@ -210,25 +219,8 @@ class HostLoader:
                                  dtype=torch.uint8,
                                  pin_memory=self.pin_memory)
             np.stack([s[0] for s in samples], out=images.numpy())
-        if self.collate_mixup is not None:
-            mrng = np.random.default_rng(np.random.SeedSequence(
-                [self.seed, self.epoch, bi, 0x77]))
-            arr = images.numpy()
-            mixed, targets = self.collate_mixup(arr, targets, mrng)
-            if mixed is not arr:
-                arr[...] = mixed
-        batch = HostBatch(list(idx), images,
-                          torch.from_numpy(np.ascontiguousarray(targets)))
-        if valid is not None:
-            batch.valid = torch.from_numpy(np.asarray(valid))
-        if self.prepare is not None:
-            batch.params = self.prepare(bi, batch.indices, images,
-                                        self.epoch)
-        if self.pin_memory:
-            batch.targets = batch.targets.pin_memory()
-            if batch.valid is not None:
-                batch.valid = batch.valid.pin_memory()
-        return batch
+        return finish_batch(self, bi, idx, images, targets, valid,
+                            self.epoch)
 
     def __iter__(self) -> Iterator[HostBatch]:
         batches, vms = epoch_batches(self.sampler, self.batch_size,
@@ -289,6 +281,36 @@ class HostLoader:
         finally:
             stop.set()
             thread.join(timeout=30)
+
+    def close(self) -> None:
+        """Nothing to release (the shm backend's ``close`` stops its
+        workers)."""
+
+
+def finish_batch(loader, bi: int, idx, images: torch.Tensor,
+                 targets: np.ndarray, valid, epoch: int) -> HostBatch:
+    """The collate's tail, shared by both host transports: the collate
+    mixup (``[seed, epoch, bi, 0x77]``) blended into ``images`` in place,
+    the :class:`HostBatch`, the prologue's parameters (``loader.prepare``)
+    and the pinned targets and valid mask."""
+    if loader.collate_mixup is not None:
+        mrng = np.random.default_rng(np.random.SeedSequence(
+            [loader.seed, epoch, bi, 0x77]))
+        arr = images.numpy()
+        mixed, targets = loader.collate_mixup(arr, targets, mrng)
+        if mixed is not arr:
+            arr[...] = mixed
+    batch = HostBatch(list(idx), images,
+                      torch.from_numpy(np.ascontiguousarray(targets)))
+    if valid is not None:
+        batch.valid = torch.from_numpy(np.asarray(valid))
+    if loader.prepare is not None:
+        batch.params = loader.prepare(bi, batch.indices, images, epoch)
+    if loader.pin_memory:
+        batch.targets = batch.targets.pin_memory()
+        if batch.valid is not None:
+            batch.valid = batch.valid.pin_memory()
+    return batch
 
 
 class Prologue:
@@ -371,6 +393,11 @@ class DeviceLoader:
 
     def set_epoch(self, epoch: int) -> None:
         self.loader.set_epoch(epoch)
+
+    def close(self) -> None:
+        """Release the host loader's workers and shared memory (the shm
+        backend; a no-op for threads)."""
+        self.loader.close()
 
     def fast_forward(self, start_batch: int) -> None:
         """Resume mid-epoch: the next iteration yields the batches from
@@ -458,9 +485,14 @@ def _build_loader(dataset, transform, batch_size: int, is_training: bool,
                   prefetch_depth: int, img_num: int,
                   spec: Optional[DeviceAugmentSpec], color_jitter, flicker,
                   erasing, dtype: torch.dtype,
-                  num_aug_splits: int = 0) -> DeviceLoader:
+                  num_aug_splits: int = 0, loader_backend: str = "thread",
+                  ring_depth: int = 4,
+                  worker_heartbeat: float = 120.0) -> DeviceLoader:
     """Shared tail of the factories: the AugMix wrap, transform, sampler,
-    host threads, prologue."""
+    host transport (``loader_backend``), prologue."""
+    if loader_backend not in LOADER_BACKENDS:
+        raise ValueError(f"loader_backend must be one of {LOADER_BACKENDS}, "
+                         f"got {loader_backend!r}")
     if is_training and num_aug_splits > 1:
         # clean + (num_aug_splits - 1) AugMix views a sample, for the JSD
         # loss; the views are rows of one batch, which a mixup would blend
@@ -476,11 +508,16 @@ def _build_loader(dataset, transform, batch_size: int, is_training: bool,
     else:
         sampler = OrderedShardedSampler(len(dataset), batch_size=batch_size)
     device = torch.device(device)
-    host = HostLoader(dataset, sampler, batch_size, seed=seed,
-                      num_workers=num_workers, prefetch_depth=prefetch_depth,
-                      collate_mixup=collate_mixup if is_training else None,
-                      valid_mask=not is_training,
-                      pin_memory=device.type == "cuda")
+    kw = dict(seed=seed, num_workers=num_workers,
+              prefetch_depth=prefetch_depth,
+              collate_mixup=collate_mixup if is_training else None,
+              valid_mask=not is_training, pin_memory=device.type == "cuda")
+    if loader_backend == "shm":
+        host: Any = ShmRingLoader(dataset, sampler, batch_size,
+                                  ring_depth=ring_depth,
+                                  heartbeat_timeout=worker_heartbeat, **kw)
+    else:
+        host = HostLoader(dataset, sampler, batch_size, **kw)
     prologue = Prologue(device, img_num, spec, dtype)
     return DeviceLoader(host, device, prologue,
                         color_jitter if is_training else None,
@@ -507,15 +544,19 @@ def create_loader(dataset, batch_size: int, is_training: bool, device,
                   collate_mixup: Optional[FastCollateMixup] = None,
                   seed: int = 42, prefetch_depth: int = 2,
                   dtype: torch.dtype = torch.float32,
-                  num_aug_splits: int = 0) -> DeviceLoader:
+                  num_aug_splits: int = 0, loader_backend: str = "thread",
+                  ring_depth: int = 4,
+                  worker_heartbeat: float = 120.0) -> DeviceLoader:
     """A loader for a dataset that takes no transform (the synthetic one):
     the AugMix views, collate, the host mixup blend, normalize and erase,
-    in ``dtype``."""
+    in ``dtype``; the host transport ``loader_backend`` (``thread`` or
+    ``shm``, with its ``ring_depth`` and ``worker_heartbeat``)."""
     return _build_loader(
         dataset, None, batch_size, is_training, device, collate_mixup, seed,
         num_workers, prefetch_depth, img_num, None, None, 0.0,
         _erasing(re_prob, re_mode, re_count, re_split, re_max,
-                 num_aug_splits), dtype, num_aug_splits)
+                 num_aug_splits), dtype, num_aug_splits, loader_backend,
+        ring_depth, worker_heartbeat)
 
 
 def create_deepfake_loader_v3(
@@ -530,9 +571,12 @@ def create_deepfake_loader_v3(
         device_color_jitter: bool = True, fused_geom: bool = True,
         augment_device: bool = False,
         dtype: torch.dtype = torch.float32,
-        num_aug_splits: int = 0) -> DeviceLoader:
+        num_aug_splits: int = 0, loader_backend: str = "thread",
+        ring_depth: int = 4,
+        worker_heartbeat: float = 120.0) -> DeviceLoader:
     """The clip dataset's loader, ``input_size`` ``(C, H, W)``, batches in
-    the compute ``dtype``; where each train stage runs follows the JAX
+    the compute ``dtype``, the host side on ``loader_backend``'s transport
+    (train and eval alike); where each train stage runs follows the JAX
     factory's decisions one for one:
 
     * ``augment_device``: the passthrough on the host, the whole chain on
@@ -559,11 +603,14 @@ def create_deepfake_loader_v3(
     img_num = max(1, c // 3)
     size = (h, w)
     img_size = h if h == w else size
+    transport = dict(loader_backend=loader_backend, ring_depth=ring_depth,
+                     worker_heartbeat=worker_heartbeat)
     if not is_training:
         return _build_loader(
             dataset, transforms_deepfake_eval_v3(img_size, crop=eval_crop),
             batch_size, False, device, None, seed, num_workers,
-            prefetch_depth, img_num, None, None, 0.0, None, dtype)
+            prefetch_depth, img_num, None, None, 0.0, None, dtype,
+            **transport)
     aug_device = bool(augment_device)
     if aug_device and num_aug_splits > 1:
         # AugMix augments the clip after the host chain's warp; a device
@@ -630,4 +677,4 @@ def create_deepfake_loader_v3(
         num_workers, prefetch_depth, img_num, spec, device_cj,
         device_flicker,
         _erasing(re_prob, re_mode, re_count, re_split, re_max,
-                 num_aug_splits), dtype, num_aug_splits)
+                 num_aug_splits), dtype, num_aug_splits, **transport)

@@ -304,6 +304,18 @@ class PackedDataset(DeepFakeClipDataset):
                     self._mmaps[si] = arr
         return arr
 
+    def __getstate__(self):
+        # shm-ring workers unpickle the dataset in a spawned process: mmaps
+        # and locks do not cross; each process opens its shards lazily
+        d = dict(self.__dict__)
+        d["_mmaps"] = {}
+        d["_open_lock"] = None
+        return d
+
+    def __setstate__(self, d):
+        self.__dict__.update(d)
+        self._open_lock = threading.Lock()
+
     @property
     def packed_hw(self) -> Tuple[int, int]:
         """(H, W) of the stored frames."""

@@ -414,8 +414,10 @@ def forward_flops_per_sample(model, input_shape: Sequence[int]) -> float:
 
 def loader_collector(device_loader, name: str = "train"):
     """Input-pipeline counters/gauges off a ``data.loader.DeviceLoader`` and
-    its host loader: attribute reads only, no locking against the producer
-    (single-writer floats, no torn reads under the GIL)."""
+    its host loader (on the shm transport also its worker respawns, stall
+    sweeps, collect wait, live workers and ring occupancy): attribute reads
+    only, no locking against the producer (single-writer floats, no torn
+    reads under the GIL)."""
 
     def collect() -> Dict[str, Dict[str, float]]:
         st = device_loader.stats
@@ -435,6 +437,16 @@ def loader_collector(device_loader, name: str = "train"):
         }
         g = {f"input_{name}_augment_path_device":
              1.0 if device_loader.prologue.spec is not None else 0.0}
+        if hasattr(host, "ring_depth"):  # the shm transport
+            c[f"input_{name}_worker_respawns_total"] = host.respawn_count
+            c[f"input_{name}_ring_stall_sweeps_total"] = host.stall_sweeps
+            c[f"input_{name}_ring_collect_wait_seconds_total"] = \
+                host.collect_wait_s
+            workers = [p for p in host._workers if p is not None]
+            g[f"input_{name}_workers_alive"] = float(
+                sum(1 for p in workers if p.is_alive()))
+            g[f"input_{name}_ring_occupancy"] = round(
+                min(host.inflight_batches / float(host.ring_depth), 1.0), 4)
         return {"counters": c, "gauges": g}
 
     return collect

@@ -148,6 +148,12 @@ class TrainConfig:
     noise_fake: float = 0.0
     workers: int = 8
     prefetch_depth: int = 2
+    # the host transport: 'thread' (threads of this process) or 'shm'
+    # (spawned worker processes into a shared-memory ring of batch slabs,
+    # data/shm_ring.py), its slabs in flight and its stalled-worker kill (s)
+    loader_backend: str = "thread"
+    ring_depth: int = 4
+    worker_heartbeat: float = 120.0
     color_jitter: float = 0.4
     reprob: float = 0.0
     remode: str = "const"
@@ -270,6 +276,16 @@ def parse_args(argv=None) -> TrainConfig:
     p.add_argument("--noise-fake", type=float, default=d.noise_fake)
     p.add_argument("--workers", type=int, default=d.workers)
     p.add_argument("--prefetch-depth", type=int, default=d.prefetch_depth)
+    p.add_argument("--loader-backend", choices=["thread", "shm"],
+                   default=d.loader_backend,
+                   help="host transport: threads of this process, or "
+                        "spawned workers into a shared-memory ring")
+    p.add_argument("--ring-depth", type=int, default=d.ring_depth,
+                   help="shm: batch slabs in flight (>= 3)")
+    p.add_argument("--worker-heartbeat", type=float,
+                   default=d.worker_heartbeat,
+                   help="shm: seconds a worker may hold a task silently "
+                        "before it is killed and respawned")
     p.add_argument("--color-jitter", type=float, default=d.color_jitter)
     p.add_argument("--reprob", type=float, default=d.reprob)
     p.add_argument("--remode", default=d.remode)
@@ -366,6 +382,9 @@ def parse_args(argv=None) -> TrainConfig:
     if ns["augment_device"] == "on" and ns["host_color_jitter"]:
         raise ValueError("--augment-device on leaves no host transform "
                          "stage for --host-color-jitter to run in — pick one")
+    if ns["ring_depth"] < 3:
+        raise ValueError("--ring-depth must be >= 3 (double buffering "
+                         f"needs one spare slab), got {ns['ring_depth']}")
     if not 0 <= ns["metrics_port"] <= 65535:
         raise ValueError(f"--metrics-port must be in [0, 65535], got "
                          f"{ns['metrics_port']}")
@@ -506,7 +525,10 @@ def build_loaders(cfg: TrainConfig, device, train_ds, eval_ds
                  re_max=cfg.remax)
     common = dict(num_workers=cfg.workers, seed=cfg.seed,
                   prefetch_depth=cfg.prefetch_depth,
-                  dtype=_DTYPES[cfg.compute_dtype])
+                  dtype=_DTYPES[cfg.compute_dtype],
+                  loader_backend=cfg.loader_backend,
+                  ring_depth=cfg.ring_depth,
+                  worker_heartbeat=cfg.worker_heartbeat)
     if cfg.dataset == "synthetic":
         img_num = max(1, c // 3)
         return (create_loader(train_ds, cfg.batch_size, True, device,
@@ -733,6 +755,11 @@ def main(cfg: TrainConfig) -> Dict[str, Any]:
             telemetry.event("preempted", epoch=e.epoch, batch=e.batch_idx,
                             signum=e.signum)
     finally:
+        # the shm transport owns worker processes and a shared-memory
+        # segment: release them on every exit path (threads: a no-op),
+        # before the newest snapshot's write is flushed
+        run.train_loader.close()
+        run.eval_loader.close()
         wait_pending_saves()
         if profiler is not None:
             profiler.close()            # stops a live trace, restores SIGUSR2

@@ -7,7 +7,8 @@ fresh interpreter, against the exit-code contract, as the JAX package's
 
 * SIGTERM mid-epoch → exit 75 with a synchronous recovery snapshot →
   ``--auto-resume`` → the final params, BN stats, optimizer state and EMA
-  bitwise those of an uninterrupted run;
+  bitwise those of an uninterrupted run; the same on ``--loader-backend
+  shm`` (both runs), bitwise the uninterrupted run on the thread transport;
 * a NaN-batch burst → guarded skips, then a rewind to the last snapshot
   that replays the span clean → completes bitwise as uninterrupted;
 * a wedged loader → the stall watchdog's exit 85 with a stack dump;
@@ -65,6 +66,7 @@ _BASE = ["--model", "efficientnet_deepfake_v4", "--model-version", "v4",
          "--recovery-interval", "2", "--experiment", "run"]
 AMP = ["--amp"]
 F32 = ["--compute-dtype", "float32"]
+SHM = ["--loader-backend", "shm"]
 
 
 def _start(args, chaos=""):
@@ -117,6 +119,9 @@ FIRST = {"ref_bf16": (AMP, [], ""), "ref_f32": (F32, [], ""),
          # snapshot recovery-0-4 beside the interval's recovery-0-3
          "preempt_bf16": (AMP, [], "sigterm@5"),
          "preempt_f32": (F32, [], "sigterm@3"),
+         # the shm transport: its batches are the thread transport's, so
+         # the resumed run lands on the thread reference
+         "preempt_shm": (AMP, SHM, "sigterm@5"),
          # batches 3, 4, 5 poisoned: the guard skips each, and the third
          # bad step in a row (read at the drain after batch 5, before that
          # batch's snapshot) rewinds to recovery-0-2, from where the span
@@ -137,13 +142,13 @@ def tree(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def first(tree, tmp_path_factory):
-    """{case: (CompletedProcess, its run directory)}, four runs at a time
+    """{case: (CompletedProcess, its run directory)}, five runs at a time
     (one thread each: the suite's other workers share the cores)."""
     root = tmp_path_factory.mktemp("first")
     out, names = {}, list(FIRST)
-    for i in range(0, len(names), 4):
+    for i in range(0, len(names), 5):
         procs = {}
-        for name in names[i:i + 4]:
+        for name in names[i:i + 5]:
             dtype, extra, chaos = FIRST[name]
             procs[name] = _start(_BASE + dtype + extra + [
                 "--data", tree, "--output", str(root / name)], chaos)
@@ -163,12 +168,12 @@ def reference(first):
     return out
 
 
-def _resume(run_dir, tmp_path, tree, dtype=AMP):
+def _resume(run_dir, tmp_path, tree, dtype=AMP, extra=()):
     """Relaunch a copy of ``run_dir`` with the fault cleared."""
     out = tmp_path / "out"
     shutil.copytree(run_dir, out / "run")
-    r = _finish(_start(_BASE + dtype + ["--data", tree, "--output",
-                                        str(out)]))
+    r = _finish(_start(_BASE + dtype + list(extra) + [
+        "--data", tree, "--output", str(out)]))
     _ok(r)
     return r.stdout + r.stderr, out / "run"
 
@@ -198,6 +203,15 @@ def test_f32_sigterm_then_auto_resume_is_bitwise_uninterrupted(
     assert "Auto-resumed from" in log and "recovery-0-2" in log
     _assert_bitwise(_state(run / "checkpoint-0.pth.tar"), reference["f32"],
                     "f32 preempt + auto-resume")
+
+
+def test_shm_sigterm_then_auto_resume_is_bitwise_the_thread_run(
+        first, reference, tree, tmp_path):
+    run = _preempted(first, "preempt_shm", "recovery-0-4.pth.tar")
+    log, run = _resume(run, tmp_path, tree, AMP, SHM)
+    assert "Auto-resumed from" in log and "recovery-0-4" in log
+    _assert_bitwise(_state(run / "checkpoint-0.pth.tar"), reference["bf16"],
+                    "shm preempt + auto-resume against the thread run")
 
 
 def test_torn_snapshot_falls_back_to_the_previous_one(first, reference,

@@ -41,6 +41,7 @@ from deepfake_detection_tpu_torch.losses import cross_entropy
 from deepfake_detection_tpu_torch.models import create_model
 from deepfake_detection_tpu_torch.obs import (EventLog, ProfilerCapture,
                                               TrainTelemetry, flops_buckets,
+                                              loader_collector,
                                               peak_flops, read_records,
                                               resilience_collector,
                                               start_metrics_server)
@@ -165,6 +166,48 @@ def test_flags_at_the_jax_defaults_and_checked():
     for bad in (["--metrics-port", "70000"], ["--profile-capture", "-1"]):
         with pytest.raises(ValueError):
             runner.parse_args(bad)
+
+
+SHM_COUNTERS = ("input_train_worker_respawns_total",
+                "input_train_ring_stall_sweeps_total",
+                "input_train_ring_collect_wait_seconds_total")
+SHM_GAUGES = ("input_train_workers_alive", "input_train_ring_occupancy")
+
+
+def test_shm_counters_and_gauges():
+    """The JAX collector's shm metric names, read only off a host loader
+    with a ``ring_depth``: respawns, stall sweeps and collect wait, the
+    live workers and the ring's occupancy."""
+    from deepfake_detection_tpu_torch.data.dataset import SyntheticDataset
+    from deepfake_detection_tpu_torch.data.loader import create_loader
+    loaders = {b: create_loader(SyntheticDataset(16, (16, 16, 12)), 4, True,
+                                "cpu", img_num=4, num_workers=2,
+                                loader_backend=b)
+               for b in ("thread", "shm")}
+    try:
+        thread = loader_collector(loaders["thread"])()
+        assert not set(SHM_COUNTERS) & set(thread["counters"])
+        assert not set(SHM_GAUGES) & set(thread["gauges"])
+        shm = loaders["shm"]
+        shm.set_epoch(0)
+        it = iter(shm)
+        next(it)
+        live = loader_collector(shm)()
+        assert live["gauges"]["input_train_workers_alive"] == 2.0
+        assert 0.0 <= live["gauges"]["input_train_ring_occupancy"] <= 1.0
+        assert sum(1 for _ in it) == 3
+        got = loader_collector(shm)()
+        c, g = got["counters"], got["gauges"]
+        assert c["input_train_worker_respawns_total"] == 0
+        assert c["input_train_ring_stall_sweeps_total"] == 0
+        assert c["input_train_ring_collect_wait_seconds_total"] > 0.0
+        assert c["input_train_batches_total"] == 4
+        assert g["input_train_ring_occupancy"] == 0.0     # epoch drained
+        shm.close()
+        assert loader_collector(shm)()["gauges"][
+            "input_train_workers_alive"] == 0.0
+    finally:
+        loaders["shm"].close()
 
 
 def test_metrics_endpoint_scrape_and_healthz():

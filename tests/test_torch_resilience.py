@@ -19,7 +19,9 @@ it has a counterpart).
 * the loader's ``fast_forward``: the tail of an epoch after it is bitwise
   the tail of the whole epoch (images, labels, soft targets), with the
   thread workers, erasing, jitter, flicker, the warp and mixup on, from a
-  clip tree and from its pack.
+  clip tree and from its pack; on ``--loader-backend shm`` the tail is
+  bitwise the thread transport's, and a ``kill_shm_worker`` run recovers
+  to the thread transport's batches.
 """
 
 import os
@@ -335,3 +337,69 @@ def test_fast_forward_tail_is_bitwise_the_whole_epochs(ff_tree, source,
     # the next set_epoch clears it: a whole epoch again
     loader.set_epoch(epoch)
     assert len(list(loader)) == len(whole)
+
+
+def _epoch_list(loader, epoch, start=0, deadline=60.0):
+    """``list(loader)`` of ``epoch`` from batch ``start``, on a thread
+    joined within ``deadline`` seconds (the shm transport spawns
+    workers)."""
+    out = []
+
+    def run():
+        loader.set_epoch(epoch)
+        loader.fast_forward(start)
+        out.extend(loader)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(deadline)
+    assert not t.is_alive(), f"no epoch within {deadline:.0f} s"
+    return out
+
+
+def _runner_loader(root, backend, *extra):
+    cfg = runner.parse_args(FF_ARGS + ["--data", root, "--compute-dtype",
+                                       "float32", "--loader-backend",
+                                       backend, *extra])
+    return runner.build_loaders(cfg, torch.device("cpu"),
+                                *runner.build_datasets(cfg))[0]
+
+
+def _same_batches(got, want):
+    assert len(got) == len(want) > 0
+    for (xa, ya), (xb, yb) in zip(got, want):
+        assert torch.equal(xa, xb) and torch.equal(ya, yb)
+
+
+def test_shm_tail_is_bitwise_the_thread_tail(ff_tree):
+    """``--loader-backend shm`` resumed mid-epoch: the tail is bitwise the
+    thread transport's whole epoch from that batch."""
+    root, _ = ff_tree
+    whole = _epoch_list(_runner_loader(root, "thread"), 1)
+    shm = _runner_loader(root, "shm")
+    try:
+        start = len(whole) - 2
+        _same_batches(_epoch_list(shm, 1, start), whole[start:])
+    finally:
+        shm.close()
+
+
+def test_kill_shm_worker_recovers_to_the_same_batches(ff_tree, monkeypatch):
+    """``DFD_CHAOS=kill_shm_worker@2``: the one worker dies after its
+    second task, mid-epoch, holding the task it had just taken but not yet
+    published; the collector respawns it (without the spec), the lost-ack
+    sweep re-dispatches that task (after 5 s: ``--worker-heartbeat 8``),
+    and the epoch is bitwise the thread transport's (3 threads: a batch is
+    the same for any worker count)."""
+    root, _ = ff_tree
+    want = _epoch_list(_runner_loader(root, "thread"), 0)
+    monkeypatch.setenv(chaos.CHAOS_ENV_VAR, "kill_shm_worker@2")
+    hurt = _runner_loader(root, "shm", "--workers", "1",
+                          "--worker-heartbeat", "8")
+    try:
+        _same_batches(_epoch_list(hurt, 0), want)
+        assert hurt.loader.respawn_count >= 1
+        assert hurt.loader.stall_sweeps >= 1
+        assert os.environ[chaos.CHAOS_ENV_VAR] == "kill_shm_worker@2"
+    finally:
+        hurt.close()

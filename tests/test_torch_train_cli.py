@@ -160,6 +160,21 @@ def test_train_sh_data_flags_parse_into_the_config(flag, field, value):
     assert getattr(runner.parse_args(ARGS + flag), field) == value
 
 
+def test_loader_backend_flags_parse_and_ring_depth_2_is_refused():
+    cfg = runner.parse_args(ARGS)
+    assert (cfg.loader_backend, cfg.ring_depth, cfg.worker_heartbeat) == \
+        ("thread", 4, 120.0)
+    cfg = runner.parse_args(ARGS + ["--loader-backend", "shm",
+                                    "--ring-depth", "3",
+                                    "--worker-heartbeat", "30"])
+    assert (cfg.loader_backend, cfg.ring_depth, cfg.worker_heartbeat) == \
+        ("shm", 3, 30.0)
+    with pytest.raises(ValueError, match="--ring-depth must be >= 3"):
+        runner.parse_args(ARGS + ["--ring-depth", "2"])
+    with pytest.raises(SystemExit):
+        runner.parse_args(ARGS + ["--loader-backend", "fork"])
+
+
 def _train_sh_argv(script):
     """The runner's argument list in ``scripts/<script>`` as written, and
     the script's text."""
