@@ -391,6 +391,18 @@ class DeviceLoader:
         self.stats = LoaderStats()
         host.prepare = self.prepare
 
+    @property
+    def mixup_enabled(self) -> bool:
+        """Whether the collate mixup blends (``--mixup-off-epoch`` turns it
+        off, as the JAX loader's property)."""
+        cm = self.loader.collate_mixup
+        return bool(cm is not None and cm.mixup_enabled)
+
+    @mixup_enabled.setter
+    def mixup_enabled(self, on: bool) -> None:
+        if self.loader.collate_mixup is not None:
+            self.loader.collate_mixup.mixup_enabled = on
+
     def set_epoch(self, epoch: int) -> None:
         self.loader.set_epoch(epoch)
 

@@ -8,6 +8,11 @@ state dict, or a dict holding ``state_dict`` and optionally
 strict: a missing, unexpected or mis-shaped key raises.  JAX (flax msgpack)
 checkpoints come across through :func:`convert.state_dict_from_flax`.
 
+:func:`load_initial_checkpoint` is the JAX runner's ``--initial-checkpoint``
+load: non-strict (a missing or mis-shaped key keeps its fresh value,
+loudly), an error when nothing applies, and for a split-BN model
+:func:`expand_split_bn` first.
+
 :func:`set_compute_dtype` is the JAX ``build_model``'s ``dtype=``: the
 modules that cast (``ops.conv.Conv2d``, a transformer's patch embedding
 among them, ``ops.linear.Linear`` and ``ops.norm.LayerNorm``) compute in
@@ -18,14 +23,16 @@ from __future__ import annotations
 
 import logging
 import os
-from typing import Dict, Optional
+import re
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 _logger = logging.getLogger(__name__)
 
-__all__ = ["load_state_dict", "load_checkpoint", "set_compute_dtype"]
+__all__ = ["load_state_dict", "load_checkpoint", "expand_split_bn",
+           "load_initial_checkpoint", "set_compute_dtype"]
 
 
 def load_state_dict(checkpoint_path: str,
@@ -63,6 +70,67 @@ def load_checkpoint(model: nn.Module, checkpoint_path: str,
             f"{[(k, tuple(sd[k].shape), tuple(own[k].shape)) for k in mismatched[:5]]}")
     model.load_state_dict(sd, strict=True)
     return model
+
+
+_AUX_BN = re.compile(r"^(.*)\.aux_bn\.\d+\.([^.]+)$")
+
+
+def expand_split_bn(loaded: Dict[str, torch.Tensor],
+                    model_keys: Iterable[str]) -> Dict[str, torch.Tensor]:
+    """A plain-BN checkpoint adapted to a split-BN model, as the JAX
+    ``expand_split_bn``: every ``<name>.aux_bn.<i>.<leaf>`` of the model
+    that the checkpoint lacks takes the checkpoint's ``<name>.<leaf>``,
+    which is a plain BN's tensor or, in a split-BN checkpoint with fewer
+    splits, its main BN's (the port's main BN is ``<name>`` itself).
+    Other keys pass through."""
+    out = dict(loaded)
+    for k in model_keys:
+        m = _AUX_BN.match(k)
+        if m is None or k in loaded:
+            continue
+        src = f"{m.group(1)}.{m.group(2)}"
+        if src in loaded:
+            out[k] = loaded[src]
+    return out
+
+
+def load_initial_checkpoint(model: nn.Module, checkpoint_path: str,
+                            split_bn: bool = False
+                            ) -> Tuple[int, int, int, int]:
+    """``--initial-checkpoint``: the file's tensors into ``model`` where
+    the key and shape match, fresh values elsewhere; with ``split_bn`` the
+    checkpoint's BNs fan out to the aux BNs first.  Returns ``(applied,
+    total, dropped, missing)``: keys loaded, keys of the model, keys whose
+    shape differs (dropped with a warning) and keys absent from the file.
+    Raises ``ValueError`` when nothing applies (a fine-tune from scratch
+    by mistake is worse than failing)."""
+    own = model.state_dict()
+    loaded = load_state_dict(checkpoint_path)
+    if split_bn:
+        loaded = expand_split_bn(loaded, own)
+    merged, dropped, hits = {}, 0, 0
+    for k, v in own.items():
+        lv = loaded.get(k)
+        if lv is None:
+            continue
+        hits += 1
+        if tuple(lv.shape) == tuple(v.shape):
+            merged[k] = lv
+        else:
+            _logger.warning("shape mismatch at %s: checkpoint %s vs model "
+                            "%s; dropped", k, tuple(lv.shape),
+                            tuple(v.shape))
+            dropped += 1
+    applied = hits - dropped
+    if applied == 0:
+        raise ValueError(f"--initial-checkpoint {checkpoint_path} matches "
+                         f"no parameter of the model; wrong architecture?")
+    model.load_state_dict(merged, strict=False)
+    _logger.info("Loaded initial checkpoint %s: %d/%d leaves applied (%d "
+                 "shape-mismatched, %d missing keep their fresh init)",
+                 checkpoint_path, applied, len(own), dropped,
+                 len(own) - hits)
+    return applied, len(own), dropped, len(own) - hits
 
 
 def set_compute_dtype(model: nn.Module,

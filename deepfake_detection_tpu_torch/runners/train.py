@@ -50,6 +50,18 @@ their kernels; eval reads the main BN alone.  The flagship's line::
     ... scripts/train.sh's flags ... --mixup 0 --aug-splits 3 --jsd \
         --split-bn
 
+Beyond train.sh's line, the JAX runner's optimization flags: ``--grad-accum
+N`` (the loader's batch is ``-b × N``, split strided into N microbatches
+that accumulate into one optimizer step, the lr scaled by N), every
+optimizer of the JAX factory (``--opt``, with ``--opt-eps``,
+``--momentum``, ``--weight-decay``; ``optim/factory.py``), the schedule's
+``--warmup-epochs``, ``--warmup-lr``, ``--lr-noise*``, ``--lr-cycle-*``
+and ``--mixup-off-epoch``, and ``--initial-checkpoint`` (a port or timm
+state dict, non-strict, fanned out to the aux BNs under ``--split-bn``).
+Validation reports ``auc`` (P(real) ranked over the epoch) beside loss and
+top-1, ``--eval-metric auc`` picks the best checkpoint by it, and each
+epoch appends a row to the run directory's ``summary.csv``.
+
 Compute follows the JAX runner's policy: the model computes in
 ``--compute-dtype`` (default ``bfloat16``, as the JAX config's) when
 ``--amp`` is set or that dtype is not ``float32``, so only
@@ -107,6 +119,7 @@ from ..losses import create_loss_fn, cross_entropy
 from ..models import (create_deepfake_model, create_deepfake_model_v3,
                       create_deepfake_model_v4, create_model)
 from ..models.factory import default_cfg, resolve_device
+from ..models.helpers import load_initial_checkpoint
 from ..optim.factory import create_optimizer
 from ..scheduler.factory import create_scheduler
 from ..train.checkpoint import (CheckpointCorrupt, CheckpointSaver,
@@ -117,6 +130,7 @@ from ..train.resilience import (EXIT_PREEMPTED, Preempted, Resilience,
 from ..train.state import TrainState, create_train_state, set_learning_rate
 from ..train.steps import make_eval_step, make_train_step
 from ..train.trainer import train_one_epoch, validate
+from ..utils.summary import update_summary
 
 _logger = logging.getLogger("train")
 
@@ -135,9 +149,9 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 class TrainConfig:
     """The ported subset of the JAX package's ``TrainConfig``, with its
     defaults.
-    Fields without a flag in :func:`parse_args` (num_classes, drop,
-    optimizer and schedule constants, the EMA decay) keep the reference's
-    defaults; the optimizer and schedule factories read them."""
+    Fields without a flag in :func:`parse_args` (num_classes, drop, the
+    EMA decay, the schedule's cooldown, patience and floor) keep the
+    reference's defaults."""
     data: str = ""
     eval_data: str = ""
     dataset: str = "deepfake_v3"
@@ -183,6 +197,9 @@ class TrainConfig:
     bn_eps: Optional[float] = None
     input_size_v2: Optional[Tuple[int, int, int]] = None
     batch_size: int = 3
+    # microbatches accumulated into one optimizer step (the loader's batch
+    # is batch_size × grad_accum, the eval batch is not multiplied)
+    grad_accum: int = 1
     opt: str = "rmsproptf"
     opt_eps: float = 1e-8
     momentum: float = 0.9
@@ -197,14 +214,22 @@ class TrainConfig:
     warmup_epochs: int = 0
     cooldown_epochs: int = 10
     patience_epochs: int = 10
+    lr_noise: Optional[Tuple[float, ...]] = None
+    lr_noise_pct: float = 0.67
+    lr_noise_std: float = 1.0
+    # accepted and unused, as in the JAX factory (t_mul 1, one cycle)
+    lr_cycle_mul: float = 1.0
+    lr_cycle_limit: int = 1
     min_lr: float = 1e-5
     clip_grad: Optional[float] = None
     mixup: float = 0.0
+    mixup_off_epoch: int = 0
     smoothing: float = 0.1
     model_ema: bool = False
     model_ema_decay: float = 0.9998
     amp: bool = False
     compute_dtype: str = "bfloat16"
+    initial_checkpoint: str = ""
     resume: str = ""
     no_resume_opt: bool = False
     start_epoch: Optional[int] = None
@@ -231,7 +256,9 @@ class TrainConfig:
     profile_capture: int = 20
 
     def resolved_lr(self, world_size: int = 1) -> float:
-        """Linear LR scaling: ``batch × world × basic_lr`` unless ``lr``."""
+        """Linear LR scaling: ``batch × world × basic_lr`` unless ``lr``;
+        the runner passes ``grad_accum`` as the world, as the JAX runner
+        scales by dp × grad_accum."""
         if self.lr is not None:
             return self.lr
         return self.batch_size * world_size * self.basic_lr
@@ -246,6 +273,10 @@ class TrainConfig:
 
 def _ints(s: str) -> Tuple[int, ...]:
     return tuple(int(v) for v in s.split(","))
+
+
+def _floats(s: str) -> Tuple[float, ...]:
+    return tuple(float(v) for v in s.split(","))
 
 
 def model_dtype(cfg: TrainConfig) -> Optional[torch.dtype]:
@@ -320,21 +351,46 @@ def parse_args(argv=None) -> TrainConfig:
     p.add_argument("--bn-momentum", type=float, default=d.bn_momentum)
     p.add_argument("--input-size-v2", type=_ints, default=d.input_size_v2)
     p.add_argument("-b", "--batch-size", type=int, default=d.batch_size)
-    p.add_argument("--opt", default=d.opt)
+    p.add_argument("--grad-accum", type=int, default=d.grad_accum,
+                   help="microbatches of -b accumulated into one optimizer "
+                        "step")
+    p.add_argument("--opt", default=d.opt,
+                   help="sgd, adam, adamw, nadam, radam, adadelta, rmsprop, "
+                        "rmsproptf, novograd, nvnovograd, lamb; a "
+                        "lookahead_ prefix; fused* aliases")
+    p.add_argument("--opt-eps", type=float, default=d.opt_eps)
+    p.add_argument("--momentum", type=float, default=d.momentum)
+    p.add_argument("--weight-decay", type=float, default=d.weight_decay)
     p.add_argument("--lr", type=float, default=d.lr)
     p.add_argument("--basic-lr", type=float, default=d.basic_lr)
     p.add_argument("--sched", default=d.sched)
     p.add_argument("--epochs", type=int, default=d.epochs)
     p.add_argument("--decay-epochs", type=float, default=d.decay_epochs)
     p.add_argument("--decay-rate", type=float, default=d.decay_rate)
+    p.add_argument("--warmup-lr", type=float, default=d.warmup_lr)
+    p.add_argument("--warmup-epochs", type=int, default=d.warmup_epochs,
+                   help="epochs of linear warmup from --warmup-lr; epoch 0 "
+                        "trains at the full lr, as in the JAX runner")
+    p.add_argument("--lr-noise", type=_floats, default=d.lr_noise,
+                   help="noise range as fractions of the epochs, "
+                        "','-separated")
+    p.add_argument("--lr-noise-pct", type=float, default=d.lr_noise_pct)
+    p.add_argument("--lr-noise-std", type=float, default=d.lr_noise_std)
+    p.add_argument("--lr-cycle-mul", type=float, default=d.lr_cycle_mul)
+    p.add_argument("--lr-cycle-limit", type=int, default=d.lr_cycle_limit)
     p.add_argument("--clip-grad", type=float, default=d.clip_grad)
     p.add_argument("--mixup", type=float, default=d.mixup)
+    p.add_argument("--mixup-off-epoch", type=int, default=d.mixup_off_epoch,
+                   help="turn the mixup off from this epoch (0: never)")
     p.add_argument("--smoothing", type=float, default=d.smoothing)
     p.add_argument("--model-ema", action="store_true")
     p.add_argument("--amp", action="store_true",
                    help="compute in --compute-dtype (the JAX runner's rule)")
     p.add_argument("--compute-dtype", choices=sorted(_DTYPES),
                    default=d.compute_dtype)
+    p.add_argument("--initial-checkpoint", default=d.initial_checkpoint,
+                   help="start from this port/timm state dict (non-strict; "
+                        "plain BNs fan out to --split-bn's aux BNs)")
     p.add_argument("--resume", default=d.resume,
                    help="seed the run from this checkpoint")
     p.add_argument("--no-resume-opt", action="store_true")
@@ -359,7 +415,7 @@ def parse_args(argv=None) -> TrainConfig:
                    help="seconds without a step before exit 85 (0: off)")
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--log-interval", type=int, default=d.log_interval)
-    p.add_argument("--eval-metric", choices=["loss", "prec1"],
+    p.add_argument("--eval-metric", choices=["loss", "prec1", "auc"],
                    default=d.eval_metric)
     p.add_argument("--output", default=d.output)
     p.add_argument("--experiment", default=d.experiment)
@@ -382,6 +438,9 @@ def parse_args(argv=None) -> TrainConfig:
     if ns["augment_device"] == "on" and ns["host_color_jitter"]:
         raise ValueError("--augment-device on leaves no host transform "
                          "stage for --host-color-jitter to run in — pick one")
+    if ns["grad_accum"] < 1:
+        raise ValueError(f"--grad-accum must be >= 1, got "
+                         f"{ns['grad_accum']}")
     if ns["ring_depth"] < 3:
         raise ValueError("--ring-depth must be >= 3 (double buffering "
                          f"needs one spare slab), got {ns['ring_depth']}")
@@ -442,7 +501,13 @@ def build_model(cfg: TrainConfig, device) -> torch.nn.Module:
 
 
 def setup(cfg: TrainConfig) -> Run:
-    """Model, state, steps, loaders and schedule for ``cfg``."""
+    """Model, state, steps, loaders and schedule for ``cfg``.  The lr is
+    scaled by ``grad_accum`` (the optimizer step sees batch × grad_accum
+    samples).  As in the JAX runner, the optimizer starts at that full lr
+    and the schedule writes its lr only at the end of an epoch (or at a
+    resume's start), so with ``--warmup-epochs`` epoch 0 trains at the full
+    lr and the warmup shows from epoch 1; ROADMAP's JAX-fault list records
+    the choice."""
     device = resolve_device(cfg.device)
     if device.type == "cuda":
         # f32 parity: cuDNN convolutions would otherwise run in TF32
@@ -451,7 +516,14 @@ def setup(cfg: TrainConfig) -> Run:
     model = build_model(cfg, device)
     _logger.info("Model %s created, param count: %d", cfg.model,
                  sum(p.numel() for p in model.parameters()))
-    lr = cfg.resolved_lr(world_size=1)
+    if cfg.initial_checkpoint:
+        # before the optimizer and the EMA copy the weights
+        load_initial_checkpoint(model, cfg.initial_checkpoint,
+                                split_bn=cfg.split_bn)
+    if cfg.lr_cycle_mul != 1.0 or cfg.lr_cycle_limit != 1:
+        _logger.warning("--lr-cycle-mul/--lr-cycle-limit are accepted and "
+                        "unused, as in the JAX scheduler factory")
+    lr = cfg.resolved_lr(world_size=cfg.grad_accum)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     state = create_train_state(model, create_optimizer(cfg, model, lr),
                                with_ema=cfg.model_ema,
@@ -462,7 +534,8 @@ def setup(cfg: TrainConfig) -> Run:
                                               *build_datasets(cfg))
     train_step = make_train_step(
         create_loss_fn(cfg), clip_grad=cfg.clip_grad,
-        nonfinite_guard=cfg.guard_nonfinite == "skip", generator=generator)
+        nonfinite_guard=cfg.guard_nonfinite == "skip", generator=generator,
+        grad_accum=cfg.grad_accum)
     return Run(cfg, device, state, train_step,
                make_eval_step(cross_entropy),
                make_eval_step(cross_entropy, use_ema=True)
@@ -516,8 +589,10 @@ def build_loaders(cfg: TrainConfig, device, train_ds, eval_ds
     runner passes), or, for the
     synthetic set, collate, host mixup, normalize and erase; the train
     set's AugMix views under ``--aug-splits``; batches in the compute
-    dtype (the JAX runner's loader dtype)."""
+    dtype (the JAX runner's loader dtype).  The train batch is
+    ``batch_size × grad_accum``; the eval batch ``2 × batch_size``."""
     c, h, w = cfg.input_size()
+    batch = cfg.batch_size * cfg.grad_accum
     mixup = FastCollateMixup(cfg.mixup, cfg.smoothing, cfg.num_classes) \
         if cfg.mixup > 0 else None
     erase = dict(re_prob=cfg.reprob, re_mode=cfg.remode,
@@ -531,13 +606,13 @@ def build_loaders(cfg: TrainConfig, device, train_ds, eval_ds
                   worker_heartbeat=cfg.worker_heartbeat)
     if cfg.dataset == "synthetic":
         img_num = max(1, c // 3)
-        return (create_loader(train_ds, cfg.batch_size, True, device,
+        return (create_loader(train_ds, batch, True, device,
                               img_num=img_num, collate_mixup=mixup, **erase,
                               num_aug_splits=cfg.aug_splits, **common),
                 create_loader(eval_ds, cfg.batch_size * 2, False, device,
                               img_num=img_num, **common))
     return (create_deepfake_loader_v3(
-                train_ds, (c, h, w), cfg.batch_size, is_training=True,
+                train_ds, (c, h, w), batch, is_training=True,
                 device=device, color_jitter=cfg.color_jitter,
                 collate_mixup=mixup, flicker=cfg.flicker,
                 rotate_range=cfg.rotate_range, blur_radius=1,
@@ -610,7 +685,8 @@ def _observe(cfg: TrainConfig, run: Run, output_dir: str, resilience):
         flops_per_sample=forward_flops_per_sample(run.state.model,
                                                   (1, c, h, w)),
         peak_flops=peak_flops(run.device),
-        meta=dict(model=cfg.model, global_batch=cfg.batch_size))
+        meta=dict(model=cfg.model,
+                  global_batch=cfg.batch_size * cfg.grad_accum))
     telemetry.register_collector(loader_collector(run.train_loader))
     telemetry.register_collector(resilience_collector(resilience))
     server = start_metrics_server(telemetry, port=cfg.metrics_port) \
@@ -677,7 +753,8 @@ def main(cfg: TrainConfig) -> Dict[str, Any]:
     if telemetry is not None:
         telemetry.event("run_start", model=cfg.model, epochs=run.num_epochs,
                         start_epoch=start_epoch,
-                        global_batch=cfg.batch_size, world_size=1,
+                        global_batch=cfg.batch_size * cfg.grad_accum,
+                        world_size=1,
                         mesh_shape=[1, 1], axis_names=["batch", "model"],
                         device=str(run.device))
         if resumed_from:
@@ -738,6 +815,13 @@ def main(cfg: TrainConfig) -> Dict[str, Any]:
                 if run.lr_scheduler is not None:
                     set_learning_rate(state, run.lr_scheduler.step(
                         epoch + 1, eval_metrics[cfg.eval_metric]))
+                # the header only when the file is new: a resumed run
+                # appends to its own summary
+                csv_path = os.path.join(output_dir, "summary.csv")
+                update_summary(epoch, {k: v for k, v in train_metrics.items()
+                                       if k != "step_s"}, eval_metrics,
+                               csv_path, os.path.join(output_dir, "plots"),
+                               write_header=not os.path.exists(csv_path))
                 best_metric, best_epoch = saver.save_checkpoint(
                     state, args, epoch, metric=eval_metrics[cfg.eval_metric])
                 if telemetry is not None:

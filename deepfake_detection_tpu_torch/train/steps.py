@@ -2,11 +2,12 @@
 
 Counterparts of ``make_train_step`` / ``make_eval_step`` in
 ``deepfake_detection_tpu/train/steps.py`` without a mesh: one device.  A
-step is forward in train mode → loss and top-1 → backward → gradient
-clipping by global norm → optimizer step → EMA update, in place on the
-:class:`TrainState`.  Metrics come back as device tensors; nothing in a step
-reads a value back to the host, so the host can queue the next step while
-the card runs this one.
+step is forward in train mode → loss and top-1 → backward (once a
+microbatch under gradient accumulation) → gradient clipping by global
+norm → optimizer step → EMA update, in place on the :class:`TrainState`.
+Metrics come back as device tensors; nothing in a step reads a value back
+to the host, so the host can queue the next step while the card runs this
+one.
 
 ``nonfinite_guard`` keeps a bad step from touching the state: the step
 copies every tensor it may change (parameters, BN running stats, which the
@@ -38,18 +39,38 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
+def _microbatches(t: torch.Tensor, n: int) -> List[torch.Tensor]:
+    """The JAX step's strided split: row ``j`` of microbatch ``i`` is row
+    ``j·n + i`` of ``t``.  A split-major AugMix batch (each split a
+    multiple of ``n`` rows) stays split-major in every microbatch.  4-D
+    tensors keep channels_last memory."""
+    if t.shape[0] % n:
+        raise ValueError(f"batch {t.shape[0]} is not {n} microbatches")
+    fmt = torch.channels_last if t.dim() == 4 else torch.contiguous_format
+    return [t[i::n].contiguous(memory_format=fmt) for i in range(n)]
+
+
 def make_train_step(loss_fn: Callable = cross_entropy,
                     clip_grad: Optional[float] = None,
                     nonfinite_guard: bool = False,
-                    generator: Optional[torch.Generator] = None
-                    ) -> Callable:
+                    generator: Optional[torch.Generator] = None,
+                    grad_accum: int = 1) -> Callable:
     """Build ``train_step(state, x, y) -> metrics``.
 
     ``x`` is an NCHW batch (channels_last memory), ``y`` int labels or soft
     targets.  ``metrics`` holds device scalars ``loss`` and ``prec1``, and
     with the guard ``nonfinite`` and ``gnorm`` (the clipped gradients'
-    norm).  ``generator`` drives drop_path/dropout.  Gradient accumulation
-    is not ported (ROADMAP Queue 1 item 6)."""
+    norm).  ``generator`` drives drop_path/dropout.
+
+    ``grad_accum`` > 1 is the JAX step's gradient accumulation: the batch
+    splits strided into ``grad_accum`` microbatches, each a forward and a
+    backward in train mode (BN running stats carried from one to the next,
+    drop-path draws continuing from ``generator``), the gradients summed
+    in ``.grad`` and scaled by ``1/grad_accum``, loss and top-1 averaged;
+    then one clip, one optimizer step, one EMA update and one guard
+    decision, the guard's copy taken once a step."""
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
     def step(state: TrainState, x: torch.Tensor,
              y: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -58,14 +79,28 @@ def make_train_step(loss_fn: Callable = cross_entropy,
         if nonfinite_guard:
             flats = state.flat_buffers()
             saved = {dtype: f.clone() for dtype, f in flats.items()}
-        logits = model(x, generator)
-        loss = loss_fn(logits, y)
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        if grad_accum == 1:
+            parts = [(x, y)]
+        else:
+            parts = list(zip(_microbatches(x, grad_accum),
+                             _microbatches(y, grad_accum)))
+        loss = prec1 = None
+        for xi, yi in parts:
+            logits = model(xi, generator)
+            li = loss_fn(logits, yi)
+            li.backward()
+            with torch.no_grad():
+                pi = accuracy(logits.detach(), yi)
+                loss = li.detach() if loss is None else loss + li.detach()
+                prec1 = pi if prec1 is None else prec1 + pi
         with torch.no_grad():
-            loss = loss.detach()
-            metrics = {"loss": loss, "prec1": accuracy(logits.detach(), y)}
             grads = [p.grad for p in model.parameters() if p.grad is not None]
+            if grad_accum > 1:
+                inv = 1.0 / grad_accum
+                loss, prec1 = loss * inv, prec1 * inv
+                torch._foreach_mul_(grads, inv)
+            metrics = {"loss": loss, "prec1": prec1}
             if clip_grad:
                 scale = torch.clamp(clip_grad / (global_norm(grads) + 1e-6),
                                     max=1.0)

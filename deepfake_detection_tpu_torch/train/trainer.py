@@ -38,7 +38,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..utils.metrics import AverageMeter
+from ..utils.metrics import AverageMeter, auc
 from .checkpoint import wait_pending_saves
 from .resilience import Preempted
 from .state import TrainState, get_learning_rate, set_learning_rate
@@ -61,7 +61,12 @@ def train_one_epoch(epoch: int, train_step: Callable, state: TrainState,
     ``start_batch`` > 0 resumes mid-epoch: the caller has fast-forwarded
     the loader to it, and the loop continues the absolute batch index and
     update count.  ``saver`` (a ``CheckpointSaver``) and ``args`` (the
-    run's config dict) are what recovery snapshots need."""
+    run's config dict) are what recovery snapshots need.  From epoch
+    ``cfg.mixup_off_epoch`` on (when set) the loader's mixup is off."""
+    off = getattr(cfg, "mixup_off_epoch", 0)
+    if getattr(cfg, "mixup", 0) > 0 and hasattr(loader, "mixup_enabled") \
+            and off and epoch >= off:
+        loader.mixup_enabled = False
     batch_time_m, data_time_m = AverageMeter(), AverageMeter()
     losses_m, prec1_m = AverageMeter(), AverageMeter()
     num_batches = len(loader)
@@ -207,12 +212,16 @@ def validate(eval_step: Callable, state: TrainState, loader, cfg,
              log_suffix: str = "", resilience=None
              ) -> "OrderedDict[str, float]":
     """Full pass over the eval loader, exact thanks to its validity mask;
-    returns the average ``loss`` and ``prec1`` over valid samples.
-    ``resilience`` keeps the stall watchdog fed (an eval batch is a
-    beat)."""
+    returns the average ``loss`` and ``prec1`` over valid samples and, for
+    a two-class model, ``auc``: P(real) (labels are 0 = fake, 1 = real)
+    ranked over the valid rows of the whole epoch, the scores kept on the
+    device and read back once after the loop.  ``resilience`` keeps the
+    stall watchdog fed (an eval batch is a beat)."""
     batch_time_m = AverageMeter()
     losses_m, prec1_m = AverageMeter(), AverageMeter()
+    all_scores, all_labels, all_valid = [], [], []
     num_batches = len(loader)
+    log_name = "Test" + log_suffix
     end = time.perf_counter()
     for batch_idx, batch in enumerate(loader):
         x, y = batch[0], batch[1]
@@ -222,14 +231,25 @@ def validate(eval_step: Callable, state: TrainState, loader, cfg,
         if n > 0:
             losses_m.update(float(metrics["loss"]), n)
             prec1_m.update(float(metrics["prec1"]), n)
+        logits = metrics.get("logits")
+        if logits is not None and logits.shape[-1] == 2:
+            all_scores.append(torch.softmax(logits, dim=-1)[:, 1].float())
+            all_labels.append(y.reshape(-1))
+            all_valid.append(torch.ones_like(all_scores[-1])
+                             if valid is None else valid.reshape(-1))
         batch_time_m.update(time.perf_counter() - end)
         if resilience is not None:
             resilience.heartbeat(f"eval batch {batch_idx}/{num_batches}")
         if batch_idx == num_batches - 1 or batch_idx % cfg.log_interval == 0:
-            _logger.info("Test%s: [%4d/%d] Time:%.3f(%.3f) Loss:%.4f(%.4f) "
-                         "Prec@1:%7.4f(%7.4f)", log_suffix, batch_idx,
+            _logger.info("%s: [%4d/%d] Time:%.3f(%.3f) Loss:%.4f(%.4f) "
+                         "Prec@1:%7.4f(%7.4f)", log_name, batch_idx,
                          num_batches, batch_time_m.val, batch_time_m.avg,
                          losses_m.val, losses_m.avg, prec1_m.val,
                          prec1_m.avg)
         end = time.perf_counter()
-    return OrderedDict([("loss", losses_m.avg), ("prec1", prec1_m.avg)])
+    out = OrderedDict([("loss", losses_m.avg), ("prec1", prec1_m.avg)])
+    if all_scores:
+        out["auc"] = auc(torch.cat(all_scores), torch.cat(all_labels),
+                         torch.cat(all_valid))
+        _logger.info("%s: AUC %.5f", log_name, out["auc"])
+    return out

@@ -1,7 +1,7 @@
 """Metrics.
 
-Counterpart of ``AverageMeter``, ``LatencyHistogram``, ``accuracy`` and
-``masked_mean`` in ``deepfake_detection_tpu/utils/metrics.py``;
+Counterpart of ``AverageMeter``, ``LatencyHistogram``, ``accuracy``,
+``auc`` and ``masked_mean`` in ``deepfake_detection_tpu/utils/metrics.py``;
 ``LatencyHistogram`` lives in :mod:`.prometheus`, as there.  ``accuracy`` and
 ``masked_mean`` return device tensors, so the train step reads nothing back
 to the host; the trainer drains them at its log interval.
@@ -9,13 +9,15 @@ to the host; the trainer drains them at its log interval.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Union
 
 import torch
 
 from .prometheus import LatencyHistogram
 
-__all__ = ["AverageMeter", "LatencyHistogram", "accuracy", "masked_mean"]
+__all__ = ["AverageMeter", "LatencyHistogram", "accuracy", "auc",
+           "masked_mean"]
 
 
 class AverageMeter:
@@ -57,6 +59,30 @@ def accuracy(output: torch.Tensor, target: torch.Tensor,
         denom = torch.clamp(weight.float().sum(), min=1.0)
     accs = [(correct[:, :k] * w).sum() * 100.0 / denom for k in topk]
     return accs[0] if len(topk) == 1 else accs
+
+
+def auc(scores: torch.Tensor, labels: torch.Tensor,
+        weight: Optional[torch.Tensor] = None) -> float:
+    """ROC AUC by the rank statistic (Mann–Whitney U), ties at their
+    midrank, as the JAX ``auc``: ``scores`` higher for the positive class,
+    ``labels`` in {0, 1}, ``weight`` a validity mask (rows with weight 0
+    are left out).  Computed in float64 on the host."""
+    scores = scores.detach().reshape(-1).to("cpu", torch.float64)
+    labels = labels.detach().reshape(-1).to("cpu")
+    valid = torch.ones_like(scores) if weight is None else \
+        (weight.detach().reshape(-1).to("cpu") > 0).to(torch.float64)
+    s = torch.where(valid > 0, scores, torch.full_like(scores, math.inf))
+    order = torch.argsort(s, stable=True)
+    sorted_s = s[order].contiguous()
+    first = torch.searchsorted(sorted_s, sorted_s, side="left")
+    last = torch.searchsorted(sorted_s, sorted_s, side="right")
+    ranks = torch.empty_like(scores)
+    ranks[order] = (first + last + 1).to(torch.float64) / 2.0
+    pos = (labels > 0).to(torch.float64) * valid
+    neg = (labels == 0).to(torch.float64) * valid
+    n_pos, n_neg = float(pos.sum()), float(neg.sum())
+    u = float((ranks * pos).sum()) - n_pos * (n_pos + 1) / 2.0
+    return u / max(n_pos * n_neg, 1.0)
 
 
 def masked_mean(x: torch.Tensor, weight: Optional[torch.Tensor] = None

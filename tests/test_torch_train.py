@@ -178,8 +178,11 @@ def test_optimizer_factory_masks_weight_decay_and_rejects_unported():
     decayed = {id(p) for g in opt.param_groups if g["weight_decay"]
                for p in g["params"]}
     assert decayed == {id(model.conv), id(model.dense)}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        create_optimizer(_opt_cfg("adamw"), model, 0.1)
+    # every name of the JAX factory is ported; only an unknown one raises
+    create_optimizer(_opt_cfg("adamw"), model, 0.1)
+    for name in ("momentum", "fusedmomentum", "lookahead_adagrad"):
+        with pytest.raises(ValueError, match="Invalid optimizer"):
+            create_optimizer(_opt_cfg(name), model, 0.1)
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,7 @@
 """
 
 import dataclasses
+import types
 import os
 
 import jax
@@ -233,8 +234,29 @@ def test_data_fields_default_as_the_jax_config():
 
 @pytest.mark.parametrize("flag", [["--opt", "adamw"], ["--opt", "nvnovograd"]])
 def test_unported_options_raise_at_setup(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        runner.setup(runner.parse_args(ARGS + flag))
+    """Every optimizer of the JAX factory is ported: these build at setup
+    (their state made at construction), and only a name outside the JAX
+    factory raises."""
+    from deepfake_detection_tpu_torch.optim import Adam, NvNovoGrad
+    run = runner.setup(runner.parse_args(ARGS + flag))
+    try:
+        assert isinstance(run.state.optimizer,
+                          {"adamw": Adam, "nvnovograd": NvNovoGrad}[flag[1]])
+        assert all("count" in run.state.optimizer.state[p]
+                   for p in run.state.model.parameters())
+    finally:
+        run.train_loader.close()
+        run.eval_loader.close()
+    with pytest.raises(ValueError, match="Invalid optimizer"):
+        runner.setup(runner.parse_args(ARGS + [flag[0], flag[1] + "x"]))
+
+
+#: flags of the JAX runner ported with this slice's optimization extras,
+#: and the fields they set
+_PORTED_FLAGS = {"--opt-eps": "opt_eps", "--momentum": "momentum",
+                 "--weight-decay": "weight_decay", "--warmup-lr": "warmup_lr",
+                 "--warmup-epochs": "warmup_epochs",
+                 "--grad-accum": "grad_accum"}
 
 
 @pytest.mark.parametrize("flag", [
@@ -243,9 +265,14 @@ def test_unported_options_raise_at_setup(flag):
     "--cooldown-epochs", "--patience-epochs", "--min-lr", "--model-ema-decay",
     "--grad-accum"])
 def test_flags_outside_the_train_sh_subset_are_argparse_errors(flag):
-    """The JAX runner's flags that ``scripts/train.sh`` does not set have no
-    flag in the port (their TrainConfig fields keep the reference's
-    defaults), so a value for one is refused, not silently run untested."""
+    """The JAX runner's flags that the port has not ported have no flag
+    (their TrainConfig fields keep the reference's defaults), so a value
+    for one is refused, not silently run untested; the optimization flags
+    ported beside ``--grad-accum`` parse into their fields."""
+    if flag in _PORTED_FLAGS:
+        cfg = runner.parse_args(ARGS + [flag, "2"])
+        assert getattr(cfg, _PORTED_FLAGS[flag]) == 2
+        return
     with pytest.raises(SystemExit):
         runner.parse_args(ARGS + [flag, "2"])
 
@@ -424,3 +451,263 @@ def test_runner_from_a_clip_tree_matches_jax(tree_run, after):
         _close_change(got[k], w, init[k], k, after)
         moved += bool(np.any(w != init[k]))
     assert moved > 100
+
+
+# ---------------------------------------------------------------------------
+# validation AUC, summary.csv, the schedule flags, --mixup-off-epoch and
+# --initial-checkpoint, against the JAX package
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,ties,masked", [(9, True, False), (64, True, True),
+                                           (257, False, True),
+                                           (40, False, False)])
+def test_auc_matches_jax_with_ties_and_masks(n, ties, masked):
+    from deepfake_detection_tpu.utils.metrics import auc as j_auc
+    from deepfake_detection_tpu_torch.utils.metrics import auc
+    rng = np.random.default_rng(n)
+    scores = rng.random(n).astype(np.float32)
+    if ties:
+        scores = np.round(scores, 1)            # many equal scores
+    labels = rng.integers(0, 2, n)
+    valid = (rng.random(n) > 0.3).astype(np.float32) if masked else None
+    want = float(j_auc(jnp.asarray(scores), jnp.asarray(labels),
+                       None if valid is None else jnp.asarray(valid)))
+    got = auc(torch.from_numpy(scores), torch.from_numpy(labels),
+              None if valid is None else torch.from_numpy(valid))
+    assert abs(got - want) <= 1e-6, (got, want)
+    # a masked row's score does not matter
+    if masked:
+        moved = scores.copy()
+        moved[valid == 0] = rng.random(int((valid == 0).sum()))
+        assert auc(torch.from_numpy(moved), torch.from_numpy(labels),
+                   torch.from_numpy(valid)) == got
+
+
+def test_validate_reports_auc_of_p_real_over_the_valid_rows():
+    """``validate`` ranks P(real) = softmax[:, 1] over the epoch's valid
+    rows, as the JAX ``validate``; a 3-class model reports no auc."""
+    from deepfake_detection_tpu.utils.metrics import auc as j_auc
+    from deepfake_detection_tpu_torch.train.trainer import validate
+    rng = np.random.default_rng(4)
+    batches, all_logits, all_y, all_v = [], [], [], []
+    for b in range(3):
+        logits = rng.standard_normal((4, 2)).astype(np.float32)
+        y = rng.integers(0, 2, 4)
+        v = np.array([1, 1, 1, b < 2], np.float32)
+        batches.append((torch.from_numpy(logits), torch.from_numpy(y),
+                        torch.from_numpy(v)))
+        all_logits.append(logits)
+        all_y.append(y)
+        all_v.append(v)
+
+    def eval_step(state, x, y, valid):
+        return {"loss": torch.tensor(0.5), "prec1": torch.tensor(50.0),
+                "count": valid.sum(), "logits": x}
+
+    cfg = types.SimpleNamespace(log_interval=10)
+    out = validate(eval_step, None, batches, cfg)
+    p_real = jax.nn.softmax(jnp.asarray(np.concatenate(all_logits)))[:, 1]
+    want = float(j_auc(p_real, jnp.asarray(np.concatenate(all_y)),
+                       jnp.asarray(np.concatenate(all_v))))
+    assert abs(out["auc"] - want) <= 1e-6
+    three = [(torch.randn(4, 3), y, v) for _, y, v in batches]
+    assert "auc" not in validate(eval_step, None, three, cfg)
+
+
+def test_summary_csv_over_two_epochs_and_a_resume_is_the_jax_writers(
+        tmp_path):
+    """Two epochs of the port's runner, then a relaunch to a third with
+    ``--auto-resume``: ``summary.csv`` holds one header and three rows
+    (``epoch``, ``train_*`` without the step times, ``eval_*`` with
+    ``auc``), byte for byte what the JAX runner's ``update_summary`` calls
+    write for the same metrics."""
+    import csv
+    from deepfake_detection_tpu.utils.summary import \
+        update_summary as j_update
+    argv = ARGS + ["--eval-metric", "auc", "--auto-resume",
+                   "--recovery-interval", "4", "--experiment", "run",
+                   "--output", str(tmp_path / "out")]
+    first = runner.launch_main(argv + ["--epochs", "2"])
+    assert set(first["eval"]) == {"loss", "prec1", "auc"}
+    runner.launch_main(argv + ["--epochs", "3"])
+    path = tmp_path / "out" / "run" / "summary.csv"
+    text = path.read_text()
+    with open(path) as f:
+        rows = list(csv.DictReader(f))
+    assert [r["epoch"] for r in rows] == ["0", "1", "2"]
+    assert text.count("epoch,") == 1
+    assert list(rows[0]) == ["epoch", "train_loss", "train_prec1",
+                             "train_learning_rate", "train_nonfinite",
+                             "eval_loss", "eval_prec1", "eval_auc"]
+    assert all(0.0 <= float(r["eval_auc"]) <= 1.0 for r in rows)
+    # the JAX writer, fed the same rows as the JAX runner feeds it
+    jpath = tmp_path / "jax.csv"
+
+    def typed(v):
+        return int(v) if v.lstrip("-").isdigit() else float(v)
+    for r in rows:
+        train = {k[len("train_"):]: typed(v) for k, v in r.items()
+                 if k.startswith("train_")}
+        ev = {k[len("eval_"):]: typed(v) for k, v in r.items()
+              if k.startswith("eval_")}
+        j_update(int(r["epoch"]), train, ev, str(jpath), None,
+                 write_header=not jpath.exists())
+    assert jpath.read_text() == text
+
+
+def test_schedule_flags_parse_and_match_the_jax_factory():
+    """``--warmup-epochs``, ``--warmup-lr``, ``--lr-noise*``,
+    ``--lr-cycle-*``: the port's schedule against the JAX factory's for
+    the same fields, epoch by epoch, and the warmup decision: the
+    optimizer starts at the full lr (epoch 0), as in the JAX runner."""
+    from deepfake_detection_tpu.scheduler.factory import \
+        create_scheduler as j_sched
+    from deepfake_detection_tpu_torch.scheduler.factory import \
+        create_scheduler
+    flags = ["--warmup-epochs", "3", "--warmup-lr", "1e-4", "--lr-noise",
+             "0.2,0.7", "--lr-noise-pct", "0.5", "--lr-noise-std", "0.8",
+             "--lr-cycle-mul", "2", "--lr-cycle-limit", "3",
+             "--mixup-off-epoch", "4", "--epochs", "10"]
+    cfg = runner.parse_args(ARGS + flags)
+    assert (cfg.warmup_epochs, cfg.warmup_lr, cfg.lr_noise, cfg.lr_noise_pct,
+            cfg.lr_noise_std, cfg.lr_cycle_mul, cfg.lr_cycle_limit,
+            cfg.mixup_off_epoch) == (3, 1e-4, (0.2, 0.7), 0.5, 0.8, 2.0, 3, 4)
+    for sched in ("step", "cosine", "tanh", "plateau"):
+        c = dataclasses.replace(cfg, sched=sched)
+        jc = j_config.TrainConfig(**{
+            f.name: getattr(c, f.name) for f in dataclasses.fields(c)
+            if hasattr(j_config.TrainConfig, f.name)})
+        a, na = create_scheduler(c, base_lr=0.05)
+        b, nb = j_sched(jc, base_lr=0.05)
+        assert na == nb, sched
+        for epoch in range(1, na + 1):
+            assert a.step(epoch, 0.5) == b.step(epoch, 0.5), (sched, epoch)
+    run = runner.setup(cfg)
+    try:
+        assert run.state.optimizer.param_groups[0]["lr"] == cfg.lr
+        assert run.lr_scheduler.step(1) == pytest.approx(
+            1e-4 + (cfg.lr - 1e-4) / 3, rel=1e-12)
+    finally:
+        run.train_loader.close()
+        run.eval_loader.close()
+
+
+def test_mixup_off_epoch_turns_the_loaders_mixup_off():
+    from deepfake_detection_tpu_torch.train.trainer import train_one_epoch
+    run = runner.setup(runner.parse_args(ARGS))
+    try:
+        loader = run.train_loader
+        assert loader.mixup_enabled
+        loader.mixup_enabled = False
+        assert not loader.loader.collate_mixup.mixup_enabled
+        loader.mixup_enabled = True
+    finally:
+        run.train_loader.close()
+        run.eval_loader.close()
+
+    class _Empty:
+        mixup_enabled = True
+
+        def __len__(self):
+            return 0
+
+        def __iter__(self):
+            return iter(())
+
+    for epoch, off, want in [(1, 2, True), (2, 2, False), (5, 0, True)]:
+        empty = _Empty()
+        cfg = types.SimpleNamespace(mixup=0.1, mixup_off_epoch=off,
+                                    log_interval=1, recovery_interval=0)
+        train_one_epoch(epoch, None, types.SimpleNamespace(
+            optimizer=types.SimpleNamespace(param_groups=[{"lr": 0.1}])),
+            empty, cfg)
+        assert empty.mixup_enabled is want, (epoch, off)
+
+
+SPLIT_KW = dict(num_classes=2, in_chans=12, channel_multiplier=0.25,
+                depth_multiplier=0.1)
+
+
+def _jax_tree(norm_layer, seed):
+    from deepfake_detection_tpu.models import create_model as j_create
+    jm = j_create("efficientnet_deepfake_v4", norm_layer=norm_layer,
+                  **SPLIT_KW)
+    v = j_init_model(jm, jax.random.PRNGKey(seed), (6, 32, 32, 12),
+                     training=True)
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(lambda a: (np.asarray(a, np.float32)
+                                   + rng.standard_normal(a.shape)
+                                   .astype(np.float32) * 0.1), v)
+
+
+@pytest.mark.parametrize("src", ["batchnorm", "split2"])
+def test_initial_checkpoint_expands_split_bn_as_jax(src, tmp_path):
+    """A plain-BN checkpoint, and a split2 one, into a split3 model: the
+    port's ``--initial-checkpoint`` load equals the JAX runner's
+    ``expand_split_bn`` + ``filter_shape_mismatch`` on the same trees,
+    tensor for tensor, every ``aux_bn.<i>`` a copy of its source BN."""
+    from deepfake_detection_tpu.models.helpers import (
+        expand_split_bn as j_expand, filter_shape_mismatch as j_filter)
+    from deepfake_detection_tpu_torch.models.helpers import \
+        load_initial_checkpoint
+    ckpt_tree = _jax_tree("" if src == "batchnorm" else src, 1)
+    init_tree = _jax_tree("split3", 2)
+    merged, dropped = j_filter(init_tree, j_expand(ckpt_tree, init_tree))
+    assert dropped == 0
+    want = state_dict_from_flax(_np_tree_cli(merged))
+    path = tmp_path / "init.pth.tar"
+    torch.save({"state_dict": state_dict_from_flax(ckpt_tree)}, path)
+    model = create_model("efficientnet_deepfake_v4", device="cpu",
+                         norm_layer="split3", **SPLIT_KW)
+    applied, total, n_drop, missing = load_initial_checkpoint(
+        model, str(path), split_bn=True)
+    got = model.state_dict()
+    assert (applied, n_drop, missing) == (total, 0, 0)
+    floats = [k for k in want if not k.endswith("num_batches_tracked")]
+    assert len(floats) > 100
+    for k in floats:
+        assert torch.equal(got[k], want[k]), k
+    aux = [k for k in floats if ".aux_bn." in k]
+    assert aux
+    for k in aux:
+        base, leaf = k.split(".aux_bn.")[0], k.rsplit(".", 1)[1]
+        src_key = f"{base}.{leaf}"
+        if src == "split2" and ".aux_bn.0." in k:
+            src_key = k                          # the checkpoint's own aux
+        assert torch.equal(got[k], state_dict_from_flax(ckpt_tree)[src_key])
+
+
+def _np_tree_cli(tree):
+    return jax.tree.map(lambda a: np.array(a, np.float32), tree)
+
+
+def test_initial_checkpoint_runner_flag_drops_mismatches_and_refuses_junk(
+        tmp_path):
+    """Through the runner: a checkpoint of the same model with another head
+    (3 classes) loads all but the classifier, which keeps its fresh init;
+    a checkpoint that matches nothing raises."""
+    other = create_model("efficientnet_b0", device="cpu", num_classes=3,
+                         in_chans=3)
+    path = tmp_path / "head3.pth.tar"
+    torch.save({"state_dict": other.state_dict()}, path)
+    run = runner.setup(runner.parse_args(ARGS + ["--initial-checkpoint",
+                                                 str(path)]))
+    try:
+        sd, src = run.state.model.state_dict(), other.state_dict()
+        kept = [k for k in sd if k.startswith("classifier")]
+        assert kept and all(sd[k].shape != src[k].shape for k in kept)
+        for k in sd:
+            if k not in kept:
+                assert torch.equal(sd[k], src[k]), k
+        # the optimizer starts from the loaded weights (lookahead's and
+        # the EMA's copies too)
+        ema = run.state.ema.module.state_dict()
+        assert torch.equal(ema["conv_stem.weight"], src["conv_stem.weight"])
+    finally:
+        run.train_loader.close()
+        run.eval_loader.close()
+    junk = tmp_path / "junk.pth.tar"
+    torch.save({"state_dict": {"nothing.weight": torch.zeros(2)}}, junk)
+    with pytest.raises(ValueError, match="matches no parameter"):
+        runner.setup(runner.parse_args(ARGS + ["--initial-checkpoint",
+                                               str(junk)]))
