@@ -262,6 +262,27 @@ before the result line:
    ``train_data`` beside the f32 phase's; ``train_data``, ``train_jpeg``,
    ``train_amp`` and ``resume`` pass ``--augment-device on`` (the device
    chain they measured before the host chain became the default);
+16e. ``train_tf_b7ns``: train.sh's whole argument list (``--amp``,
+   batch 3, ``--augment-device on`` as 16) on the same tree, but
+   ``--model tf_efficientnet_b7_ns --model-version ""`` at 12×600², full
+   width and depth: TF SAME padding in every stage, asymmetric at the stem
+   (600 → 300, pads (0, 1)) and at the strided dw stages (300 → 150 k3
+   (0, 1), 150 → 75 k5 (1, 2), 38 → 19 k5 (1, 2)), checked on the model;
+   1 warm, 3 timed and 1 profiled step, 55/55/55 bf16 launches of the
+   depthwise forward, dx and dw-gradient kernels a step and 55 forwards an
+   eval batch of one validation, each counted alone; ms a step, host wait,
+   busy and idle share, peak memory beside ``train_amp``'s;
+16f. ``efficientnet_family``: one constructor of each EfficientNet-family
+   path (``FAMILY``: TF SAME, MixNet, CondConv, EdgeTPU, MnasNet, FBNet,
+   SPNAS, MobileNetV2, MobileNetV3 and its minimal ``tf_`` variant) and
+   ``tf_efficientnet_b0`` with ``--gp catavgmax``, ``mobilenetv3_large_100``
+   with ``--gp max``, as the trainer builds them (12 channels, 2 classes),
+   f32 at 12×224², batch 2, BN calibrated on the card: eval P(fake) and
+   logits card against a CPU copy within ``SCORE_TOL``, and the depthwise
+   forward launched once for each single-kernel dw stage of the arch
+   (counted from its block configs), nothing else; then one train step of
+   ``tf_efficientnet_b0`` card against CPU by phase 19's f32 gates (SAME
+   through the forward, dx and dw-gradient kernels) and its NaN batch;
 16a. ``train_host``: ``scripts/train_torch.sh``'s command line as it stands
    (``--augment-device off``, the default: the host chain) on the same
    tree, the flagship cut to 10 blocks, ``HOST_TRAIN_STEPS`` steps and 3
@@ -330,7 +351,7 @@ before the result line:
    ``train_data``'s, its trace naming the three flash kernels 12 times a
    step each;
 19. card against CPU: one guarded train step of the full flagship at
-   12×224², batch 2, and of the full TimeSformer at 12×300², batch 2, from
+   12×224², batch 2, and of the full TimeSformer at 12×300², batch 1, from
    the same weights on the card and on the CPU (loss, every parameter's
    update, BN running stats); then a NaN batch through each card step must
    leave the whole state bitwise unchanged; then the bf16 steps: the full
@@ -345,7 +366,7 @@ before the result line:
    fail it; and a NaN batch through each bf16 card step;
 20. each phase's seconds (a ``seconds`` line as each ends, and all of
    them before the ``kernels`` line), the ``budget`` line (each phase's
-   seconds against its ``PHASE_BUDGET_S``, 800 in all on a host whose
+   seconds against its ``PHASE_BUDGET_S``, 822 in all on a host whose
    ``build`` takes under 28 s; reported, it fails nothing), the
    ``kernels`` line (all six kernels, each with its bf16 status), the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
@@ -411,6 +432,7 @@ from deepfake_detection_tpu_torch.fleet.autoscaler import replay_trace
 from deepfake_detection_tpu_torch.models import (create_deepfake_model_v4,
                                                  create_model)
 from deepfake_detection_tpu_torch.models import efficientnet_blocks as blocks
+from deepfake_detection_tpu_torch.models.efficientnet import fused_dw_stages
 from deepfake_detection_tpu_torch.obs.profiler import TRIGGER_FILENAME as TRIGGER
 from deepfake_detection_tpu_torch.models.helpers import (load_state_dict,
                                                         set_compute_dtype)
@@ -497,6 +519,9 @@ TRAIN_FLAGS = F32 + ["--dataset", "synthetic", "--model", "efficientnet_deepfake
 TSF_MODEL = "timesformer_base_patch25_600"
 TSF_BATCH = 8
 TSF_BLOCKS = 12
+# the TimeSformer's card-vs-CPU gates at batch 1 (2 before a cut for time:
+# its three CPU steps at batch 2 took 28.6 s of that phase's 80.9)
+TSF_GATE_BATCH = 1
 TSF_FLAGS = ["--dataset", "synthetic", "--model", TSF_MODEL,
              "--model-version", "", "--input-size-v2", "12,600,600",
              "--attn-impl", "flash", "-b", str(TSF_BATCH), "--opt",
@@ -889,20 +914,8 @@ def call_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def flagship_dw_shapes(model, size: int) -> Counter:
     """(H in, C, k, stride) of every depthwise stage for a ``size``² input,
-    walked from the model's own blocks."""
-    stem = model.conv_stem
-    t, b, _, _ = explicit_padding(stem.padding, stem.kernel_size, 1,
-                                  stem.stride, size, size)
-    h = (size + t + b - 3) // stem.stride[0] + 1
-    shapes = Counter()
-    for stage in model.blocks:
-        for block in stage:
-            conv = block.conv_dw
-            k, s = conv.kernel_size[0], conv.stride[0]
-            shapes[(h, conv.weight.shape[0], k, s)] += 1
-            pads = explicit_padding(block.pad_type, (k, k), 1, s, h, h)
-            h = dw.output_size(h, h, k, s, pads)[0]
-    return shapes
+    walked from the model's own blocks (``dw_stage_pads``)."""
+    return Counter(stage[:4] for stage in dw_stage_pads(model, size))
 
 
 def _case(shape, k, dtype, seed, identity=False):
@@ -1507,10 +1520,11 @@ SERVE_BUCKETS = (1, 4, 16)        # the JAX default's first three
 SERVE_BIG_BUCKET = 64             # the JAX default's largest, captured alone
 SERVE_TOL = 1e-6                  # P(fake), server against the card CLI
 SERVE_CLIENTS = (1, 32)           # the 8-client level cut for time
-SERVE_LOAD_S = 2.0                # short: the script runs within 1,200 s
+SERVE_LOAD_S = 1.5                # short: the script runs within 1,200 s
 SERVE_WATCHDOG_S = 5.0
-SERVE_ADD_LOAD_S = 4.0            # load while a model is added (8 before
-                                  # the cut for time; the add takes ~2 s)
+SERVE_ADD_LOAD_S = 3.0            # load while a model is added (8, then 4,
+                                  # before the cuts for time; the add
+                                  # takes ~2 s)
 STUDENT = "student=efficientnet_deepfake_v4"    # at half the canvas
 # the CLI's eager numbers these stand beside (PERF.md §5, NVIDIA H100 80GB
 # HBM3, 700 W)
@@ -3897,7 +3911,7 @@ def phase_warmstart(ckpt_path: Path, files: list, cli: dict,
     sooner by most of A's build seconds.  C (bucket 1): one stored library
     byte flipped, so one fallback (``payload-hash``) and one nvcc run for
     that source alone, the entry rewritten; it starts on a copy of the
-    store beside B, which starts on the store beside A's backfill worker.
+    store beside B, which starts on the store beside the backfill workers.
     Scores of all three bitwise the card CLI.  A backfill worker in A then
     in B: ``compile``, then ``store``."""
     warm = OUT / "warm"
@@ -3912,9 +3926,9 @@ def phase_warmstart(ckpt_path: Path, files: list, cli: dict,
                               cli)}
     _warm_check("A", trees["A"], sources)
     # tree C on a copy of the store with one library byte flipped, beside
-    # tree B on the store and tree A's backfill worker (whose ready seconds
-    # are reported, not held); B's backfill waits for A's, since it needs
-    # the manifest A's saves
+    # tree B on the store and the backfill workers of trees A then B (their
+    # ready seconds reported, not held); B's backfill waits for A's, since
+    # it needs the manifest A's saves
     store_c = warm / "store_c"
     shutil.copytree(store, store_c)
     flipped = _flip_library(store_c, WARM_FLIP)
@@ -3926,12 +3940,15 @@ def phase_warmstart(ckpt_path: Path, files: list, cli: dict,
         except BaseException as e:                    # noqa: BLE001
             box[key + "_error"] = repr(e)
 
+    def backfill_a_then_b():
+        return {k: _warm_backfill(k, paths[k], store, ckpt_path,
+                                  manifest_path, pack) for k in "AB"}
+
     threads = [threading.Thread(target=beside, args=(
                    "C", _warm_serve, "C", paths["C"], store_c, ckpt_path,
                    files, cli, WARM_BUCKET)),
                threading.Thread(target=beside, args=(
-                   "backfill_A", _warm_backfill, "A", paths["A"], store,
-                   ckpt_path, manifest_path, pack))]
+                   "backfill", backfill_a_then_b))]
     for t in threads:
         t.start()
     try:
@@ -3940,11 +3957,11 @@ def phase_warmstart(ckpt_path: Path, files: list, cli: dict,
     finally:
         for t in threads:
             t.join(timeout=600)
-    if "C" not in box or "backfill_A" not in box:
-        raise AssertionError(f"tree C's server or tree A's backfill worker: "
+    if "C" not in box or "backfill" not in box:
+        raise AssertionError(f"tree C's server or the backfill workers: "
                              f"{box}")
     trees["C"] = box["C"]
-    backfill = {"A": box["backfill_A"]}
+    backfill = box["backfill"]
     _warm_check("B", trees["B"], sources)
     _warm_check("C", trees["C"], sources)
     m = json.loads((store_c / f"{flipped}.json").read_text())
@@ -3952,8 +3969,6 @@ def phase_warmstart(ckpt_path: Path, files: list, cli: dict,
                       ).hexdigest() != m["sha256"]:
         raise AssertionError("tree C did not rewrite the flipped library's "
                              "entry")
-    backfill["B"] = _warm_backfill("B", paths["B"], store, ckpt_path,
-                                   manifest_path, pack)
     for name, t in trees.items():
         emit(phase="warmstart_tree", tree=name,
              **{k: v for k, v in t.items() if k != "capture_launches"},
@@ -6108,6 +6123,205 @@ def phase_card_vs_cpu_bf16(name: str, build, f32: dict, size: int,
     _nan_guard(name, gpu, "bfloat16")
 
 
+# the EfficientNet-family generators: one constructor of each distinct
+# path (TF SAME, MixNet, CondConv, EdgeTPU, MnasNet, FBNet, SPNAS,
+# MobileNetV2, MobileNetV3 and its minimal tf_ variant), as the trainer
+# builds them (12 channels, 2 classes), at 224², batch 2, f32; then one
+# model each with --gp catavgmax and --gp max
+FAMILY = ("tf_efficientnet_b0", "tf_mixnet_l", "tf_efficientnet_cc_b1_8e",
+          "tf_efficientnet_el", "mnasnet_100", "fbnetc_100", "spnasnet_100",
+          "mobilenetv2_100", "mobilenetv3_large_100",
+          "tf_mobilenetv3_small_minimal_100")
+FAMILY_POOLS = (("tf_efficientnet_b0", "catavgmax"),
+                ("mobilenetv3_large_100", "max"))
+FAMILY_SIZE = 224
+FAMILY_BATCH = 2
+FAMILY_CAL_BATCH = 8              # BN calibration: 392 samples a channel
+                                  # at the deepest stage's 7×7
+
+
+def _family_build(name: str, **kw):
+    def build(device: str):
+        return create_model(name, num_classes=2, in_chans=12, device=device,
+                            seed=1, **kw)
+    return build
+
+
+def _family_row(name: str, x: torch.Tensor, x_cal: torch.Tensor,
+                **kw) -> dict:
+    """``name`` calibrated on the card (BN momentum 1.0, one train-mode
+    pass: a fresh model scores 0.5 whatever the device), then its eval
+    P(fake) on the card against a CPU copy's: SCORE_TOL, and its logits
+    within SCORE_TOL of their scale (a calibrated random model's P(fake)
+    often saturates, where the first gate says little); the card's eval
+    forward launches the depthwise forward once for each single-kernel dw
+    stage of the arch (``fused_dw_stages``), and nothing else."""
+    card = _family_build(name, bn_momentum=1.0, **kw)("cuda").train()
+    with torch.no_grad():
+        card(x_cal)
+    card.eval()
+    cpu = copy.deepcopy(card).to("cpu")
+    stages = fused_dw_stages(card.block_configs)
+    _reset_counts()
+    with torch.no_grad():
+        l_card = card(x).cpu()
+    torch.cuda.synchronize()
+    launches = _counts()
+    with torch.no_grad():
+        l_cpu = cpu(x.cpu())
+    p_card, p_cpu = (torch.softmax(v, -1)[:, 0] for v in (l_card, l_cpu))
+    diff = (p_card - p_cpu).abs().max().item()
+    logit_rel = ((l_card - l_cpu).abs().max()
+                 / l_cpu.abs().max().clamp_min(1e-30)).item()
+    row = dict(model=name, **kw, fused_dw_stages=stages,
+               launches=list(launches), f32_launches=_counts("float32")[0],
+               p_fake_card=p_card.tolist(), p_fake_cpu=p_cpu.tolist(),
+               max_p_fake_diff=diff, logit_scale=l_cpu.abs().max().item(),
+               max_logit_rel_diff=logit_rel, params=sum(
+                   p.numel() for p in card.parameters()))
+    if diff > SCORE_TOL or logit_rel > SCORE_TOL \
+            or launches != (stages, 0, 0) \
+            or row["f32_launches"] != stages or not stages:
+        raise AssertionError(f"efficientnet_family {name} {kw}: {row}")
+    return row
+
+
+def phase_efficientnet_family() -> dict:
+    """Each ``FAMILY`` constructor and each ``FAMILY_POOLS`` pool through
+    :func:`_family_row`, then one f32 train step of tf_efficientnet_b0
+    (SAME through the forward, dx and dw-gradient kernels) card against
+    CPU by ``phase_card_vs_cpu``'s gates and its NaN batch."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal(
+        (FAMILY_BATCH, 12, FAMILY_SIZE, FAMILY_SIZE)).astype(np.float32))
+    x_cal = torch.from_numpy(rng.standard_normal(
+        (FAMILY_CAL_BATCH, 12, FAMILY_SIZE, FAMILY_SIZE)).astype(
+            np.float32)).cuda().contiguous(memory_format=torch.channels_last)
+    xd = x.cuda().contiguous(memory_format=torch.channels_last)
+    rows = [_family_row(name, xd, x_cal) for name in FAMILY]
+    rows += [_family_row(name, xd, x_cal, global_pool=gp)
+             for name, gp in FAMILY_POOLS]
+    fwd = sum(r["launches"][0] for r in rows)
+    del x_cal, xd
+    gc.collect()
+    torch.cuda.empty_cache()
+    _reset_counts()
+    phase_card_vs_cpu("tf_efficientnet_b0", _family_build(
+        "tf_efficientnet_b0", bn_momentum=0.1), size=FAMILY_SIZE,
+        batch=FAMILY_BATCH)
+    _PRISTINE.clear()
+    step = _counts("float32")
+    emit(phase="efficientnet_family", nvidia_smi=nvidia_smi_line(),
+         size=FAMILY_SIZE, batch=FAMILY_BATCH, rows=rows,
+         train_step_launches=list(step), tol=dict(p_fake=SCORE_TOL))
+    return dict(forward_launches=fwd + step[0], dx_launches=step[1],
+                dwgrad_launches=step[2])
+
+
+TF_B7NS = "tf_efficientnet_b7_ns"
+TF_B7NS_TIMED = 3                 # timed steps after 1 warm, then 1 profiled
+# the asymmetric TF SAME pads the arch meets at 600²: (H in, k, stride) →
+# (top, bottom); the stem's (k3 s2 at 600) too
+TF_B7NS_PADS = {(300, 3, 2): (0, 1), (150, 5, 2): (1, 2), (38, 5, 2): (1, 2)}
+TF_B7NS_STEM_PADS = (0, 1)
+
+
+def dw_stage_pads(model, size: int) -> list:
+    """(H in, C, k, stride, (top, bottom)) of every depthwise stage for a
+    ``size``² input, walked from the model's own blocks."""
+    stem = model.conv_stem
+    t, b, _, _ = explicit_padding(stem.padding, stem.kernel_size, 1,
+                                  stem.stride, size, size)
+    h = (size + t + b - 3) // stem.stride[0] + 1
+    out = []
+    for stage in model.blocks:
+        for block in stage:
+            conv = block.conv_dw
+            k, s = conv.kernel_size[0], conv.stride[0]
+            pads = explicit_padding(block.pad_type, (k, k), 1, s, h, h)
+            out.append((h, conv.weight.shape[0], k, s, pads[:2]))
+            h = dw.output_size(h, h, k, s, pads)[0]
+    return out
+
+
+def phase_train_tf_b7ns(root: Path, amp: dict) -> dict:
+    """``runners.train`` with train.sh's argument list (``--amp``, batch 3,
+    ``--augment-device on`` as ``train_amp``) from the seeded tree, but
+    ``--model tf_efficientnet_b7_ns --model-version ""`` at 12×600², full
+    width and depth: TF SAME padding in every stage, asymmetric at the
+    strided stages and the stem.  1 warm, ``TF_B7NS_TIMED`` timed and 1
+    profiled step, then one validation; 55/55/55 bf16 launches of the
+    depthwise forward, dx and dw-gradient kernels a step and 55 forwards an
+    eval batch, each counted alone; ms a step, busy and idle share, peak
+    memory beside ``train_amp``'s."""
+    out = OUT / "train_tf_b7ns"
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = train_runner.parse_args(
+        train_sh_flags(root) + AMP_OVERRIDES + [
+            "--model", TF_B7NS, "--model-version", "", "--input-size-v2",
+            "12,600,600", "--recovery-interval", "0", "--no-telemetry",
+            "--output", str(out)])
+    if not (cfg.amp and cfg.model == TF_B7NS and cfg.model_version == ""
+            and train_runner.model_dtype(cfg) == torch.bfloat16):
+        raise AssertionError(f"train_tf_b7ns parsed to {cfg}")
+    smi = nvidia_smi_line()
+    torch.cuda.reset_peak_memory_stats()
+    run = train_runner.setup(cfg)
+    model = run.state.model
+    stages = dw_stage_pads(model, 600)
+    asym = {(h, k, s): p for h, _, k, s, p in stages if p[0] != p[1]}
+    stem = explicit_padding(model.conv_stem.padding, (3, 3), 1, 2, 600,
+                            600)[:2]
+    if fused_dw_stages(model.block_configs) != 55 or len(stages) != 55 \
+            or asym != TF_B7NS_PADS or stem != TF_B7NS_STEM_PADS:
+        raise AssertionError(f"{TF_B7NS}: stages {stages}, stem {stem}")
+    _reset_counts()
+    row = _train_steps(run, cfg, 1 + TF_B7NS_TIMED, "train_tf_b7ns_profile",
+                       1, host_ops=False)
+    steps = 1 + TF_B7NS_TIMED + 1
+    counts, bf = _counts(), _counts("bfloat16")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _reset_counts()
+    metrics = validate(run.eval_step, run.state, run.eval_loader, cfg)
+    torch.cuda.synchronize()
+    eval_batches = len(run.eval_loader)
+    eval_counts = _counts("bfloat16")
+    del run, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(out, ignore_errors=True)
+    want = (55 * steps,) * 3
+    base = amp["numbers"]
+    numbers = dict(
+        ms_per_step=row["ms_per_step"], step_ms=row["step_ms"],
+        host_wait_ms_per_step=row["host_wait_ms_per_step"],
+        idle_share=row["idle_share"], busy_ms_per_step=row["busy_ms_per_step"],
+        peak_mem_gib=peak, loss=row["loss"], eval=dict(metrics),
+        train_amp=dict(ms_per_step=base["ms_per_step"],
+                       idle_share=base["idle_share"],
+                       busy_ms_per_step=base["busy_ms_per_step"],
+                       peak_mem_gib=base["peak_mem_gib"]))
+    emit(phase="train_tf_b7ns", nvidia_smi=smi, model=TF_B7NS,
+         dtype="bfloat16", steps=steps, launches=list(counts),
+         bf16_launches=list(bf), launches_a_step=[c / steps for c in counts],
+         eval_batches=eval_batches, eval_launches=list(eval_counts),
+         asymmetric_pads={f"{h}_k{k}_s{s}": p for (h, k, s), p
+                          in asym.items()}, stem_pads=stem, **numbers)
+    if counts != want or bf != want \
+            or eval_counts != (55 * eval_batches, 0, 0) \
+            or not np.isfinite(row["loss"]).all() \
+            or not np.isfinite(metrics["loss"]):
+        raise AssertionError(f"train_tf_b7ns: launches {counts} ({bf} bf16; "
+                             f"expected {want}), eval {eval_counts} over "
+                             f"{eval_batches} batches, losses {row['loss']},"
+                             f" eval {dict(metrics)}")
+    return dict(forward_launches=counts[0] + eval_counts[0],
+                dx_launches=counts[1], dwgrad_launches=counts[2],
+                numbers=numbers)
+
+
 def _flash_inputs(bh, l, d, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return [torch.randn((bh, l, d), generator=g, device="cuda").to(dtype)
@@ -6760,8 +6974,8 @@ def flash_entries(fl: dict, autograd_err: float, tsf: dict, tsfa: dict,
 
 PHASE_S = {}
 # Each phase's seconds on a normal host (one whose ``build`` takes under
-# 28 s): 800 in all, so that a host 45% slower still ends within the
-# script's 1,200.  Set from the measured phases; serve, warmstart, stream
+# 28 s): 822 in all (800, and 22 for the two EfficientNet-family phases),
+# so that a host 45% slower still ends within the script's 1,200.  Set from the measured phases; serve, warmstart, stream
 # and router are set under what they take, since they must give back the
 # script's last ~40 s.  A slice pays for a phase it adds inside these
 # (ROADMAP "Risks").  The ``budget`` line reports each phase's seconds
@@ -6774,7 +6988,8 @@ PHASE_BUDGET_S = {
     "quant": 46, "backfill": 21, "warmstart": 75, "stream": 61,
     "router": 95, "train": 25, "train_data": 48, "train_amp": 31,
     "train_host": 4, "train_augmix": 7, "train_shm": 28, "train_accum": 30,
-    "resume": 10, "tsf_train": 28, "tsf_train_amp": 16, "card_vs_cpu": 63}
+    "resume": 10, "tsf_train": 28, "tsf_train_amp": 16, "card_vs_cpu": 63,
+    "train_tf_b7ns": 10, "efficientnet_family": 12}
 
 
 def timed(name: str, fn, *args, **kwargs):
@@ -6910,6 +7125,8 @@ def main() -> int:
         "host_wait_ms_per_step", "idle_share")})
     ta = timed("train_amp", phase_train_amp, frame, td["root"],
                td["numbers"])
+    tb7 = timed("train_tf_b7ns", phase_train_tf_b7ns, td["root"], ta)
+    fam = timed("efficientnet_family", phase_efficientnet_family)
     th = timed("train_host", phase_train_host, td["root"], host)
     _reset_counts()
     tam = timed("train_augmix", phase_train_augmix, td["root"], aug)
@@ -6924,8 +7141,9 @@ def main() -> int:
     f32_gate = phase_card_vs_cpu(FLAGSHIP_CUT, _flagship_cut)
     phase_card_vs_cpu_bf16(FLAGSHIP_CUT, _flagship_cut, f32_gate, 224)
     f32_gate = phase_card_vs_cpu(TSF_MODEL, _timesformer(300), size=300,
-                                 batch=2)
-    phase_card_vs_cpu_bf16(TSF_MODEL, _timesformer(300), f32_gate, 300)
+                                 batch=TSF_GATE_BATCH)
+    phase_card_vs_cpu_bf16(TSF_MODEL, _timesformer(300), f32_gate, 300,
+                           TSF_GATE_BATCH)
     del f32_gate
     _PRISTINE.clear()
     PHASE_S["card_vs_cpu"] = time.perf_counter() - t0
@@ -6935,7 +7153,8 @@ def main() -> int:
                 "train_amp": ta, "train_host": th,
                 "train_host_device": th["device"], "train_augmix": tam,
                 "train_shm": tsh, "train_shm_augmix": tsh["augmix"],
-                "train_accum": tac, "resume": rs}
+                "train_accum": tac, "resume": rs, "train_tf_b7ns": tb7,
+                "efficientnet_family": fam}
 
     def by_path(key, **extra):
         out = dict(extra, **{p: r[key] for p, r in dw_paths.items()})
@@ -6955,7 +7174,7 @@ def main() -> int:
     dwg_launches, dwg_paths = by_path("dwgrad_launches")
     amp_paths = ("train_amp", "train_host", "train_host_device",
                  "train_augmix", "train_shm", "train_shm_augmix",
-                 "train_accum", "resume")
+                 "train_accum", "resume", "train_tf_b7ns")
 
     def bf16(key, err, launch_key):
         return dict(

@@ -19,6 +19,13 @@ EfficientNet:
   ``blocks_{s}_{b}.<conv>.conv.kernel`` → ``blocks.{s}.{b}.<conv>.weight``,
   ``blocks_{s}_{b}.se.conv_reduce.conv.bias`` →
   ``blocks.{s}.{b}.se.conv_reduce.bias``, ``bn2.bn.*`` → ``bn2.*``;
+* a MixedConv arm ``blocks_{s}_{b}.<conv>.conv_{i}.conv.kernel`` →
+  ``blocks.{s}.{b}.<conv>.{i}.weight`` (timm's module dict of arms);
+* a CondConv's experts ``blocks_{s}_{b}.<conv>.weight`` ``(E, kh, kw,
+  in/g, out)`` → the same name flat, ``(E, out·in/g·kh·kw)`` (timm's
+  layout), and its router ``routing_fn.kernel`` → ``routing_fn.weight``;
+* the MobileNetV3 head's ``conv_head.conv.bias`` → ``conv_head.bias``, and
+  a ``catavgmax`` classifier's ``(2F, classes)`` kernel as any dense one;
 * a split BN (``--split-bn``) takes timm's ``SplitBatchNorm2d`` layout:
   ``<bn>.main.bn.*`` → ``<bn>.*`` (the main BN under the module's own
   name) and ``<bn>.aux{i}.bn.*`` → ``<bn>.aux_bn.{i}.*``.
@@ -100,7 +107,14 @@ def _map_path(parts: Tuple[str, ...]) -> Tuple[str, bool]:
             return f"{prefix}.se.{parts[2]}.{_W_LEAF[leaf]}", False
         if sub.startswith("bn"):
             return _bn_name(f"{prefix}.{sub}", leaf), True
+        if sub == "routing_fn":
+            return f"{prefix}.routing_fn.{_W_LEAF[leaf]}", False
         if sub.startswith("conv"):
+            arm = parts[2] if len(parts) > 3 else ""
+            if arm.startswith("conv_") and arm[5:].isdigit():
+                return f"{prefix}.{sub}.{arm[5:]}.{_W_LEAF[leaf]}", False
+            if leaf == "weight":                      # CondConv experts
+                return f"{prefix}.{sub}.weight", False
             return f"{prefix}.{sub}.{_W_LEAF[leaf]}", False
     raise KeyError(f"no timm name for flax path {'/'.join(parts)}")
 
@@ -124,6 +138,8 @@ def flax_leaf(name: str) -> str:
 
 
 def _to_torch_layout(v: np.ndarray) -> np.ndarray:
+    if v.ndim == 5:                 # CondConv (E, kh, kw, in/g, out) → flat
+        return np.transpose(v, (0, 4, 3, 1, 2)).reshape(v.shape[0], -1)
     if v.ndim == 4:
         return np.transpose(v, (3, 2, 0, 1))          # HWIO → OIHW
     if v.ndim == 2:

@@ -7,8 +7,11 @@ JAX package returns an architecture and builds parameters separately with
 already made by :func:`init_model`: seeded construction on a device.
 
 The JAX factory's family rules hold: the BN keyword arguments reach only
-the EfficientNet family; ``attn_impl`` is checked against the five impls
-and reaches only ViT and TimeSformer (dropped with a warning elsewhere);
+the EfficientNet and MobileNetV3 families; ``attn_impl`` is checked
+against the five impls and reaches only ViT and TimeSformer (dropped with a
+warning elsewhere); ``drop_block_rate`` is dropped with the JAX warning for
+every family without ``DropBlock2d`` (all the port has); ``global_pool``
+passes through (the TimeSformer refuses any but ``avg``);
 ``drop_connect_rate`` maps onto ``drop_path_rate``.  ``img_size``, which the
 transformers need to size their position embeddings (the JAX modules size
 them from the first input), reaches only them.
@@ -29,7 +32,7 @@ import torch
 import torch.nn as nn
 
 from ..registry import is_model, is_model_in_modules, model_entrypoint
-from . import efficientnet, timesformer, vit
+from . import efficientnet, mobilenetv3, timesformer, vit  # noqa: F401
 from .helpers import load_checkpoint, set_compute_dtype
 
 __all__ = ["resolve_device", "create_model", "create_deepfake_model",
@@ -39,7 +42,9 @@ __all__ = ["resolve_device", "create_model", "create_deepfake_model",
 _logger = logging.getLogger(__name__)
 
 # modules whose generators understand the BN keyword arguments
-_BN_KWARG_MODULES = ("efficientnet",)
+_BN_KWARG_MODULES = ("efficientnet", "mobilenetv3")
+# the JAX families that take drop_block_rate (none is ported)
+_DROP_BLOCK_MODULES = ("resnet", "res2net", "sknet", "gluon_resnet")
 # modules with a pluggable attention kernel (and learned position embeddings)
 _ATTN_MODULES = ("vit", "timesformer")
 # model class → seeded init, and whether its convs run in channels_last
@@ -74,10 +79,14 @@ def init_model(model: nn.Module, seed: int = 0,
 
 def default_cfg(model_name: str) -> Dict[str, Any]:
     """The registered model's ``default_cfg`` (input size, mean, std, ...)
-    without building it; TimeSformer's is for its default 12 channels."""
+    without building it; TimeSformer's is for its default 12 channels.  A
+    name of the EfficientNet or MobileNetV3 modules without an entry in
+    their table takes the generic one, as its model does."""
     for module in (efficientnet, vit, timesformer):
         if model_name in module.default_cfgs:
             return module.default_cfgs[model_name]
+    if is_model_in_modules(model_name, _BN_KWARG_MODULES):
+        return efficientnet._cfg()
     raise KeyError(f"Unknown model {model_name!r}")
 
 
@@ -99,6 +108,14 @@ def _family_kwargs(model_name: str, kwargs: Dict[str, Any]) -> Dict[str, Any]:
                             model_name)
     if not is_model_in_modules(model_name, _ATTN_MODULES):
         kwargs.pop("img_size", None)
+    if not is_model_in_modules(model_name, _DROP_BLOCK_MODULES):
+        v = kwargs.pop("drop_block_rate", None)
+        if v:
+            _logger.warning(
+                "drop_block_rate=%r is only consumed by the %s families; "
+                "ignored for %s (matches the reference factory's pop of "
+                "unsupported drop_block_rate)", v, _DROP_BLOCK_MODULES,
+                model_name)
     if is_model_in_modules(model_name, ("timesformer",)):
         # the JAX TimeSformer takes neither (its runner's build of one
         # fails on them, ROADMAP Queue 3): it has no dropout and pools by

@@ -1,8 +1,9 @@
 """Ops/layers of the PyTorch port (counterpart of ``deepfake_detection_tpu/ops``)."""
 
 from .activations import ACT_FNS, get_act_fn, hard_mish, hard_sigmoid, hard_swish, mish, swish
-from .conv import (Conv2d, conv_kernel_init_goog, create_conv2d,
-                   dense_init_goog, explicit_padding, resolve_padding)
+from .conv import (CondConv2d, Conv2d, MixedConv2d, conv_kernel_init_goog,
+                   create_conv2d, dense_init_goog, explicit_padding,
+                   resolve_padding)
 from .depthwise import (FUSED_DW_ACTS, fused_depthwise,
                         fused_depthwise_reference)
 from .drop import DropPath, drop_path, dropout

@@ -191,8 +191,16 @@ class TrainConfig:
     model: str = "efficientnet_deepfake_v4"
     model_version: str = "v4"
     num_classes: int = 2
+    # the global pool: avg | max | avgmax | catavgmax (a 2× classifier)
+    gp: str = "avg"
     drop: float = 0.0
     drop_path: Optional[float] = None
+    # the JAX factory drops it with a warning for every family the port
+    # has (only its ResNet-style families take DropBlock)
+    drop_block: Optional[float] = None
+    # TF BN defaults (momentum 0.01, eps 1e-3); passed as given, so a tf_
+    # model trains with torch's unless asked, as the JAX runner does
+    bn_tf: bool = False
     bn_momentum: Optional[float] = None
     bn_eps: Optional[float] = None
     input_size_v2: Optional[Tuple[int, int, int]] = None
@@ -292,8 +300,11 @@ def parse_args(argv=None) -> TrainConfig:
     ``--host-geom`` or ``--host-color-jitter`` raises ``ValueError``, as
     the JAX config does."""
     d = TrainConfig()
+    # no abbreviations: an unported flag (--drop, the JAX runner's dropout)
+    # must not parse as a prefix of a ported one (--drop-block)
     p = argparse.ArgumentParser(
-        description="deepfake training (PyTorch port, one card)")
+        description="deepfake training (PyTorch port, one card)",
+        allow_abbrev=False)
     p.add_argument("--data", default=d.data,
                    help="clip root(s), ':'-separated")
     p.add_argument("--eval-data", default=d.eval_data)
@@ -348,6 +359,13 @@ def parse_args(argv=None) -> TrainConfig:
                    default=d.eval_crop)
     p.add_argument("--model", default=d.model)
     p.add_argument("--model-version", default=d.model_version)
+    p.add_argument("--gp", choices=["avg", "max", "avgmax", "catavgmax"],
+                   default=d.gp, help="global pool")
+    p.add_argument("--drop-block", type=float, default=d.drop_block,
+                   help="DropBlock rate (no ported family takes it; "
+                        "dropped with a warning)")
+    p.add_argument("--bn-tf", action="store_true",
+                   help="TF BN defaults (momentum 0.01, eps 1e-3)")
     p.add_argument("--bn-momentum", type=float, default=d.bn_momentum)
     p.add_argument("--input-size-v2", type=_ints, default=d.input_size_v2)
     p.add_argument("-b", "--batch-size", type=int, default=d.batch_size)
@@ -469,10 +487,12 @@ class Run:
 
 
 def build_model(cfg: TrainConfig, device) -> torch.nn.Module:
-    """The model through the factory's family rules: BN arguments reach
-    only EfficientNets, ``attn_impl`` and the input size only the
-    transformers; the compute dtype (:func:`model_dtype`) every family;
-    ``--split-bn`` makes every BN ``split<max(aug_splits, 2)>``."""
+    """The model through the factory's family rules: BN arguments
+    (``--bn-tf`` among them) reach only the EfficientNet and MobileNetV3
+    families, ``attn_impl`` and the input size only the transformers,
+    ``--drop-block`` none (with the JAX warning); ``--gp`` and the compute
+    dtype (:func:`model_dtype`) every family; ``--split-bn`` makes every BN
+    ``split<max(aug_splits, 2)>``."""
     factory = _MODEL_FACTORIES.get(cfg.model_version)
     if factory is None:
         raise ValueError(f"--model-version {cfg.model_version!r}: one of "
@@ -492,10 +512,10 @@ def build_model(cfg: TrainConfig, device) -> torch.nn.Module:
                 f"needs a mesh and token-sharded inputs (not ported: ROADMAP "
                 f"Queue 1 item 13); the CLI supports 'full' and 'flash'")
         kwargs["attn_impl"] = cfg.attn_impl
-    # global_pool: the JAX runner's --gp default
     return factory(cfg.model, num_classes=cfg.num_classes, in_chans=c,
                    drop_rate=cfg.drop, drop_path_rate=cfg.drop_path,
-                   global_pool="avg", bn_momentum=cfg.bn_momentum,
+                   drop_block_rate=cfg.drop_block, bn_tf=cfg.bn_tf,
+                   global_pool=cfg.gp, bn_momentum=cfg.bn_momentum,
                    bn_eps=cfg.bn_eps, img_size=(h, w), device=device,
                    seed=cfg.seed, dtype=model_dtype(cfg), **kwargs)
 
