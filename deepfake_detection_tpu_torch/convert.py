@@ -4,8 +4,8 @@ The inverse of ``tools/convert_torch_checkpoint.py::convert_state_dict``,
 written here so the port needs neither the tool nor msgpack: the JAX
 package's ``{'params', 'batch_stats'}`` tree (numpy arrays) becomes a
 ``{timm name: torch.Tensor}`` state dict.  The family follows from the
-tree: a ``patch_embed`` means ViT or TimeSformer, anything else the
-EfficientNet family.
+tree: a ``patch_embed`` means ViT or TimeSformer, a ``layer1_0`` the
+ResNet-derived families or SENet, anything else the EfficientNet family.
 
 EfficientNet:
 
@@ -30,6 +30,23 @@ EfficientNet:
   ``<bn>.main.bn.*`` → ``<bn>.*`` (the main BN under the module's own
   name) and ``<bn>.aux{i}.bn.*`` → ``<bn>.aux_bn.{i}.*``.
 
+ResNet, gluon_resnet, res2net, sknet and SENet:
+
+* the flat block paths ``layer{s}_{b}/...`` → ``layer{s}.{b}....``; the
+  layouts and leaves as the EfficientNet family's, and ECA's 1-D kernel
+  ``(k, 1, 1)`` → timm's ``(1, 1, k)``;
+* the deep stem ``conv1_{0,1,2}`` / ``stem_bn{0,1}`` → ``conv1.{0,3,6}`` /
+  ``conv1.{1,4}``; SENet's stem (``conv1`` … ``bn3``) → ``layer0.*``;
+* the shortcut ``downsample/{conv,bn}`` → ``downsample.{0,1}``, or
+  ``.{1,2}`` under ``avg_down`` (timm's pool holds index 0; the flax tree
+  does not record it, so the caller says so), SENet's
+  ``downsample_{conv,bn}`` → ``downsample.{0,1}``;
+* res2net's ``convs_{i}``/``bns_{i}`` → ``convs.{i}``/``bns.{i}``;
+* the SK conv's ``path_{i}_{conv,bn}`` → ``paths.{i}.{conv,bn}``,
+  ``attn_fc``/``attn_bn``/``attn_sel`` → ``attn.fc_reduce``/``attn.bn``/
+  ``attn.fc_select``, and an SK block's plain ``conv{n}``/``bn{n}`` →
+  timm's ``ConvBnAct`` ``conv{n}.conv``/``conv{n}.bn``.
+
 ViT and TimeSformer:
 
 * dense kernels ``(in, out)`` → ``(out, in)``, the patch conv HWIO → OIHW
@@ -45,6 +62,7 @@ ViT and TimeSformer:
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -138,6 +156,8 @@ def flax_leaf(name: str) -> str:
 
 
 def _to_torch_layout(v: np.ndarray) -> np.ndarray:
+    if v.ndim == 3:                 # ECA's 1-D conv (k, in, out) → (out, in, k)
+        return np.transpose(v, (2, 1, 0))
     if v.ndim == 5:                 # CondConv (E, kh, kw, in/g, out) → flat
         return np.transpose(v, (0, 4, 3, 1, 2)).reshape(v.shape[0], -1)
     if v.ndim == 4:
@@ -171,12 +191,67 @@ def _qkv_to_timm(v: np.ndarray, num_heads: Optional[int]) -> np.ndarray:
     return np.swapaxes(v, -3, -2).reshape(v.shape[:-3] + (3 * num_heads * d,))
 
 
+_SENET_STEM = {"conv1", "bn1", "conv2", "bn2", "conv3", "bn3"}
+_DEEP_STEM = {"conv1_0": "conv1.0", "stem_bn0": "conv1.1",
+              "conv1_1": "conv1.3", "stem_bn1": "conv1.4",
+              "conv1_2": "conv1.6"}
+_SK_ATTN = {"attn_fc": "attn.fc_reduce", "attn_bn": "attn.bn",
+            "attn_sel": "attn.fc_select"}
+
+
+def _map_resnet(parts: Tuple[str, ...], senet: bool, sk: bool,
+                avg_down: bool) -> Tuple[str, bool]:
+    """flax path of a ResNet-family or SENet leaf → (timm name, is a BN
+    leaf); see the module docstring."""
+    leaf = parts[-1]
+    is_bn = leaf in ("scale", "mean", "var") or parts[-2] == "bn"
+    mods = list(parts[:-1])
+    # the Conv2d / BatchNorm2d wrappers' inner module; ECA's own nn.Conv
+    # (``se/conv``, the only 1-D kernel) is a module of its block
+    if len(mods) > 1 and mods[-1] in ("conv", "bn") and \
+            mods[-2:] != ["se", "conv"]:
+        mods.pop()
+    head = mods[0]
+    if head.startswith("layer"):
+        s, b = head[len("layer"):].split("_")
+        out = [f"layer{s}", b]
+        rest = mods[1:]
+        if rest[0] in ("downsample", "downsample_conv", "downsample_bn"):
+            kind = rest[-1] if rest[0] == "downsample" else rest[0][11:]
+            index = (kind == "bn") + (avg_down and not senet)
+            out += ["downsample", str(index)]
+        elif re.fullmatch(r"(convs|bns)_\d+", rest[0]):
+            out += rest[0].split("_")
+        elif len(rest) > 1 and rest[1].startswith("path_"):
+            _, i, kind = rest[1].split("_")
+            out += [rest[0], "paths", i, kind]
+        elif len(rest) > 1 and rest[1] in _SK_ATTN:
+            out += [rest[0], _SK_ATTN[rest[1]]]
+        elif sk and len(rest) == 1 and re.fullmatch(r"(conv|bn)\d", rest[0]):
+            out += [f"conv{rest[0][-1]}", rest[0][:-1]]
+        else:
+            out += rest
+    elif head in _DEEP_STEM:
+        out = [_DEEP_STEM[head]]
+    elif senet and head in _SENET_STEM:
+        out = ["layer0", head]
+    else:
+        out = mods
+    name = ".".join(out)
+    if is_bn:
+        return _bn_name(name, leaf), True
+    return f"{name}.{_W_LEAF[leaf]}", False
+
+
 def state_dict_from_flax(variables: Dict[str, Any],
-                         num_heads: Optional[int] = None
+                         num_heads: Optional[int] = None,
+                         avg_down: bool = False
                          ) -> Dict[str, torch.Tensor]:
-    """``{'params': ..., 'batch_stats': ...}`` of an EfficientNet, or
-    ``{'params': ...}`` of a ViT or TimeSformer with ``num_heads`` heads →
-    the port's state dict (float32 tensors that own their memory)."""
+    """``{'params': ..., 'batch_stats': ...}`` of an EfficientNet, a
+    ResNet-family model (``avg_down``: its shortcuts pool first) or a
+    SENet, or ``{'params': ...}`` of a ViT or TimeSformer with
+    ``num_heads`` heads → the port's state dict (float32 tensors that own
+    their memory)."""
     params = variables.get("params", {})
     if "patch_embed" in params:
         sd = {}
@@ -189,11 +264,20 @@ def state_dict_from_flax(variables: Dict[str, Any],
                 parts[-1] == "kernel" else arr
             sd[name] = torch.from_numpy(np.ascontiguousarray(arr).copy())
         return sd
+    map_path = _map_path
+    trees = [variables.get(c, {}) for c in ("params", "batch_stats")]
+    if any("layer1_0" in tree for tree in trees):
+        paths = [p for tree in trees for p in _flatten(tree)]
+        senet = any("se_module" in p or "downsample_bn" in p for p in paths)
+        sk = any("path_0_conv" in p or "path_0_bn" in p for p in paths)
+
+        def map_path(parts):
+            return _map_resnet(parts, senet, sk, avg_down)
     sd: Dict[str, torch.Tensor] = {}
     bn_bases = set()
     for collection in ("params", "batch_stats"):
         for parts, v in _flatten(variables.get(collection, {})).items():
-            name, is_bn = _map_path(parts)
+            name, is_bn = map_path(parts)
             if name in sd:
                 raise KeyError(f"two flax leaves map to {name}")
             arr = _to_torch_layout(np.asarray(v, np.float32))

@@ -59,13 +59,14 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
 from ..chaos import CHAOS_ENV_VAR, chaos_from_env
-from ..params import img_mean, img_std
+from .config import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD
 from .dataset import AugMixDataset
 from .device_augment import (DeviceAugmentSpec, apply_color_jitter,
                              derive_geometric_batch, derive_mixup_lam,
@@ -319,22 +320,35 @@ class Prologue:
 
     def __init__(self, device, img_num: int = 4,
                  spec: Optional[DeviceAugmentSpec] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 mean: Sequence[float] = IMAGENET_DEFAULT_MEAN,
+                 std: Sequence[float] = IMAGENET_DEFAULT_STD):
         self.img_num = img_num
         self.spec = spec
         self.dtype = dtype
-        # ImageNet's mean and std ×255, tiled to every frame.  f32: the JAX
-        # DeviceLoader's compiled prologue divides by the constant std as a
-        # multiply by its f32 reciprocal, and so does this one.  bf16: it
-        # rounds x, mean and std to bf16 (0.485·255 = 123.675 becomes
-        # 123.5) and rounds the difference before the true division, as XLA
-        # compiles it on the CPU (bitwise, tests/test_torch_amp.py)
-        mean = torch.from_numpy(np.tile(img_mean, img_num)).to(device)
-        std = torch.from_numpy(np.tile(img_std, img_num)).to(device)
+        # a frame's mean and std ×255 (in f32, as the JAX DeviceLoader),
+        # tiled to every frame.  f32: the JAX DeviceLoader's compiled
+        # prologue divides by the constant std as a multiply by its f32
+        # reciprocal, and so does this one.  bf16: it rounds x, mean and
+        # std to bf16 (0.485·255 = 123.675 becomes 123.5) and rounds the
+        # difference before the true division, as XLA compiles it on the
+        # CPU (bitwise, tests/test_torch_amp.py)
+        frame_mean = np.asarray(mean, np.float32) * 255.0
+        frame_std = np.asarray(std, np.float32) * 255.0
+        if frame_mean.shape != (3,) or frame_std.shape != (3,):
+            # the JAX runner replicates one --mean/--std value to every
+            # input channel and then tiles it per frame, which its
+            # prologue cannot broadcast (ROADMAP, faults in the JAX
+            # package): a frame takes three values
+            raise ValueError(
+                f"mean/std need one value per RGB channel of a frame (3), "
+                f"tiled over the {img_num} frames; got {len(frame_mean)} "
+                f"and {len(frame_std)}")
+        mean = torch.from_numpy(np.tile(frame_mean, img_num)).to(device)
+        std_t = np.tile(frame_std, img_num)
         self.mean = mean.to(dtype)
-        self.std = std.to(dtype)
-        self.inv_std = torch.from_numpy(
-            np.float32(1.0) / np.tile(img_std, img_num)).to(device)
+        self.std = torch.from_numpy(std_t).to(device).to(dtype)
+        self.inv_std = torch.from_numpy(np.float32(1.0) / std_t).to(device)
 
     def warp(self, images: torch.Tensor, coeffs: torch.Tensor):
         return device_geometric(images, coeffs, self.spec.size)
@@ -498,10 +512,13 @@ def _build_loader(dataset, transform, batch_size: int, is_training: bool,
                   spec: Optional[DeviceAugmentSpec], color_jitter, flicker,
                   erasing, dtype: torch.dtype,
                   num_aug_splits: int = 0, loader_backend: str = "thread",
-                  ring_depth: int = 4,
-                  worker_heartbeat: float = 120.0) -> DeviceLoader:
+                  ring_depth: int = 4, worker_heartbeat: float = 120.0,
+                  mean: Sequence[float] = IMAGENET_DEFAULT_MEAN,
+                  std: Sequence[float] = IMAGENET_DEFAULT_STD
+                  ) -> DeviceLoader:
     """Shared tail of the factories: the AugMix wrap, transform, sampler,
-    host transport (``loader_backend``), prologue."""
+    host transport (``loader_backend``), prologue (normalizing by a
+    frame's ``mean`` and ``std``)."""
     if loader_backend not in LOADER_BACKENDS:
         raise ValueError(f"loader_backend must be one of {LOADER_BACKENDS}, "
                          f"got {loader_backend!r}")
@@ -530,7 +547,7 @@ def _build_loader(dataset, transform, batch_size: int, is_training: bool,
                                   heartbeat_timeout=worker_heartbeat, **kw)
     else:
         host = HostLoader(dataset, sampler, batch_size, **kw)
-    prologue = Prologue(device, img_num, spec, dtype)
+    prologue = Prologue(device, img_num, spec, dtype, mean, std)
     return DeviceLoader(host, device, prologue,
                         color_jitter if is_training else None,
                         flicker if is_training else 0.0,
@@ -557,18 +574,21 @@ def create_loader(dataset, batch_size: int, is_training: bool, device,
                   seed: int = 42, prefetch_depth: int = 2,
                   dtype: torch.dtype = torch.float32,
                   num_aug_splits: int = 0, loader_backend: str = "thread",
-                  ring_depth: int = 4,
-                  worker_heartbeat: float = 120.0) -> DeviceLoader:
+                  ring_depth: int = 4, worker_heartbeat: float = 120.0,
+                  mean: Sequence[float] = IMAGENET_DEFAULT_MEAN,
+                  std: Sequence[float] = IMAGENET_DEFAULT_STD
+                  ) -> DeviceLoader:
     """A loader for a dataset that takes no transform (the synthetic one):
-    the AugMix views, collate, the host mixup blend, normalize and erase,
-    in ``dtype``; the host transport ``loader_backend`` (``thread`` or
-    ``shm``, with its ``ring_depth`` and ``worker_heartbeat``)."""
+    the AugMix views, collate, the host mixup blend, normalize (by a
+    frame's ``mean`` and ``std``) and erase, in ``dtype``; the host
+    transport ``loader_backend`` (``thread`` or ``shm``, with its
+    ``ring_depth`` and ``worker_heartbeat``)."""
     return _build_loader(
         dataset, None, batch_size, is_training, device, collate_mixup, seed,
         num_workers, prefetch_depth, img_num, None, None, 0.0,
         _erasing(re_prob, re_mode, re_count, re_split, re_max,
                  num_aug_splits), dtype, num_aug_splits, loader_backend,
-        ring_depth, worker_heartbeat)
+        ring_depth, worker_heartbeat, mean, std)
 
 
 def create_deepfake_loader_v3(
@@ -584,12 +604,14 @@ def create_deepfake_loader_v3(
         augment_device: bool = False,
         dtype: torch.dtype = torch.float32,
         num_aug_splits: int = 0, loader_backend: str = "thread",
-        ring_depth: int = 4,
-        worker_heartbeat: float = 120.0) -> DeviceLoader:
+        ring_depth: int = 4, worker_heartbeat: float = 120.0,
+        mean: Sequence[float] = IMAGENET_DEFAULT_MEAN,
+        std: Sequence[float] = IMAGENET_DEFAULT_STD) -> DeviceLoader:
     """The clip dataset's loader, ``input_size`` ``(C, H, W)``, batches in
-    the compute ``dtype``, the host side on ``loader_backend``'s transport
-    (train and eval alike); where each train stage runs follows the JAX
-    factory's decisions one for one:
+    the compute ``dtype`` normalized by a frame's ``mean`` and ``std``, the
+    host side on ``loader_backend``'s transport (train and eval alike);
+    where each train stage runs follows the JAX factory's decisions one
+    for one:
 
     * ``augment_device``: the passthrough on the host, the whole chain on
       the device (jitter as three values, or one for all three; the collate
@@ -616,7 +638,7 @@ def create_deepfake_loader_v3(
     size = (h, w)
     img_size = h if h == w else size
     transport = dict(loader_backend=loader_backend, ring_depth=ring_depth,
-                     worker_heartbeat=worker_heartbeat)
+                     worker_heartbeat=worker_heartbeat, mean=mean, std=std)
     if not is_training:
         return _build_loader(
             dataset, transforms_deepfake_eval_v3(img_size, crop=eval_crop),

@@ -10,7 +10,8 @@ The JAX factory's family rules hold: the BN keyword arguments reach only
 the EfficientNet and MobileNetV3 families; ``attn_impl`` is checked
 against the five impls and reaches only ViT and TimeSformer (dropped with a
 warning elsewhere); ``drop_block_rate`` is dropped with the JAX warning for
-every family without ``DropBlock2d`` (all the port has); ``global_pool``
+every family without ``DropBlock2d`` and reaches the ResNet-derived ones
+(resnet, res2net, sknet, gluon_resnet); ``global_pool``
 passes through (the TimeSformer refuses any but ``avg``);
 ``drop_connect_rate`` maps onto ``drop_path_rate``.  ``img_size``, which the
 transformers need to size their position embeddings (the JAX modules size
@@ -32,7 +33,8 @@ import torch
 import torch.nn as nn
 
 from ..registry import is_model, is_model_in_modules, model_entrypoint
-from . import efficientnet, mobilenetv3, timesformer, vit  # noqa: F401
+from . import (efficientnet, gluon_resnet, mobilenetv3, res2net,  # noqa: F401
+               resnet, senet, sknet, timesformer, vit)
 from .helpers import load_checkpoint, set_compute_dtype
 
 __all__ = ["resolve_device", "create_model", "create_deepfake_model",
@@ -43,14 +45,20 @@ _logger = logging.getLogger(__name__)
 
 # modules whose generators understand the BN keyword arguments
 _BN_KWARG_MODULES = ("efficientnet", "mobilenetv3")
-# the JAX families that take drop_block_rate (none is ported)
+# the families whose blocks take drop_block_rate
 _DROP_BLOCK_MODULES = ("resnet", "res2net", "sknet", "gluon_resnet")
 # modules with a pluggable attention kernel (and learned position embeddings)
 _ATTN_MODULES = ("vit", "timesformer")
 # model class → seeded init, and whether its convs run in channels_last
 _INITS = {efficientnet.EfficientNet: (efficientnet.init_weights, True),
           vit.VisionTransformer: (vit.init_weights, False),
-          timesformer.TimeSformer: (timesformer.init_weights, False)}
+          timesformer.TimeSformer: (timesformer.init_weights, False),
+          resnet.ResNet: (resnet.init_weights, True),
+          senet.SENet: (resnet.init_weights, True)}
+# module → its default_cfg, for the modules with one config for all names
+_MODULE_CFGS = {"resnet": resnet._cfg, "res2net": resnet._cfg,
+                "sknet": resnet._cfg, "gluon_resnet": gluon_resnet._gluon_cfg,
+                "senet": senet._cfg}
 
 
 def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
@@ -81,12 +89,16 @@ def default_cfg(model_name: str) -> Dict[str, Any]:
     """The registered model's ``default_cfg`` (input size, mean, std, ...)
     without building it; TimeSformer's is for its default 12 channels.  A
     name of the EfficientNet or MobileNetV3 modules without an entry in
-    their table takes the generic one, as its model does."""
+    their table takes the generic one, as its model does; a name of the
+    ResNet-derived and SENet modules its module's one config."""
     for module in (efficientnet, vit, timesformer):
         if model_name in module.default_cfgs:
             return module.default_cfgs[model_name]
     if is_model_in_modules(model_name, _BN_KWARG_MODULES):
         return efficientnet._cfg()
+    for module, cfg in _MODULE_CFGS.items():
+        if is_model_in_modules(model_name, (module,)):
+            return cfg()
     raise KeyError(f"Unknown model {model_name!r}")
 
 

@@ -50,6 +50,18 @@ their kernels; eval reads the main BN alone.  The flagship's line::
     ... scripts/train.sh's flags ... --mixup 0 --aug-splits 3 --jsd \
         --split-bn
 
+Normalization follows the model's name as in the JAX runner
+(``data/config.py``: Inception's 0.5 for ``ception``/``nasnet`` names,
+DPN's for ``dpn``, ImageNet's otherwise) unless ``--mean``/``--std`` give
+a frame's three values (or one for all three).  The input size is
+``--input-size-v2``, ``--input-size`` or ``--img-size``, else the model's
+``default_cfg`` (where the JAX runner takes 3×224²; ROADMAP, faults in the
+JAX package).  The model flags ``--num-classes``, ``--drop``,
+``--drop-path``, ``--drop-block`` (the ResNet-derived families),
+``--bn-eps``, the schedule's ``--cooldown-epochs``, ``--patience-epochs``
+and ``--min-lr``, ``--model-ema-decay`` and ``--pack-image-size`` (the
+pack's resolution, asserted) are the JAX runner's.
+
 Beyond train.sh's line, the JAX runner's optimization flags: ``--grad-accum
 N`` (the loader's batch is ``-b × N``, split strided into N microbatches
 that accumulate into one optimizer step, the lr scaled by N), every
@@ -110,6 +122,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..data.config import resolve_input_size, resolve_mean_std
 from ..data.dataset import DeepFakeClipDataset, SyntheticDataset
 from ..data.loader import (DeviceLoader, create_loader,
                            create_deepfake_loader_v3)
@@ -148,10 +161,7 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 @dataclass
 class TrainConfig:
     """The ported subset of the JAX package's ``TrainConfig``, with its
-    defaults.
-    Fields without a flag in :func:`parse_args` (num_classes, drop, the
-    EMA decay, the schedule's cooldown, patience and floor) keep the
-    reference's defaults."""
+    defaults."""
     data: str = ""
     eval_data: str = ""
     dataset: str = "deepfake_v3"
@@ -188,6 +198,8 @@ class TrainConfig:
     host_color_jitter: bool = False
     host_geom: bool = False
     eval_crop: str = "random"
+    # the expected resolution of --data-packed's pack (0: any)
+    pack_image_size: int = 0
     model: str = "efficientnet_deepfake_v4"
     model_version: str = "v4"
     num_classes: int = 2
@@ -195,8 +207,8 @@ class TrainConfig:
     gp: str = "avg"
     drop: float = 0.0
     drop_path: Optional[float] = None
-    # the JAX factory drops it with a warning for every family the port
-    # has (only its ResNet-style families take DropBlock)
+    # the ResNet-derived families take it; the factory drops it with the
+    # JAX warning for the others
     drop_block: Optional[float] = None
     # TF BN defaults (momentum 0.01, eps 1e-3); passed as given, so a tf_
     # model trains with torch's unless asked, as the JAX runner does
@@ -204,6 +216,12 @@ class TrainConfig:
     bn_momentum: Optional[float] = None
     bn_eps: Optional[float] = None
     input_size_v2: Optional[Tuple[int, int, int]] = None
+    input_size_flag: Optional[Tuple[int, int, int]] = None
+    img_size: Optional[int] = None
+    # a frame's normalization (one value: every channel); None: the model
+    # name's constants (data/config.py)
+    mean: Optional[Tuple[float, ...]] = None
+    std: Optional[Tuple[float, ...]] = None
     batch_size: int = 3
     # microbatches accumulated into one optimizer step (the loader's batch
     # is batch_size × grad_accum, the eval batch is not multiplied)
@@ -272,11 +290,18 @@ class TrainConfig:
         return self.batch_size * world_size * self.basic_lr
 
     def input_size(self) -> Tuple[int, int, int]:
-        """(C, H, W): ``--input-size-v2`` or the registered model's
-        default."""
-        if self.input_size_v2:
-            return tuple(self.input_size_v2)
-        return tuple(default_cfg(self.model)["input_size"])
+        """(C, H, W): ``--input-size-v2``, ``--input-size`` or
+        ``--img-size`` (3 channels), else the registered model's default
+        (``data/config.py``)."""
+        return resolve_input_size(
+            self.input_size_v2, self.input_size_flag, self.img_size) \
+            or tuple(default_cfg(self.model)["input_size"])
+
+    def mean_std(self) -> Tuple[Tuple[float, ...], Tuple[float, ...]]:
+        """A frame's ``(mean, std)``: ``--mean``/``--std`` or the model
+        name's constants, as the JAX runner resolves them."""
+        return resolve_mean_std(self.model, self.input_size()[0], self.mean,
+                                self.std)
 
 
 def _ints(s: str) -> Tuple[int, ...]:
@@ -357,17 +382,34 @@ def parse_args(argv=None) -> TrainConfig:
                         "instead of the one native warp")
     p.add_argument("--eval-crop", choices=["random", "center"],
                    default=d.eval_crop)
+    p.add_argument("--pack-image-size", type=int, default=d.pack_image_size,
+                   help="assert the pack's resolution (needs --data-packed; "
+                        "0: any)")
     p.add_argument("--model", default=d.model)
     p.add_argument("--model-version", default=d.model_version)
     p.add_argument("--gp", choices=["avg", "max", "avgmax", "catavgmax"],
                    default=d.gp, help="global pool")
+    p.add_argument("--num-classes", type=int, default=d.num_classes)
+    p.add_argument("--drop", type=float, default=d.drop,
+                   help="dropout rate before the classifier")
+    p.add_argument("--drop-path", type=float, default=d.drop_path)
     p.add_argument("--drop-block", type=float, default=d.drop_block,
-                   help="DropBlock rate (no ported family takes it; "
-                        "dropped with a warning)")
+                   help="DropBlock rate (resnet, gluon_resnet, res2net and "
+                        "sknet; dropped with a warning elsewhere)")
     p.add_argument("--bn-tf", action="store_true",
                    help="TF BN defaults (momentum 0.01, eps 1e-3)")
     p.add_argument("--bn-momentum", type=float, default=d.bn_momentum)
+    p.add_argument("--bn-eps", type=float, default=d.bn_eps)
     p.add_argument("--input-size-v2", type=_ints, default=d.input_size_v2)
+    p.add_argument("--input-size", type=_ints, dest="input_size_flag",
+                   default=d.input_size_flag, help="C,H,W (after "
+                   "--input-size-v2)")
+    p.add_argument("--img-size", type=int, default=d.img_size,
+                   help="H = W with 3 channels (after --input-size)")
+    p.add_argument("--mean", type=_floats, default=d.mean,
+                   help="a frame's mean, ','-separated (one value: every "
+                        "channel); default: by model name")
+    p.add_argument("--std", type=_floats, default=d.std)
     p.add_argument("-b", "--batch-size", type=int, default=d.batch_size)
     p.add_argument("--grad-accum", type=int, default=d.grad_accum,
                    help="microbatches of -b accumulated into one optimizer "
@@ -385,6 +427,10 @@ def parse_args(argv=None) -> TrainConfig:
     p.add_argument("--epochs", type=int, default=d.epochs)
     p.add_argument("--decay-epochs", type=float, default=d.decay_epochs)
     p.add_argument("--decay-rate", type=float, default=d.decay_rate)
+    p.add_argument("--cooldown-epochs", type=int, default=d.cooldown_epochs)
+    p.add_argument("--patience-epochs", type=int,
+                   default=d.patience_epochs)
+    p.add_argument("--min-lr", type=float, default=d.min_lr)
     p.add_argument("--warmup-lr", type=float, default=d.warmup_lr)
     p.add_argument("--warmup-epochs", type=int, default=d.warmup_epochs,
                    help="epochs of linear warmup from --warmup-lr; epoch 0 "
@@ -402,6 +448,8 @@ def parse_args(argv=None) -> TrainConfig:
                    help="turn the mixup off from this epoch (0: never)")
     p.add_argument("--smoothing", type=float, default=d.smoothing)
     p.add_argument("--model-ema", action="store_true")
+    p.add_argument("--model-ema-decay", type=float,
+                   default=d.model_ema_decay)
     p.add_argument("--amp", action="store_true",
                    help="compute in --compute-dtype (the JAX runner's rule)")
     p.add_argument("--compute-dtype", choices=sorted(_DTYPES),
@@ -459,6 +507,13 @@ def parse_args(argv=None) -> TrainConfig:
     if ns["grad_accum"] < 1:
         raise ValueError(f"--grad-accum must be >= 1, got "
                          f"{ns['grad_accum']}")
+    if ns["pack_image_size"] < 0:
+        raise ValueError(f"--pack-image-size must be >= 0, got "
+                         f"{ns['pack_image_size']}")
+    if ns["pack_image_size"] and not ns["data_packed"]:
+        raise ValueError("--pack-image-size only makes sense with "
+                         "--data-packed (it asserts the pack's resolution, "
+                         "not a resize)")
     if ns["ring_depth"] < 3:
         raise ValueError("--ring-depth must be >= 3 (double buffering "
                          f"needs one spare slab), got {ns['ring_depth']}")
@@ -488,10 +543,12 @@ class Run:
 
 def build_model(cfg: TrainConfig, device) -> torch.nn.Module:
     """The model through the factory's family rules: BN arguments
-    (``--bn-tf`` among them) reach only the EfficientNet and MobileNetV3
-    families, ``attn_impl`` and the input size only the transformers,
-    ``--drop-block`` none (with the JAX warning); ``--gp`` and the compute
-    dtype (:func:`model_dtype`) every family; ``--split-bn`` makes every BN
+    (``--bn-tf``, ``--bn-eps`` among them) reach only the EfficientNet and
+    MobileNetV3 families, ``attn_impl`` and the input size only the
+    transformers, ``--drop-block`` only the ResNet-derived families (the
+    others warn, as JAX); ``--num-classes``, ``--drop``, ``--drop-path``,
+    ``--gp`` and the compute dtype (:func:`model_dtype`) every family
+    (the TimeSformer refuses a dropout); ``--split-bn`` makes every BN
     ``split<max(aug_splits, 2)>``."""
     factory = _MODEL_FACTORIES.get(cfg.model_version)
     if factory is None:
@@ -587,6 +644,7 @@ def build_datasets(cfg: TrainConfig):
     if cfg.data_packed:
         def make_train(**kw):
             return PackedDataset(cfg.data_packed, roots=cfg.data or None,
+                                 image_size=cfg.pack_image_size or None,
                                  **kw)
     else:
         def make_train(**kw):
@@ -609,9 +667,11 @@ def build_loaders(cfg: TrainConfig, device, train_ds, eval_ds
     runner passes), or, for the
     synthetic set, collate, host mixup, normalize and erase; the train
     set's AugMix views under ``--aug-splits``; batches in the compute
-    dtype (the JAX runner's loader dtype).  The train batch is
-    ``batch_size × grad_accum``; the eval batch ``2 × batch_size``."""
+    dtype (the JAX runner's loader dtype), normalized by
+    :meth:`TrainConfig.mean_std`.  The train batch is ``batch_size ×
+    grad_accum``; the eval batch ``2 × batch_size``."""
     c, h, w = cfg.input_size()
+    mean, std = cfg.mean_std()
     batch = cfg.batch_size * cfg.grad_accum
     mixup = FastCollateMixup(cfg.mixup, cfg.smoothing, cfg.num_classes) \
         if cfg.mixup > 0 else None
@@ -623,7 +683,7 @@ def build_loaders(cfg: TrainConfig, device, train_ds, eval_ds
                   dtype=_DTYPES[cfg.compute_dtype],
                   loader_backend=cfg.loader_backend,
                   ring_depth=cfg.ring_depth,
-                  worker_heartbeat=cfg.worker_heartbeat)
+                  worker_heartbeat=cfg.worker_heartbeat, mean=mean, std=std)
     if cfg.dataset == "synthetic":
         img_num = max(1, c // 3)
         return (create_loader(train_ds, batch, True, device,

@@ -846,7 +846,10 @@ def test_backfill_tenant_yields_and_completes_with_exact_books(tmp_path):
         manifest=str(mpath), out=str(out), metrics=m, yield_timeout_s=60.0,
         extra_args=(f"--data-packed {pack} --model efficientnet_deepfake_v4 "
                     "--batch-size 2 --workers 1 --device cpu"),
-        env=dict(os.environ, PYTHONPATH=str(REPO)))
+        # one intra-op thread: torch's spinning pool of a thread a core,
+        # beside a loaded box's other processes, took a worker 125 s for
+        # what it does in 7 s with one (past the 120 s waits below)
+        env=dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1"))
     try:
         tenant.reconcile(idle_slots=1, total_slots=1)
         (proc,) = tenant.workers.values()

@@ -251,12 +251,16 @@ def test_unported_options_raise_at_setup(flag):
         runner.setup(runner.parse_args(ARGS + [flag[0], flag[1] + "x"]))
 
 
-#: flags of the JAX runner ported with this slice's optimization extras,
-#: and the fields they set
+#: flags of the JAX runner ported beside train.sh's line, and the fields
+#: they set
 _PORTED_FLAGS = {"--opt-eps": "opt_eps", "--momentum": "momentum",
                  "--weight-decay": "weight_decay", "--warmup-lr": "warmup_lr",
                  "--warmup-epochs": "warmup_epochs",
-                 "--grad-accum": "grad_accum"}
+                 "--grad-accum": "grad_accum", "--num-classes": "num_classes",
+                 "--drop": "drop", "--drop-path": "drop_path",
+                 "--bn-eps": "bn_eps", "--cooldown-epochs": "cooldown_epochs",
+                 "--patience-epochs": "patience_epochs", "--min-lr": "min_lr",
+                 "--model-ema-decay": "model_ema_decay"}
 
 
 @pytest.mark.parametrize("flag", [
@@ -265,16 +269,14 @@ _PORTED_FLAGS = {"--opt-eps": "opt_eps", "--momentum": "momentum",
     "--cooldown-epochs", "--patience-epochs", "--min-lr", "--model-ema-decay",
     "--grad-accum"])
 def test_flags_outside_the_train_sh_subset_are_argparse_errors(flag):
-    """The JAX runner's flags that the port has not ported have no flag
-    (their TrainConfig fields keep the reference's defaults), so a value
-    for one is refused, not silently run untested; the optimization flags
-    ported beside ``--grad-accum`` parse into their fields."""
-    if flag in _PORTED_FLAGS:
-        cfg = runner.parse_args(ARGS + [flag, "2"])
-        assert getattr(cfg, _PORTED_FLAGS[flag]) == 2
-        return
+    """The JAX runner's flags beyond train.sh's line that the port has
+    ported parse into their fields (all of these, since the model and
+    schedule flags joined the optimization ones); an abbreviation of one
+    is still refused."""
+    cfg = runner.parse_args(ARGS + [flag, "2"])
+    assert getattr(cfg, _PORTED_FLAGS[flag]) == 2
     with pytest.raises(SystemExit):
-        runner.parse_args(ARGS + [flag, "2"])
+        runner.parse_args(ARGS + [flag[:-1], "2"])
 
 
 def test_runner_parses_the_flagship_train_sh_subset():
